@@ -1,0 +1,11 @@
+"""keras_rs_tpu_torch: the PyTorch + CUDA port of keras_rs_tpu.
+
+The JAX package `keras_rs_tpu` stays the reference; this package mirrors
+its module paths and names, imports `torch` and numpy only, and carries
+hand-written CUDA kernels (under `csrc/`, built with nvcc at first use by
+`kernels/`) where the JAX package has Pallas kernels.
+
+First slice: the one-device DLRM-DCNv2 training step and its scoring
+forward (models/dlrm.py), with the fused Adagrad row-update kernel
+(ops/row_ops.py, csrc/row_ops.cu).
+"""

@@ -1,0 +1,34 @@
+"""Synthetic Criteo-shaped batches (numpy copy of
+keras_rs_tpu/data/synthetic.py::criteo_like_batch, so the card needs no
+JAX; the same seed gives the same arrays in both packages)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def criteo_like_batch(
+    batch_size: int,
+    *,
+    num_dense: int = 13,
+    vocab_sizes: list[int] | None = None,
+    multi_hot_sizes: list[int] | None = None,
+    seed: int = 0,
+) -> dict[str, np.ndarray]:
+    """One Criteo-shaped batch: "dense" [B, num_dense] f32 normal,
+    "cat_i" [B, multi_hot_i] uniform ids in [0, vocab_i), and iid random
+    0/1 "label" [B] f32."""
+    rng = np.random.default_rng(seed)
+    if vocab_sizes is None:
+        vocab_sizes = [1000] * 26
+    if multi_hot_sizes is None:
+        multi_hot_sizes = [1] * len(vocab_sizes)
+    out: dict[str, np.ndarray] = {
+        "dense": rng.normal(size=(batch_size, num_dense)).astype(np.float32),
+    }
+    for i, (v, m) in enumerate(zip(vocab_sizes, multi_hot_sizes)):
+        out[f"cat_{i}"] = rng.integers(
+            0, v, size=(batch_size, m), dtype=np.int64
+        )
+    out["label"] = rng.integers(0, 2, size=(batch_size,)).astype(np.float32)
+    return out

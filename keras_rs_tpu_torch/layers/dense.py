@@ -1,0 +1,112 @@
+"""Dense / MLP building blocks (counterpart of keras_rs_tpu/layers/dense.py).
+
+Layout: `kernel` keeps the JAX package's [in, out] layout (y = x @ kernel,
+not nn.Linear's [out, in]), so parameters move between the packages
+without a transpose.
+
+Mixed precision follows the JAX package: with `compute_dtype` the
+operands are cast (typically to bfloat16) and the product is cast back to
+the parameter dtype before the bias; `output_dtype` casts the layer's
+output (bf16-resident activations). One difference: jnp.matmul with
+preferred_element_type=f32 keeps the f32 accumulator, while a bf16
+torch.matmul rounds its result to bf16 before the cast back, so the bf16
+paths of the two packages differ by that rounding.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+from torch import nn
+
+from keras_rs_tpu_torch.core import initializers
+
+
+def _dtype(d: Any) -> torch.dtype | None:
+    if d is None or isinstance(d, torch.dtype):
+        return d
+    return getattr(torch, str(d))
+
+
+class Dense(nn.Module):
+    """y = activation(x @ kernel + bias); glorot-uniform kernel, zero bias,
+    f32 parameters."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        *,
+        generator: torch.Generator | None = None,
+        activation: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        compute_dtype: Any = None,
+        output_dtype: Any = None,
+        device: Any = None,
+    ) -> None:
+        super().__init__()
+        self.kernel = nn.Parameter(
+            initializers.GlorotUniform()(
+                (in_features, out_features), torch.float32, device, generator
+            )
+        )
+        self.bias = nn.Parameter(
+            initializers.Zeros()(
+                (out_features,), torch.float32, device, generator
+            )
+        )
+        self.activation = activation
+        self.compute_dtype = _dtype(compute_dtype)
+        self.output_dtype = _dtype(output_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            y = torch.matmul(
+                x.to(self.compute_dtype), self.kernel.to(self.compute_dtype)
+            ).to(self.kernel.dtype)
+        else:
+            y = torch.matmul(x, self.kernel)
+        y = y + self.bias
+        if self.activation is not None:
+            y = self.activation(y)
+        if self.output_dtype is not None:
+            y = y.to(self.output_dtype)
+        return y
+
+
+class MLP(nn.Module):
+    """Stack of Dense layers with ReLU between them, e.g. DLRM's bottom and
+    top towers. Hidden outputs take `output_dtype`; the final output has
+    no activation and stays f32."""
+
+    def __init__(
+        self,
+        in_features: int,
+        units: Sequence[int],
+        *,
+        generator: torch.Generator | None = None,
+        compute_dtype: Any = None,
+        output_dtype: Any = None,
+        device: Any = None,
+    ) -> None:
+        super().__init__()
+        layers = []
+        prev = in_features
+        for i, u in enumerate(units):
+            last = i == len(units) - 1
+            layers.append(
+                Dense(
+                    prev, u, generator=generator,
+                    activation=None if last else torch.relu,
+                    compute_dtype=compute_dtype,
+                    output_dtype=None if last else output_dtype,
+                    device=device,
+                )
+            )
+            prev = u
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x

@@ -1,0 +1,268 @@
+"""DistributedEmbedding: the user-facing stacked embedding layer (D = 1).
+
+Counterpart of keras_rs_tpu/layers/embedding/distributed_embedding.py on
+one device: per-table placement ("sharded" tables go to the stacked
+engine of lookup.py, "default_device" tables to EmbedReduce), table
+sharing by TableConfig identity, auto table stacking, host-side
+`preprocess`, and table import/export.
+
+Usage:
+    layer = DistributedEmbedding(feature_configs, generator=g, device=dev)
+    pre = layer.preprocess(inputs)   # host numpy COO, moved to `dev`
+    activations = layer(pre)         # backward updates the stacked
+                                     # tables in place (Overwrite contract)
+
+Not ported yet: multi-device sharding, stats tracking and capacity
+growth, freeze / serving_copy, ragged and sparse inputs, serialization.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from keras_rs_tpu_torch.layers.embedding.config import (
+    FeatureConfig,
+    TableConfig,
+)
+from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
+from keras_rs_tpu_torch.layers.embedding.lookup import (
+    init_stack_state,
+    split_activations,
+    stack_lookup,
+)
+from keras_rs_tpu_torch.layers.embedding.preprocessing import (
+    CooBatch,
+    preprocess_stack,
+)
+from keras_rs_tpu_torch.layers.embedding.stacking import (
+    TableStack,
+    build_stacks,
+    gather_table,
+    init_stack_table,
+    scatter_table,
+)
+
+PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
+
+
+def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
+    """The D = 1 lookup's arrays of a CooBatch, flattened, on `device`.
+
+    Gather indices become int64 once per batch (on the device, so the
+    host moves int32); `unique_slots` stays int32 for the row kernel.
+    """
+    if coo.fwd_slots is None:
+        raise ValueError(
+            "No construction-order arrays: a feature's ids differ from "
+            "its configured (batch, valence), or max_ids_per_partition is "
+            "below the stack's entry count."
+        )
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(
+            device
+        )
+
+    return {
+        "fwd_slots": put(coo.fwd_slots).long(),
+        "fwd_gains": put(coo.fwd_gains),
+        "recv_segs": put(coo.send_segs).long(),
+        "recv_gains": put(coo.send_gains),
+        "entry_unique": put(coo.entry_unique).long(),
+        "unique_slots": put(coo.unique_slots),
+    }
+
+
+def _as_tensor(x: np.ndarray | torch.Tensor) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x)
+    )
+
+
+class DistributedEmbedding(nn.Module):
+    def __init__(
+        self,
+        feature_configs: Mapping[str, FeatureConfig],
+        *,
+        generator: torch.Generator | None = None,
+        device: Any = None,
+    ) -> None:
+        super().__init__()
+        self._keys = list(feature_configs)
+        leaves = list(feature_configs.values())
+        for leaf in leaves:
+            if not isinstance(leaf, FeatureConfig):
+                raise ValueError(
+                    f"Expected FeatureConfig values, got {type(leaf)}."
+                )
+        names = [fc.name for fc in leaves]
+        if len(set(names)) != len(names):
+            raise ValueError(f"Duplicate feature names: {names}")
+        self._feature_leaves = leaves
+        self.device = torch.device(device if device is not None else "cpu")
+
+        # Placement on one device: "auto" resolves to default_device,
+        # as in the JAX package with a one-device mesh.
+        def sharded(table: TableConfig) -> bool:
+            return table.placement in ("sharded", "sparsecore")
+
+        sharded_fcs = [fc for fc in leaves if sharded(fc.table)]
+        dense_fcs = [fc for fc in leaves if not sharded(fc.table)]
+
+        self.stacks: tuple[TableStack, ...] = tuple(
+            build_stacks(sharded_fcs, 1)
+        )
+        table_configs = {fc.table.name: fc.table for fc in leaves}
+        for i, stack in enumerate(self.stacks):
+            table = init_stack_table(
+                stack, table_configs, generator, self.device
+            )
+            state = init_stack_state(stack, table)
+            del table
+            self.register_buffer(f"stack{i}_table", state["table"])
+            self.register_buffer(f"stack{i}_step", state["step"])
+
+        self.dense_tables = nn.ModuleDict()
+        self._dense_feature_to_table: dict[str, str] = {}
+        for fc in dense_fcs:
+            t = fc.table
+            self._dense_feature_to_table[fc.name] = t.name
+            if t.name not in self.dense_tables:
+                self.dense_tables[t.name] = EmbedReduce(
+                    t.vocabulary_size,
+                    t.embedding_dim,
+                    generator=generator,
+                    embeddings_initializer=t.initializer,
+                    combiner=t.combiner,
+                    device=self.device,
+                    name=t.name,
+                )
+
+    # ------------------------------------------------------------------
+    def stack_state(self, i: int) -> dict[str, torch.Tensor]:
+        """{"table": [R, stride, dim], "step": []} of stack i (the
+        registered buffers themselves, updated in place)."""
+        return {
+            "table": getattr(self, f"stack{i}_table"),
+            "step": getattr(self, f"stack{i}_step"),
+        }
+
+    def _match_features(
+        self, structure: Mapping[str, Any], allow_partial: bool = False
+    ) -> dict[str, Any]:
+        """Binds a mapping keyed like feature_configs to feature names
+        (`allow_partial`: missing keys, e.g. of weights, give None)."""
+        unknown = set(structure) - set(self._keys)
+        missing = set(self._keys) - set(structure)
+        if unknown or (missing and not allow_partial):
+            raise ValueError(
+                "Feature inputs do not match the layer's features: unknown "
+                f"{sorted(unknown)}, missing {sorted(missing)}."
+            )
+        return {
+            fc.name: structure.get(k)
+            for k, fc in zip(self._keys, self._feature_leaves)
+        }
+
+    def preprocess(
+        self, inputs: Any, weights: Any = None
+    ) -> dict[str, Any]:
+        """Host-side COO preprocessing; returns a marker-wrapped dict of
+        device tensors to pass to `__call__`."""
+        in_leaves = self._match_features(inputs)
+        w_leaves = (
+            self._match_features(weights, allow_partial=True)
+            if weights is not None
+            else {fc.name: None for fc in self._feature_leaves}
+        )
+        for fc in self._feature_leaves:
+            target = (
+                (fc.batch_size, -1) if fc.reduced else (fc.batch_size,)
+            )
+            in_leaves[fc.name] = np.asarray(in_leaves[fc.name]).reshape(
+                target
+            )
+            if w_leaves.get(fc.name) is not None:
+                w_leaves[fc.name] = np.asarray(
+                    w_leaves[fc.name], np.float32
+                ).reshape(target)
+
+        sharded = {}
+        for stack in self.stacks:
+            coo, _ = preprocess_stack(
+                stack,
+                {f.name: in_leaves[f.name] for f in stack.features},
+                {
+                    f.name: w_leaves[f.name]
+                    for f in stack.features
+                    if w_leaves[f.name] is not None
+                },
+            )
+            sharded[stack.name] = coo_to_device(coo, self.device)
+
+        dense = {}
+        for name in self._dense_feature_to_table:
+            ids = torch.from_numpy(np.asarray(in_leaves[name])).to(
+                self.device
+            )
+            w = w_leaves.get(name)
+            if w is not None:
+                w = torch.from_numpy(w).to(self.device)
+            dense[name] = (ids, w)
+        return {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+
+    def forward(self, inputs: Any, weights: Any = None) -> Any:
+        """Looks up embeddings; accepts raw inputs or preprocessed ones.
+        Returns the activations keyed like feature_configs."""
+        if not (isinstance(inputs, dict) and PREPROCESSED_KEY in inputs):
+            inputs = self.preprocess(inputs, weights)
+        acts_by_name: dict[str, torch.Tensor] = {}
+        for i, stack in enumerate(self.stacks):
+            acts = stack_lookup(
+                stack, self.stack_state(i), inputs["sharded"][stack.name]
+            )
+            acts_by_name.update(split_activations(stack, acts))
+        for name, (ids, w) in inputs["dense"].items():
+            table = self.dense_tables[self._dense_feature_to_table[name]]
+            acts_by_name[name] = table(ids, w)
+
+        outs = []
+        for fc in self._feature_leaves:
+            act = acts_by_name[fc.name]
+            out_shape = tuple(fc.output_shape[:-1]) + (act.shape[-1],)
+            outs.append(act.reshape(out_shape))
+        return dict(zip(self._keys, outs))
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def get_embedding_tables(self) -> dict[str, torch.Tensor]:
+        """Unstacked [vocab, dim] tables by name (copies)."""
+        out = {}
+        for i, stack in enumerate(self.stacks):
+            packed = self.stack_state(i)["table"]
+            for ts in stack.tables:
+                out[ts.name] = gather_table(stack, packed, ts.name)
+        for name, layer in self.dense_tables.items():
+            out[name] = layer.embeddings.detach().clone()
+        return out
+
+    @torch.no_grad()
+    def set_embedding_tables(
+        self, tables: Mapping[str, np.ndarray | torch.Tensor]
+    ) -> None:
+        """Writes [vocab, dim] values into the stacked state (table rows
+        only; optimizer slots are untouched) and the dense tables."""
+        for i, stack in enumerate(self.stacks):
+            packed = self.stack_state(i)["table"]
+            for ts in stack.tables:
+                if ts.name in tables:
+                    scatter_table(
+                        stack, packed, ts.name, _as_tensor(tables[ts.name])
+                    )
+        for name, layer in self.dense_tables.items():
+            if name in tables:
+                layer.embeddings.copy_(_as_tensor(tables[name]))

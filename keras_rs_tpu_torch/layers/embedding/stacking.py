@@ -1,0 +1,321 @@
+"""Table stacking and MOD-sharded layout (jax-free).
+
+Counterpart of keras_rs_tpu/layers/embedding/stacking.py, with the same
+layout so that preprocessing output and exported tables agree bit for
+bit with the JAX package:
+
+  * each table's vocabulary is padded up to a multiple of D (shards);
+  * global row r of table t lives on shard `(r + rot_t) % D` at local
+    slot `offset_t + r // D`, rot_t = the table's index in its stack;
+  * per-shard blocks of all tables in the stack are concatenated, plus
+    one trailing sink row (`rows_per_shard - 1`) that absorbs padding
+    traffic;
+  * stack_dim = max table dim rounded up to a multiple of 8.
+
+The port runs at D = 1 so far; the layout keeps D so that the D > 1 path
+can reuse it. The bit-packed bf16 layout of the JAX package is not
+ported (it exists for a TPU DMA limit).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Sequence
+
+import torch
+
+from keras_rs_tpu_torch.core import initializers as init_lib
+from keras_rs_tpu_torch.layers.embedding import optimizers as opt_lib
+from keras_rs_tpu_torch.layers.embedding.config import (
+    FeatureConfig,
+    TableConfig,
+)
+from keras_rs_tpu_torch.utils.shape_utils import round_up as _round_up
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedTableSpec:
+    """Static layout of one table inside a stack."""
+
+    name: str
+    vocabulary_size: int
+    embedding_dim: int
+    padded_vocab: int  # multiple of num_shards
+    local_offset: int  # first local slot of this table on every shard
+    combiner: str
+    rotation: int = 0  # shard rotation: row r lives on (r + rotation) % D
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedFeatureSpec:
+    """Static binding of one feature to its stack."""
+
+    name: str
+    table_name: str
+    stack_name: str
+    feature_index: int  # block index within the stack's sample space
+    batch_size: int  # global batch
+    valence: int
+    embedding_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TableStack:
+    """One fused, sharded table group."""
+
+    name: str
+    num_shards: int
+    stack_dim: int
+    rows_per_shard: int  # includes the trailing sink row
+    tables: tuple[StackedTableSpec, ...]
+    features: tuple[StackedFeatureSpec, ...]
+    optimizer: opt_lib.EmbeddingOptimizer
+    max_ids_per_partition: int  # capacity C of each (src, dst) bucket
+    max_unique_ids_per_shard: int  # capacity U of per-shard unique list
+    dtype: str = "float32"
+    #: Packed state layout: the table row and its optimizer-slot rows
+    #: form the [state_stride, dim] block of one 3-D
+    #: [global_rows, state_stride, dim] array, so one unique row's
+    #: table + slots are one contiguous byte range and the backward's
+    #: update is one read-modify-write per row (ops/row_ops.py).
+    packed_state: bool = False
+
+    @property
+    def state_stride(self) -> int:
+        """Rows per logical row in the state array (1 + #slots if packed)."""
+        return (
+            1 + len(self.optimizer.slot_names) if self.packed_state else 1
+        )
+
+    @property
+    def sink_slot(self) -> int:
+        return self.rows_per_shard - 1
+
+    @property
+    def construction_entries(self) -> int:
+        """Total id slots in construction order (features concatenated,
+        each sample-major (B, valence), invalid ids included)."""
+        return sum(f.batch_size * f.valence for f in self.features)
+
+    @property
+    def construction_fwd(self) -> bool:
+        """Whether the D == 1 construction-order forward applies: one
+        shard, and every entry fits the bucket (N <= C), so the combiner
+        reduce is a dense per-feature reshape-sum with no drops."""
+        return (
+            self.num_shards == 1
+            and self.construction_entries <= self.max_ids_per_partition
+        )
+
+    @property
+    def global_rows(self) -> int:
+        return self.num_shards * self.rows_per_shard
+
+    @property
+    def num_features(self) -> int:
+        return len(self.features)
+
+    @property
+    def batch_size(self) -> int:
+        return self.features[0].batch_size
+
+    def table_spec(self, name: str) -> StackedTableSpec:
+        for t in self.tables:
+            if t.name == name:
+                return t
+        raise KeyError(name)
+
+
+def _optimizer_key(table: TableConfig) -> str:
+    opt = opt_lib.get(table.optimizer)
+    return f"{opt.name}:{sorted(opt.get_config().items())}"
+
+
+def build_stacks(
+    feature_configs: Sequence[FeatureConfig], num_shards: int
+) -> list[TableStack]:
+    """Groups tables into stacks and computes the sharded layout.
+
+    Tables with the same optimizer, padded dim and dtype share a stack
+    (the JAX package's "auto" stacking); table t's rows are rotated by
+    its index in the stack.
+    """
+    tables: list[TableConfig] = []
+    table_features: dict[int, list[FeatureConfig]] = {}
+    for fc in feature_configs:
+        tid = id(fc.table)
+        if tid not in table_features:
+            tables.append(fc.table)
+            table_features[tid] = []
+        table_features[tid].append(fc)
+
+    names = [t.name for t in tables]
+    if len(set(names)) != len(names):
+        raise ValueError(f"Duplicate table names: {names}")
+
+    groups: dict[str, list[TableConfig]] = {}
+    for t in tables:
+        key = (
+            f"{_optimizer_key(t)}|dim{_round_up(t.embedding_dim, 8)}"
+            f"|{t.dtype}"
+        )
+        groups.setdefault(key, []).append(t)
+
+    stacks = []
+    for group in groups.values():
+        stack_dim = max(_round_up(t.embedding_dim, 8) for t in group)
+        specs: list[StackedTableSpec] = []
+        offset = 0
+        for ti, t in enumerate(group):
+            padded = _round_up(t.vocabulary_size, num_shards)
+            specs.append(
+                StackedTableSpec(
+                    name=t.name,
+                    vocabulary_size=t.vocabulary_size,
+                    embedding_dim=t.embedding_dim,
+                    padded_vocab=padded,
+                    local_offset=offset,
+                    combiner=t.combiner,
+                    rotation=ti % num_shards,
+                )
+            )
+            offset += padded // num_shards
+
+        stack_name = "_".join(t.name for t in group)
+        if len(stack_name) > 64:
+            digest = hashlib.sha1(stack_name.encode()).hexdigest()[:8]
+            stack_name = f"{stack_name[:55]}_{digest}"
+        feature_specs: list[StackedFeatureSpec] = []
+        batch_sizes = set()
+        for t in group:
+            for fc in table_features[id(t)]:
+                batch_sizes.add(fc.batch_size)
+                feature_specs.append(
+                    StackedFeatureSpec(
+                        name=fc.name,
+                        table_name=t.name,
+                        stack_name=stack_name,
+                        feature_index=len(feature_specs),
+                        batch_size=fc.batch_size,
+                        valence=fc.valence,
+                        embedding_dim=t.embedding_dim,
+                    )
+                )
+        if len(batch_sizes) != 1:
+            raise ValueError(
+                "All features of stacked tables must share the same global "
+                f"batch size; got {sorted(batch_sizes)} in stack "
+                f"{stack_name}."
+            )
+        if batch_sizes.pop() % num_shards != 0:
+            raise ValueError(
+                "Global batch size must be divisible by the number of "
+                f"shards ({num_shards})."
+            )
+
+        optimizer = opt_lib.get(group[0].optimizer)
+        n_slots = len(optimizer.slot_names)
+        # The packed rule of the JAX package (stacking.py:313-319), kept
+        # so both packages agree on which stacks are packed.
+        packed = (
+            group[0].dtype == "float32"
+            and n_slots >= 1
+            and stack_dim % 128 == 0
+            and (1 + n_slots) * stack_dim <= 512
+        )
+        stacks.append(
+            TableStack(
+                name=stack_name,
+                num_shards=num_shards,
+                stack_dim=stack_dim,
+                rows_per_shard=offset + 1,  # + sink row
+                tables=tuple(specs),
+                features=tuple(feature_specs),
+                optimizer=optimizer,
+                max_ids_per_partition=max(
+                    t.max_ids_per_partition for t in group
+                ),
+                max_unique_ids_per_shard=(
+                    max(t.max_unique_ids_per_partition for t in group)
+                    * num_shards
+                ),
+                dtype=group[0].dtype,
+                packed_state=packed,
+            )
+        )
+    return stacks
+
+
+def _global_rows_of(stack: TableStack, t: StackedTableSpec,
+                    device) -> torch.Tensor:
+    """Stacked global row of each logical row r < vocabulary_size."""
+    D = stack.num_shards
+    r = torch.arange(t.vocabulary_size, device=device)
+    return (
+        (r + t.rotation) % D
+    ) * stack.rows_per_shard + t.local_offset + r // D
+
+
+def init_stack_table(
+    stack: TableStack,
+    table_configs: dict[str, TableConfig],
+    generator: torch.Generator | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Materializes the stacked global array [D * rows_per_shard, dim].
+
+    Each table draws from its own initializer at its true
+    [vocabulary_size, embedding_dim] (so fan-based initializers see the
+    table's dim), is written to its MOD-interleaved rows, and every other
+    row (dim padding, vocab padding, the sink) is zero.
+    """
+    out = torch.zeros(
+        (stack.global_rows, stack.stack_dim), dtype=torch.float32,
+        device=device,
+    )
+    for t in stack.tables:
+        initializer = init_lib.get(table_configs[t.name].initializer)
+        values = initializer(
+            (t.vocabulary_size, t.embedding_dim), torch.float32, device,
+            generator,
+        )
+        out[_global_rows_of(stack, t, device), : t.embedding_dim] = values
+    return out
+
+
+def gather_table(
+    stack: TableStack, state_table: torch.Tensor, table_name: str
+) -> torch.Tensor:
+    """Unstacks one table back to [vocab, dim].
+
+    `state_table` is [global_rows, dim] (split) or the packed 3-D
+    [global_rows, state_stride, dim] state, whose table rows are the
+    leading row of each block.
+    """
+    t = stack.table_spec(table_name)
+    arr = state_table[:, 0] if state_table.ndim == 3 else state_table
+    idx = _global_rows_of(stack, t, state_table.device)
+    return arr[idx, : t.embedding_dim]
+
+
+def scatter_table(
+    stack: TableStack,
+    state_table: torch.Tensor,
+    table_name: str,
+    values: torch.Tensor,
+) -> None:
+    """Writes [vocab, dim] values for one table into the stacked state,
+    in place (slot rows of a packed state are untouched)."""
+    t = stack.table_spec(table_name)
+    if tuple(values.shape) != (t.vocabulary_size, t.embedding_dim):
+        raise ValueError(
+            f"Expected shape {(t.vocabulary_size, t.embedding_dim)}, got "
+            f"{tuple(values.shape)}."
+        )
+    idx = _global_rows_of(stack, t, state_table.device)
+    values = values.to(state_table.device, state_table.dtype)
+    if state_table.ndim == 3:
+        state_table[idx, 0, : t.embedding_dim] = values
+    else:
+        state_table[idx, : t.embedding_dim] = values

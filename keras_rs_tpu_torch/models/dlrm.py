@@ -1,0 +1,220 @@
+"""DLRM-DCNv2 (counterpart of keras_rs_tpu/models/dlrm.py).
+
+Bottom MLP over dense features -> concat with large-vocabulary (stacked
+DistributedEmbedding) and small-vocabulary (EmbedReduce) embedding
+activations -> DCNv2 low-rank FeatureCross layers -> top MLP -> logit.
+Features with vocabulary >= embedding_threshold are "large".
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from keras_rs_tpu_torch.layers.dense import MLP, _dtype
+from keras_rs_tpu_torch.layers.embedding import optimizers as opt_lib
+from keras_rs_tpu_torch.layers.embedding.config import (
+    FeatureConfig,
+    TableConfig,
+)
+from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
+    DistributedEmbedding,
+)
+from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
+from keras_rs_tpu_torch.layers.feature_interaction.feature_cross import (
+    FeatureCross,
+)
+
+
+class DLRMConfig:
+    """Criteo-shaped configuration, with the JAX package's defaults
+    (the MLPerf widths; bf16 compute and bf16-resident activations).
+    Large tables train with Adagrad (the packed state and kernel B1);
+    the JAX package's table_dtype, embedding_optimizer and
+    embedding_comm_dtype are not ported yet."""
+
+    def __init__(
+        self,
+        vocab_sizes: Sequence[int],
+        multi_hot_sizes: Sequence[int] | None = None,
+        num_dense_features: int = 13,
+        embedding_dim: int = 128,
+        bottom_mlp: Sequence[int] = (512, 256, 128),
+        top_mlp: Sequence[int] = (1024, 1024, 512, 256, 1),
+        num_dcn_layers: int = 3,
+        dcn_projection_dim: int = 512,
+        embedding_threshold: int = 21000,
+        max_ids_per_partition: int = 8192,
+        max_unique_ids_per_partition: int = 4096,
+        learning_rate: float = 0.0034,
+        global_batch_size: int = 256,
+        table_placement: str = "auto",
+        compute_dtype: str | None = "bfloat16",
+        dense_output_dtype: str | None = "bfloat16",
+    ):
+        self.vocab_sizes = list(vocab_sizes)
+        self.multi_hot_sizes = list(
+            multi_hot_sizes
+            if multi_hot_sizes is not None
+            else [1] * len(vocab_sizes)
+        )
+        self.num_dense_features = num_dense_features
+        self.embedding_dim = embedding_dim
+        self.bottom_mlp = list(bottom_mlp)
+        self.top_mlp = list(top_mlp)
+        self.num_dcn_layers = num_dcn_layers
+        self.dcn_projection_dim = dcn_projection_dim
+        self.embedding_threshold = embedding_threshold
+        self.max_ids_per_partition = max_ids_per_partition
+        self.max_unique_ids_per_partition = max_unique_ids_per_partition
+        self.learning_rate = learning_rate
+        self.global_batch_size = global_batch_size
+        self.table_placement = table_placement
+        self.compute_dtype = compute_dtype
+        #: None/"float32" keeps f32 activations; "bfloat16" keeps the
+        #: DCN/top-MLP stream in bf16 (parameters and bias adds stay f32).
+        self.dense_output_dtype = (
+            None if dense_output_dtype == "float32"
+            else dense_output_dtype
+        )
+
+
+class DLRMDCNv2(nn.Module):
+    def __init__(
+        self,
+        config: DLRMConfig,
+        *,
+        generator: torch.Generator | None = None,
+        device: Any = None,
+    ) -> None:
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.large_idx = [
+            i
+            for i, v in enumerate(cfg.vocab_sizes)
+            if v >= cfg.embedding_threshold
+        ]
+        self.small_idx = [
+            i
+            for i, v in enumerate(cfg.vocab_sizes)
+            if v < cfg.embedding_threshold
+        ]
+
+        feature_configs = {}
+        for i in self.large_idx:
+            table = TableConfig(
+                name=f"table_{i}",
+                vocabulary_size=cfg.vocab_sizes[i],
+                embedding_dim=cfg.embedding_dim,
+                optimizer=opt_lib.Adagrad(learning_rate=cfg.learning_rate),
+                combiner="sum",
+                placement=cfg.table_placement,
+                max_ids_per_partition=cfg.max_ids_per_partition,
+                max_unique_ids_per_partition=(
+                    cfg.max_unique_ids_per_partition
+                ),
+            )
+            feature_configs[f"cat_{i}"] = FeatureConfig(
+                name=f"cat_{i}",
+                table=table,
+                input_shape=(cfg.global_batch_size, cfg.multi_hot_sizes[i]),
+                output_shape=(cfg.global_batch_size, cfg.embedding_dim),
+            )
+        self.embedding_layer = (
+            DistributedEmbedding(
+                feature_configs, generator=generator, device=device
+            )
+            if feature_configs
+            else None
+        )
+        self.small_embeddings = nn.ModuleDict(
+            {
+                f"cat_{i}": EmbedReduce(
+                    cfg.vocab_sizes[i],
+                    cfg.embedding_dim,
+                    generator=generator,
+                    combiner="sum",
+                    device=device,
+                    name=f"small_{i}",
+                )
+                for i in self.small_idx
+            }
+        )
+        self.bottom_mlp = MLP(
+            cfg.num_dense_features, cfg.bottom_mlp, generator=generator,
+            compute_dtype=cfg.compute_dtype,
+            output_dtype=cfg.dense_output_dtype, device=device,
+        )
+        concat_dim = cfg.bottom_mlp[-1] + cfg.embedding_dim * len(
+            cfg.vocab_sizes
+        )
+        self.dcn_layers = nn.ModuleList(
+            FeatureCross(
+                concat_dim,
+                generator=generator,
+                projection_dim=cfg.dcn_projection_dim,
+                compute_dtype=cfg.compute_dtype,
+                output_dtype=cfg.dense_output_dtype,
+                device=device,
+            )
+            for _ in range(cfg.num_dcn_layers)
+        )
+        self.top_mlp = MLP(
+            concat_dim, cfg.top_mlp, generator=generator,
+            compute_dtype=cfg.compute_dtype,
+            output_dtype=cfg.dense_output_dtype, device=device,
+        )
+        self.device = torch.device(device if device is not None else "cpu")
+
+    def preprocess(self, batch: dict) -> dict:
+        """Host-side step: COO-preprocess the large features and move the
+        batch to the model's device. `batch` holds numpy arrays: "dense"
+        [B, 13] f32, "cat_i" [B, L_i] ints and optionally "label" [B]."""
+        out = {}
+        for k, v in batch.items():
+            if k.startswith("cat_") and int(k[4:]) in self.large_idx:
+                continue
+            out[k] = torch.from_numpy(np.asarray(v)).to(self.device)
+        if self.embedding_layer is not None:
+            out["large_pre"] = self.embedding_layer.preprocess(
+                {f"cat_{i}": batch[f"cat_{i}"] for i in self.large_idx}
+            )
+        return out
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Returns logits (pre-sigmoid) [B] for a preprocessed batch."""
+        parts = [self.bottom_mlp(batch["dense"])]
+        acts = (
+            self.embedding_layer(batch["large_pre"])
+            if self.embedding_layer is not None
+            else {}
+        )
+        for i in range(len(self.config.vocab_sizes)):
+            name = f"cat_{i}"
+            if i in self.large_idx:
+                parts.append(acts[name])
+            else:
+                parts.append(self.small_embeddings[name](batch[name]))
+        x0 = torch.cat(parts, dim=-1)
+        if self.config.dense_output_dtype is not None:
+            # bf16-resident DCN/top-MLP stream: one cast at the concat.
+            x0 = x0.to(_dtype(self.config.dense_output_dtype))
+        x = x0
+        for layer in self.dcn_layers:
+            x = layer(x0, x)
+        return self.top_mlp(x)[..., 0]
+
+
+def bce_loss(model: DLRMDCNv2, batch: dict) -> torch.Tensor:
+    """Sigmoid binary cross-entropy on logits (mean over the batch)."""
+    logits = model(batch)
+    labels = batch["label"]
+    return torch.mean(
+        torch.clamp(logits, min=0.0)
+        - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )

@@ -1,0 +1,79 @@
+"""The port's DLRM-DCNv2 against the JAX package's, from identical
+parameters (moved with keras_rs_tpu_torch.convert), on one device.
+
+Tolerances:
+  * f32 (compute_dtype=None, dense_output_dtype="float32"): logits and
+    the loss of 3 training steps within 1e-5. Both run the same f32
+    formulas; what differs is summation order (matmuls, the
+    segment-sum) and rsqrt, a few f32 ulp per step.
+  * bf16 default (bf16 operands, bf16-resident activations): 5e-3 on
+    logits and losses. bf16 keeps 8 bits of mantissa (relative step
+    2^-8 ~ 0.4%), and jnp.matmul with preferred_element_type=f32 adds
+    the bias to the f32 accumulator where a bf16 torch.matmul rounds to
+    bf16 first, so the two packages round at different points through
+    the 5-7 layer stack (measured on CPU: 1e-3 on logits of magnitude
+    0.3, 2e-4 on the losses).
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import (
+    B,
+    LR,
+    MULTI_HOT,
+    VOCAB,
+    build_pair,
+    train_jax,
+    train_torch,
+)
+
+from keras_rs_tpu_torch.data import synthetic
+
+F32 = dict(compute_dtype=None, dense_output_dtype="float32")
+CASES = [
+    pytest.param(F32, 1e-5, id="f32"),
+    pytest.param({}, 5e-3, id="bf16_default"),
+]
+
+
+def _batch(seed):
+    return synthetic.criteo_like_batch(
+        B, vocab_sizes=VOCAB, multi_hot_sizes=MULTI_HOT, seed=seed
+    )
+
+
+@pytest.mark.parametrize("overrides, tol", CASES)
+def test_dlrm_logits_match_jax(overrides, tol):
+    jmodel, tmodel = build_pair(seed=1, **overrides)
+    raw = _batch(seed=3)
+    j_logits = np.asarray(jmodel(jmodel.preprocess(raw)), np.float32)
+    with torch.no_grad():
+        t_logits = tmodel(tmodel.preprocess(raw)).float().numpy()
+    assert t_logits.shape == (B,)
+    np.testing.assert_allclose(t_logits, j_logits, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("overrides, tol", CASES)
+def test_dlrm_three_step_losses_match_jax(overrides, tol):
+    jmodel, tmodel = build_pair(seed=2, **overrides)
+    batches = [_batch(seed=s) for s in (10, 11, 10)]
+    j_losses, j_after = train_jax(jmodel, LR, batches)
+    t_losses = train_torch(tmodel, LR, batches)
+    np.testing.assert_allclose(t_losses, j_losses, rtol=tol, atol=tol)
+    # The in-place Overwrite updates landed on both sides: the stacked
+    # tables moved off their start and agree.
+    j_tables = j_after.embedding_layer.get_embedding_tables()
+    t_tables = tmodel.embedding_layer.get_embedding_tables()
+    for name, t in t_tables.items():
+        np.testing.assert_allclose(
+            t.numpy(), np.asarray(j_tables[name]), rtol=tol, atol=tol
+        )
+    assert float(tmodel.embedding_layer.stack_state(0)["step"]) == 3.0
+
+
+def test_dlrm_trains_on_fixed_batch():
+    _, tmodel = build_pair(seed=0)
+    losses = train_torch(tmodel, LR, [_batch(seed=0)] * 6)
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0]

@@ -1,0 +1,55 @@
+"""keras_rs_tpu_torch imports neither JAX, optax nor the JAX package."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import keras_rs_tpu_torch
+
+BLOCKED = ("jax", "jaxlib", "optax", "keras_rs_tpu")
+
+_SCRIPT = """
+import importlib, sys
+blocked = {blocked!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in blocked:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in blocked:
+    sys.modules.pop(name, None)
+for name in {modules!r}:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
+assert not leaked, leaked
+print("imported", len({modules!r}))
+"""
+
+
+def _all_modules():
+    pkg_dir = Path(keras_rs_tpu_torch.__file__).parent
+    return ["keras_rs_tpu_torch"] + [
+        m.name
+        for m in pkgutil.walk_packages([str(pkg_dir)], "keras_rs_tpu_torch.")
+    ]
+
+
+def test_port_imports_without_jax():
+    modules = _all_modules()
+    assert "keras_rs_tpu_torch.ops.row_ops" in modules
+    assert "keras_rs_tpu_torch.models.dlrm" in modules
+    root = Path(keras_rs_tpu_torch.__file__).parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _SCRIPT.format(blocked=BLOCKED, modules=modules)],
+        cwd=root,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f"imported {len(modules)}" in proc.stdout

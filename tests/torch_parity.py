@@ -1,0 +1,119 @@
+"""Shared helpers of the tests that hold keras_rs_tpu_torch to keras_rs_tpu.
+
+Importing this module caps torch's CPU threads, so the port's tests stay
+small next to the JAX suite. Inputs are made with numpy from a seed and
+handed to both packages; parameters move from the JAX model to the port
+with keras_rs_tpu_torch.convert.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import optax
+import torch
+
+torch.set_num_threads(2)
+
+from keras_rs_tpu import training as jax_training  # noqa: E402
+from keras_rs_tpu.models import dlrm as jax_dlrm  # noqa: E402
+from keras_rs_tpu.parallel import mesh as mesh_lib  # noqa: E402
+from keras_rs_tpu_torch import convert  # noqa: E402
+from keras_rs_tpu_torch.models import dlrm as torch_dlrm  # noqa: E402
+from keras_rs_tpu_torch.training import train_state  # noqa: E402
+
+B = 64
+VOCAB = [2000, 1500, 50, 30]
+MULTI_HOT = [3, 2, 1, 2]
+THRESHOLD = 1000
+DIM = 128  # the packed state layout needs dim % 128 == 0
+LR = 0.05
+
+
+def one_device_mesh():
+    """D = 1: conftest forces 8 virtual CPU devices, so mesh=None would
+    give D = 8."""
+    return mesh_lib.create_mesh(jax.devices()[:1])
+
+
+def dlrm_config_kwargs(**overrides):
+    kw = dict(
+        vocab_sizes=VOCAB,
+        multi_hot_sizes=MULTI_HOT,
+        num_dense_features=13,
+        embedding_dim=DIM,
+        bottom_mlp=(64, DIM),
+        top_mlp=(64, 32, 1),
+        num_dcn_layers=2,
+        dcn_projection_dim=32,
+        embedding_threshold=THRESHOLD,
+        # Worst-case capacities (every id of the batch unique), as the
+        # slice sets them: nothing is dropped.
+        max_ids_per_partition=B * 5,
+        max_unique_ids_per_partition=B * 5,
+        learning_rate=LR,
+        global_batch_size=B,
+        table_placement="sharded",
+    )
+    kw.update(overrides)
+    return kw
+
+
+def jax_dlrm_params(model) -> tuple[dict, dict]:
+    """(params by the port's parameter names, logical tables by name)."""
+    params = {}
+    for tower in ("bottom_mlp", "top_mlp"):
+        for i, layer in enumerate(getattr(model, tower).layers):
+            params[f"{tower}.layers.{i}.kernel"] = np.asarray(layer.kernel)
+            params[f"{tower}.layers.{i}.bias"] = np.asarray(layer.bias)
+    for i, layer in enumerate(model.dcn_layers):
+        params[f"dcn_layers.{i}.down_proj_kernel"] = np.asarray(
+            layer.down_proj_kernel
+        )
+        params[f"dcn_layers.{i}.kernel"] = np.asarray(layer.kernel)
+        params[f"dcn_layers.{i}.bias"] = np.asarray(layer.bias)
+    for name, er in model.small_embeddings.items():
+        params[f"small_embeddings.{name}.embeddings"] = np.asarray(
+            er.embeddings
+        )
+    tables = {
+        k: np.asarray(v)
+        for k, v in model.embedding_layer.get_embedding_tables().items()
+    }
+    return params, tables
+
+
+def build_pair(seed: int = 0, **overrides):
+    """A JAX DLRM on one device and the port's DLRM with its parameters."""
+    kw = dlrm_config_kwargs(**overrides)
+    jmodel = jax_dlrm.DLRMDCNv2(
+        jax_dlrm.DLRMConfig(**kw),
+        key=jax.random.key(seed),
+        mesh=one_device_mesh(),
+    )
+    tmodel = torch_dlrm.DLRMDCNv2(
+        torch_dlrm.DLRMConfig(**kw),
+        generator=torch.Generator().manual_seed(seed),
+    )
+    params, tables = jax_dlrm_params(jmodel)
+    convert.load_params(tmodel, params, tables)
+    return jmodel, tmodel
+
+
+def train_jax(jmodel, lr, batches):
+    """Losses of one JAX train step per raw batch (optax.adagrad)."""
+    opt = optax.adagrad(lr)
+    state = jax_training.create_train_state(jmodel, opt)
+    step = jax_training.make_train_step(jax_dlrm.bce_loss, opt, donate=False)
+    losses = []
+    for raw in batches:
+        state, loss = step(state, state.model.preprocess(raw))
+        losses.append(float(loss))
+    return losses, state.model
+
+
+def train_torch(tmodel, lr, batches):
+    """Losses of one port train step per raw batch (DenseAdagrad)."""
+    opt = train_state.DenseAdagrad(tmodel.parameters(), lr)
+    step = train_state.make_train_step(tmodel, torch_dlrm.bce_loss, opt)
+    return [float(step(tmodel.preprocess(raw))) for raw in batches]
