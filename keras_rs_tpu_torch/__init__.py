@@ -5,7 +5,11 @@ its module paths and names, imports `torch` and numpy only, and carries
 hand-written CUDA kernels (under `csrc/`, built with nvcc at first use by
 `kernels/`) where the JAX package has Pallas kernels.
 
-First slice: the one-device DLRM-DCNv2 training step and its scoring
-forward (models/dlrm.py), with the fused Adagrad row-update kernel
-(ops/row_ops.py, csrc/row_ops.cu).
+Slices ported so far: the one-device DLRM-DCNv2 training step and its
+scoring forward (models/dlrm.py), with the fused Adagrad row-update kernel
+(ops/row_ops.py, csrc/row_ops.cu); SASRec trained and served
+(models/sasrec.py, training/trainer.py, layers/retrieval), with the fused
+attention forward, dQ and dK/dV kernels (ops/flash_attention.py,
+csrc/flash_attention.cu). Modules build on cuda:0 unless given `device=`
+(utils/device.py).
 """

@@ -5,10 +5,11 @@ Same Keras semantics as the JAX package, drawn from an explicit
 different numbers from the same seed, so parity tests move parameters
 across with `convert.py` rather than re-drawing them.
 
-Only the initializers the DLRM slice names are ported: zeros,
-random_uniform (EmbedReduce's default), glorot_uniform (Dense and
-FeatureCross kernels) and VarianceScaling with truncated-normal or
-uniform draws (TableConfig's default is fan_out truncated normal).
+Only the initializers the DLRM and SASRec slices name are ported: zeros,
+random_uniform (EmbedReduce's default), glorot_uniform (Dense,
+FeatureCross and attention kernels, SASRec's item and position
+embeddings) and VarianceScaling with truncated-normal or uniform draws
+(TableConfig's default is fan_out truncated normal).
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ an edited source is rebuilt at its next first use and an unchanged one
 is loaded as built. Nothing is compiled when a module is imported: the
 first call of a kernel's wrapper on a CUDA tensor builds it.
 
-Flags: sm_90a (Hopper), -O3, and -fmad=false so that the kernels round
-each multiply and add separately, in the order of their plain PyTorch
-versions.
+Flags: sm_90a (Hopper) and -O3 for every source. row_ops.cu adds
+-fmad=false, so that its kernel rounds each multiply and add separately,
+in the order of its plain PyTorch version (bit-exact). flash_attention.cu
+keeps FMA contraction on: attention sums in another order than its plain
+version in any case, and is held to a tolerance.
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ BUILD_DIR = (
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: Flags of one source on top of NVCC_FLAGS.
+SOURCE_FLAGS = {"row_ops": ("-fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -68,8 +72,9 @@ class BuiltLibrary:
 def load(name: str) -> BuiltLibrary:
     """Builds (if needed) and loads `csrc/<name>.cu`."""
     src = CSRC_DIR / f"{name}.cu"
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     build_seconds, log = 0.0, ""
@@ -81,7 +86,7 @@ def load(name: str) -> BuiltLibrary:
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True,
             text=True,
         )

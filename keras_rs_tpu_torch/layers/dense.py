@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
+from keras_rs_tpu_torch.utils.device import resolve_device
 
 
 def _dtype(d: Any) -> torch.dtype | None:
@@ -45,6 +46,7 @@ class Dense(nn.Module):
         device: Any = None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device)
         self.kernel = nn.Parameter(
             initializers.GlorotUniform()(
                 (in_features, out_features), torch.float32, device, generator
@@ -90,6 +92,7 @@ class MLP(nn.Module):
         device: Any = None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device)
         layers = []
         prev = in_features
         for i, u in enumerate(units):

@@ -45,6 +45,7 @@ from keras_rs_tpu_torch.layers.embedding.stacking import (
     init_stack_table,
     scatter_table,
 )
+from keras_rs_tpu_torch.utils.device import resolve_device
 
 PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
 
@@ -103,7 +104,7 @@ class DistributedEmbedding(nn.Module):
         if len(set(names)) != len(names):
             raise ValueError(f"Duplicate feature names: {names}")
         self._feature_leaves = leaves
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
 
         # Placement on one device: "auto" resolves to default_device,
         # as in the JAX package with a one-device mesh.

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
+from keras_rs_tpu_torch.utils.device import resolve_device
 
 SUPPORTED_COMBINERS = ("mean", "sum", "sqrtn")
 
@@ -51,6 +52,7 @@ class EmbedReduce(nn.Module):
                 f"Invalid `combiner`: '{combiner}', use one of "
                 f"{', '.join(SUPPORTED_COMBINERS)}."
             )
+        device = resolve_device(device)
         self.embeddings = nn.Parameter(
             initializers.get(embeddings_initializer)(
                 (input_dim, output_dim), torch.float32, device, generator

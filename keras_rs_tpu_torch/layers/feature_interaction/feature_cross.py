@@ -17,6 +17,7 @@ from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
 from keras_rs_tpu_torch.layers.dense import _dtype
+from keras_rs_tpu_torch.utils.device import resolve_device
 
 
 class FeatureCross(nn.Module):
@@ -36,6 +37,7 @@ class FeatureCross(nn.Module):
         device: Any = None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device)
         kinit = initializers.GlorotUniform()
         f32 = torch.float32
         self.down_proj_kernel = nn.Parameter(

@@ -27,6 +27,7 @@ from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
 from keras_rs_tpu_torch.layers.feature_interaction.feature_cross import (
     FeatureCross,
 )
+from keras_rs_tpu_torch.utils.device import resolve_device
 
 
 class DLRMConfig:
@@ -91,6 +92,7 @@ class DLRMDCNv2(nn.Module):
         device: Any = None,
     ) -> None:
         super().__init__()
+        device = resolve_device(device)
         cfg = config
         self.config = cfg
         self.large_idx = [
@@ -168,7 +170,7 @@ class DLRMDCNv2(nn.Module):
             compute_dtype=cfg.compute_dtype,
             output_dtype=cfg.dense_output_dtype, device=device,
         )
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = device
 
     def preprocess(self, batch: dict) -> dict:
         """Host-side step: COO-preprocess the large features and move the

@@ -1,9 +1,9 @@
 """Train step (counterpart of keras_rs_tpu/training/train_state.py).
 
 A step has two halves, as in the JAX package:
-  * dense parameters (MLPs, FeatureCross, small EmbedReduce tables) are
-    the model's `nn.Parameter`s and take Adagrad in optax's formula
-    (`DenseAdagrad`);
+  * dense parameters (MLPs, FeatureCross, small EmbedReduce tables, all
+    of SASRec) are the model's `nn.Parameter`s and take Adagrad or Adam
+    in optax's formula (`DenseAdagrad`, `DenseAdam`);
   * stacked embedding tables are buffers, not parameters: their fused
     optimizer runs inside the lookup's backward pass and writes the new
     rows in place (the Overwrite contract of the JAX package,
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -63,10 +64,57 @@ class DenseAdagrad:
             p.grad = None
 
 
+class DenseAdam:
+    """`optax.adam` (scale_by_adam + scale_by_learning_rate) with optax's
+    defaults b1 0.9, b2 0.999, eps_root 0, at step t = 1, 2, ...:
+
+        mu = (1 - b1) * g   + b1 * mu
+        nu = (1 - b2) * g^2 + b2 * nu
+        p += -lr * ((mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps))
+
+    with mu and nu from 0 and eps (default 1e-8) outside the root.
+    Parameters whose gradient is None are left alone (their moments do
+    not move, but t counts every step, as optax's count does).
+    """
+
+    B1, B2 = 0.9, 0.999
+
+    def __init__(self, params: Iterable[nn.Parameter], learning_rate: float,
+                 eps: float = 1e-8):
+        self.params = list(params)
+        self.learning_rate = learning_rate
+        self.eps = eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        # Bias corrections in f32, as optax computes decay**count, and as
+        # Python numbers: no tensor crosses to the device (that copy would
+        # wait for the device once per parameter).
+        b1, b2 = np.float32(self.B1), np.float32(self.B2)
+        c1 = float(np.float32(1) - b1 ** np.float32(self.count))
+        c2 = float(np.float32(1) - b2 ** np.float32(self.count))
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            g = p.grad
+            if g is None:
+                continue
+            mu.copy_((1 - self.B1) * g + self.B1 * mu)
+            nu.copy_((1 - self.B2) * (g * g) + self.B2 * nu)
+            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            p.add_(update * (-self.learning_rate))
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+
 def make_train_step(
     model: nn.Module,
     loss_fn: Callable[[nn.Module, Any], torch.Tensor],
-    optimizer: DenseAdagrad,
+    optimizer: DenseAdagrad | DenseAdam,
 ) -> Callable[[Any], torch.Tensor]:
     """`step(batch) -> loss` (detached): forward, backward (which also
     updates the stacked embedding tables in place), dense optimizer."""

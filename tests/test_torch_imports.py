@@ -1,4 +1,5 @@
-"""keras_rs_tpu_torch imports neither JAX, optax nor the JAX package."""
+"""keras_rs_tpu_torch and chip_smoke.py import neither JAX, optax nor
+the JAX package."""
 
 import pkgutil
 import subprocess
@@ -24,6 +25,8 @@ for name in blocked:
     sys.modules.pop(name, None)
 for name in {modules!r}:
     importlib.import_module(name)
+import runpy
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # defines, no run
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
 assert not leaked, leaked
 print("imported", len({modules!r}))
@@ -42,6 +45,8 @@ def test_port_imports_without_jax():
     modules = _all_modules()
     assert "keras_rs_tpu_torch.ops.row_ops" in modules
     assert "keras_rs_tpu_torch.models.dlrm" in modules
+    assert "keras_rs_tpu_torch.ops.flash_attention" in modules
+    assert "keras_rs_tpu_torch.models.sasrec" in modules
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(
         [sys.executable, "-c",

@@ -36,7 +36,8 @@ def test_embed_reduce_matches_jax(combiner, weighted, shape):
         w[0] = 0.0  # an all-padding row: divide_no_nan gives 0
     ref = jax_er.EmbedReduce(50, 16, table=jnp.asarray(table),
                              combiner=combiner)
-    ours = embed_reduce.EmbedReduce(50, 16, combiner=combiner)
+    ours = embed_reduce.EmbedReduce(50, 16, combiner=combiner,
+                                   device="cpu")
     with torch.no_grad():
         ours.embeddings.copy_(torch.from_numpy(table))
     want = np.asarray(ref(ids, None if w is None else jnp.asarray(w)))
@@ -49,10 +50,11 @@ def test_mlp_and_feature_cross_match_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((8, 24)).astype(np.float32)
     jmlp = jax_dense.MLP(24, (16, 24), key=jax.random.key(0))
-    tmlp = dense.MLP(24, (16, 24))
+    tmlp = dense.MLP(24, (16, 24), device="cpu")
     jcross = jax_fc.FeatureCross(24, key=jax.random.key(1),
                                  projection_dim=8)
-    tcross = feature_cross.FeatureCross(24, projection_dim=8)
+    tcross = feature_cross.FeatureCross(24, projection_dim=8,
+                                        device="cpu")
     with torch.no_grad():
         for jl, tl in zip(jmlp.layers, tmlp.layers):
             tl.kernel.copy_(torch.from_numpy(np.array(jl.kernel)))

@@ -80,7 +80,7 @@ def _pair(placement="sharded"):
         jcfg, key=jax.random.key(0), mesh=one_device_mesh()
     )
     tlayer = distributed_embedding.DistributedEmbedding(
-        tcfg, generator=torch.Generator().manual_seed(0)
+        tcfg, generator=torch.Generator().manual_seed(0), device="cpu"
     )
     tlayer.set_embedding_tables(
         {k: np.asarray(v) for k, v in jlayer.get_embedding_tables().items()}

@@ -1,9 +1,13 @@
 """Shared helpers of the tests that hold keras_rs_tpu_torch to keras_rs_tpu.
 
-Importing this module caps torch's CPU threads, so the port's tests stay
-small next to the JAX suite. Inputs are made with numpy from a seed and
-handed to both packages; parameters move from the JAX model to the port
-with keras_rs_tpu_torch.convert.
+Importing this module runs torch on one CPU thread, so the port's tests
+stay small next to the JAX suite and every float sum is taken by one
+thread: with a second intra-op thread, a batched matmul occasionally
+(about one process in twelve, after the JAX package's interpret-mode
+Pallas tests ran in the same process) returned the half computed on that
+thread ~5e-5 off, in a repeatable pattern. Inputs are made with numpy
+from a seed and handed to both packages; parameters move from the JAX
+model to the port with keras_rs_tpu_torch.convert.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import numpy as np
 import optax
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from keras_rs_tpu import training as jax_training  # noqa: E402
 from keras_rs_tpu.models import dlrm as jax_dlrm  # noqa: E402
@@ -94,6 +98,7 @@ def build_pair(seed: int = 0, **overrides):
     tmodel = torch_dlrm.DLRMDCNv2(
         torch_dlrm.DLRMConfig(**kw),
         generator=torch.Generator().manual_seed(seed),
+        device="cpu",
     )
     params, tables = jax_dlrm_params(jmodel)
     convert.load_params(tmodel, params, tables)
@@ -117,3 +122,35 @@ def train_torch(tmodel, lr, batches):
     opt = train_state.DenseAdagrad(tmodel.parameters(), lr)
     step = train_state.make_train_step(tmodel, torch_dlrm.bce_loss, opt)
     return [float(step(tmodel.preprocess(raw))) for raw in batches]
+
+
+def jax_block_params(block, prefix: str = "") -> dict:
+    """A JAX TransformerBlock's arrays by the port's parameter names."""
+    a = block.attention
+    params = {f"{prefix}attention.{w}": np.asarray(getattr(a, w))
+              for w in ("wq", "wk", "wv", "wo")}
+    for norm in ("norm1", "norm2"):
+        for f in ("scale", "offset"):
+            params[f"{prefix}{norm}.{f}"] = np.asarray(
+                getattr(getattr(block, norm), f))
+    for dense in ("mlp_in", "mlp_out"):
+        for f in ("kernel", "bias"):
+            params[f"{prefix}{dense}.{f}"] = np.asarray(
+                getattr(getattr(block, dense), f))
+    return params
+
+
+def jax_sasrec_params(model) -> dict:
+    """A JAX SASRec's arrays by the port's parameter names (attention
+    weights are [D, D] used as x @ w on both sides: no transpose)."""
+    params = {
+        "item_embedding.embeddings": np.asarray(
+            model.item_embedding.embeddings),
+        "position_embedding.embeddings": np.asarray(
+            model.position_embedding.embeddings),
+        "final_norm.scale": np.asarray(model.final_norm.scale),
+        "final_norm.offset": np.asarray(model.final_norm.offset),
+    }
+    for i, block in enumerate(model.blocks):
+        params.update(jax_block_params(block, f"blocks.{i}."))
+    return params
