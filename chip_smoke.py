@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of keras_rs_tpu_torch on one CUDA GPU (PyTorch + CUDA only).
 
-Drives the port's two main paths through the entry points a user calls,
+Drives the port's main paths through the entry points a user calls,
 each at the full width of a model the repo supports, with random weights
 from --seed:
 
   * DLRM-DCNv2 training step and scoring forward at the MLPerf widths
     (examples/ml_perf/configs.py: 26 Criteo features with their multi-hot
     sizes, dim 128, bottom MLP (512, 256, 128), 3 DCNv2 layers of
-    projection 512, top MLP (1024, 1024, 512, 256, 1), Adagrad lr 0.0034,
-    batch 16384, bf16 compute), each vocabulary capped at 4,000,000 rows;
-    synthetic Criteo-shaped ids. Kernel B1 (csrc/row_ops.cu).
+    projection 512, top MLP (1024, 1024, 512, 256, 1), lr 0.0034, batch
+    16384, bf16 compute; synthetic Criteo-shaped ids), in three table
+    modes:
+      - packed: f32 tables with Adagrad, each vocabulary capped at
+        4,000,000 rows; kernel B1 (csrc/row_ops.cu);
+      - capacity mode on the uncut vocabulary: bf16 tables with row-wise
+        Adagrad, one stack of 204,102,451 rows (53.1 GB); kernel B3;
+      - two short paths at the 4M cap: bf16 tables with Adagrad (B4, k =
+        2) and f32 tables with Adam (packed [R, 3, 128], B2).
   * SASRec at the published ML-1M widths (models/sasrec.py defaults: 2
     blocks, 1 head, hidden 50, MLP 50, 3,706 items; Adam lr 0.005, batch
     128, f32) with the long-history context T = 1024, trained through
@@ -22,30 +28,49 @@ from --seed:
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
                    each, started together; nvcc time and ptxas registers;
-  2. dlrm kernel   B1 against its plain version at the slice's shapes;
+  2. dlrm kernel   B1 against its plain version at the packed slice's
+                   shapes;
   3. dlrm small    a small f32 DLRM, 3 steps on the card and on the CPU;
   4. dlrm train    8 steps on one fixed batch (loss falls), then 3 fresh
                    batches; B1 launches once per step per stack;
   5. dlrm score    3 fresh request batches: finite logits, state
-                   unchanged, no B1 launch;
-  6. flash kernel  B5, B6, B7 each against its plain version at (a) the
+                   unchanged, no kernel launch;
+  6. scatter       B4 (bf16 + f32 streams) and B2 ([R, 3, 128] f32)
+     kernels       against their plain versions at the 4M-cap batch's N
+                   and n_valid: bit-exact, rows outside the live prefix
+                   untouched; CUDA-event times, the byte bound and the
+                   index_copy_ yardstick;
+  7. capacity      build the uncut bf16 + row-wise Adagrad model, B3
+                   against its plain version at its batch's N and
+                   n_valid, 8 + 3 training steps (B3 once per step, no
+                   other kernel, step counter 11, peak device memory
+                   under 72 GB), 3 scoring batches (finite logits, table
+                   and accumulator unchanged, no launch);
+  8. capacity      a small capacity-mode DLRM, 3 steps on the card and on
+     small         the CPU (bf16 rows within one ulp per step);
+  9. short paths   bf16 + Adagrad (B4 once per step) and f32 + Adam (B2
+                   once per step): 3 steps on one batch (loss falls), one
+                   scoring batch;
+ 10. flash kernel  B5, B6, B7 each against its plain version at (a) the
                    slice (B 128, H 1, T 1024, hd 50, f32), (b) the
                    published T 200, (c) bf16 B 8, H 4, T 4096, hd 64,
                    with CUDA-event times, the bound, and
                    scaled_dot_product_attention as a yardstick only;
-  7. sasrec small  a small f32 SASRec (T 512) 3 Adam steps on the card
+ 11. sasrec small  a small f32 SASRec (T 512) 3 Adam steps on the card
                    (kernels) and on the CPU (einsum path): losses and
                    parameters agree;
-  8. sasrec train  8 steps on one fixed batch (loss falls), then 3 fresh
+ 12. sasrec train  8 steps on one fixed batch (loss falls), then 3 fresh
                    batches; B5, B6, B7 launch once per block per step;
-  9. sasrec serve  3 batches of 1024 users under no_grad: user states,
+ 13. sasrec serve  3 batches of 1024 users under no_grad: user states,
                    top-10 ids in [0, 3706], parameters unchanged, B5 only;
- 10. profile       only with --profile: torch.profiler over 3 more steps
-                   of each model, device time per step by part.
+ 14. profile       only with --profile: torch.profiler over 3 more steps
+                   of the packed DLRM, the capacity DLRM and SASRec,
+                   device time per step by part.
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
-just after it.
+just after it (B1 from the packed path, B2 from f32 + Adam, B3 from
+capacity mode, B4 from bf16 + Adagrad, B5-B7 from SASRec).
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), then one JSON line {"kernels": [...]}, then last one JSON
@@ -74,10 +99,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 VOCAB_CAP = 4_000_000
 BATCH = 16_384
-CHECK_ROWS = 6_000_000  # rows of the table the kernel check runs on
+CHECK_ROWS = 6_000_000  # rows of the tables the kernel checks run on
 FIXED_STEPS = 8
 FRESH_STEPS = 3
 SCORE_BATCHES = 3
+SHORT_STEPS = 3  # the two short 4M-cap paths: steps on one batch
+# Capacity mode on the uncut vocabulary: the 9 tables of >= 21,000 rows
+# (5 x 40M, 3,067,956, 590,152, 405,282, 39,060) and the sink row.
+CAPACITY_ROWS = 204_102_451
+PEAK_LIMIT_GB = 72.0
 
 # SASRec slice: the published ML-1M widths (models/sasrec.py defaults),
 # the long-history context, examples/sas_rec.py's optimizer and data.
@@ -151,10 +181,15 @@ CRITEO_MULTI_HOT_SIZES = [
 ]
 
 
-def slice_config(batch: int = BATCH, vocab_cap: int = VOCAB_CAP):
+def slice_config(batch: int = BATCH, vocab_cap: int | None = VOCAB_CAP,
+                 **overrides):
+    """The MLPerf DLRM-DCNv2 at batch `batch`, each vocabulary capped at
+    `vocab_cap` rows (None: uncut); `overrides` go to DLRMConfig
+    (table_dtype, embedding_optimizer)."""
     from keras_rs_tpu_torch.models.dlrm import DLRMConfig
 
-    vocab = [min(v, vocab_cap) for v in CRITEO_VOCAB_SIZES]
+    vocab = [v if vocab_cap is None else min(v, vocab_cap)
+             for v in CRITEO_VOCAB_SIZES]
     threshold = 21_000
     large_valence = sum(
         m for v, m in zip(vocab, CRITEO_MULTI_HOT_SIZES) if v >= threshold
@@ -170,15 +205,18 @@ def slice_config(batch: int = BATCH, vocab_cap: int = VOCAB_CAP):
         max_unique_ids_per_partition=cap,
         global_batch_size=batch,
         table_placement="sharded",
+        **overrides,
     )
 
 
 def _entry_name(mangled: str) -> str:
-    """A readable name for a ptxas entry: the row kernel's functor, or a
-    flash kernel with its head-dim tile and input type."""
+    """A readable name for a ptxas entry: B1's functor, the scatter
+    kernel, or a flash kernel with its head-dim tile and input type."""
     m = re.search(r"kernelINS_\d+(\w+?)E", mangled)
     if m:
         return m.group(1)
+    if "scatter_rows_kernel" in mangled:
+        return "scatter_rows_kernel"
     m = re.search(
         r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
         mangled)
@@ -225,9 +263,7 @@ def phase_kernel(unique_slots, sink: int, seed: int) -> dict:
     if not 0 < nv < CHECK_ROWS:
         fail(f"n_valid {nv} outside (0, {CHECK_ROWS})")
     g = torch.Generator(device=dev).manual_seed(seed)
-    live = torch.randperm(CHECK_ROWS - 1, generator=g, device=dev)[:nv]
-    idx = torch.full((n,), CHECK_ROWS - 1, dtype=torch.int32, device=dev)
-    idx[:nv] = live.sort().values.to(torch.int32)
+    idx = check_indices(n, nv, g)
     packed0 = torch.randn((CHECK_ROWS, 2, 128), generator=g, device=dev)
     packed0[:, 1].abs_().add_(0.1)  # accumulators > 0
     grads = torch.randn((n, 128), generator=g, device=dev)
@@ -270,18 +306,9 @@ def phase_kernel(unique_slots, sink: int, seed: int) -> dict:
     if not torch.equal(p1, p2):
         fail("SGD kernel differs from its plain version")
 
-    # Times at the slice shape, in turns: plain, kernel, kernel, plain.
-    iters = 10
-    kern = lambda: row_ops.apply_scatter_row_blocks(got, *args)  # noqa
-    plain = lambda: row_ops.apply_scatter_row_blocks_reference(  # noqa
-        got, *args)
-    kern(), plain()  # warm-up
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(cuda_time_ms(kern if name == "kernel" else plain,
-                                        iters))
-    ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(
-        times["plain"])
+    ms, plain_ms, times = time_in_turns(
+        lambda: row_ops.apply_scatter_row_blocks(got, *args),
+        lambda: row_ops.apply_scatter_row_blocks_reference(got, *args))
     # Bytes: each live block read and written, its gradient row and
     # index read once.
     moved = nv * (2 * 2 * 128 * 4 + 128 * 4 + 4)
@@ -296,10 +323,122 @@ def phase_kernel(unique_slots, sink: int, seed: int) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
-def phase_small_reference() -> None:
+def check_indices(n: int, nv: int, generator):
+    """[n] int32 on the card: sorted distinct random rows of the first
+    CHECK_ROWS - 1 in the live prefix, the sink (CHECK_ROWS - 1) after
+    it, as the lookup's dedup list lays them out."""
+    import torch
+
+    dev = generator.device
+    live = torch.randperm(CHECK_ROWS - 1, generator=generator,
+                          device=dev)[:nv]
+    idx = torch.full((n,), CHECK_ROWS - 1, dtype=torch.int32, device=dev)
+    idx[:nv] = live.sort().values.to(torch.int32)
+    return idx
+
+
+def time_in_turns(kernel, plain, iters: int = 10):
+    """CUDA-event means of the kernel and its plain version, in turns
+    (plain, kernel, kernel, plain) after one warm-up call of each."""
+    kernel(), plain()
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        times[name].append(cuda_time_ms(
+            kernel if name == "kernel" else plain, iters))
+    return (statistics.mean(times["kernel"]), statistics.mean(times["plain"]),
+            times)
+
+
+def phase_scatter_kernel(name: str, shapes, unique_slots, sink: int,
+                         seed: int) -> dict:
+    """One row-scatter wrapper (B2, B3 or B4) against its plain version
+    on CHECK_ROWS-row tables of the given (dtype, row shape) streams, with
+    a real batch's N and n_valid: bit-exact, and no row outside the live
+    prefix written. Times the kernel, the plain version and the
+    `index_copy_` yardstick (one call per stream on the live prefix)."""
+    import torch
+
+    from keras_rs_tpu_torch.ops import row_ops
+
+    dev = unique_slots.device
+    n = unique_slots.shape[0]
+    nv = int((unique_slots != sink).sum())
+    if not 0 < nv < CHECK_ROWS:
+        fail(f"n_valid {nv} outside (0, {CHECK_ROWS})")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = check_indices(n, nv, g)
+    tables = [torch.randn((CHECK_ROWS,) + shape, generator=g, device=dev)
+              .to(dtype) for dtype, shape in shapes]
+    rows = [torch.randn((n,) + shape, generator=g, device=dev).to(dtype)
+            for dtype, shape in shapes]
+    for t, r in zip(tables, rows):
+        r[nv:] = t[CHECK_ROWS - 1]  # the tail: the sink's own bytes
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+    fn = {
+        "scatter_rows": lambda ts: row_ops.scatter_rows(
+            ts[0], idx, rows[0], n_valid),
+        "_scatter_rows_multi": lambda ts: row_ops._scatter_rows_multi(
+            ts, idx, rows, n_valid),
+        "scatter_row_blocks": lambda ts: row_ops.scatter_row_blocks(
+            ts[0], idx, rows[0], n_valid),
+    }[name]
+    got = [t.clone() for t in tables]
+    want = [t.clone() for t in tables]
+    fn(got)
+    row_ops.scatter_rows_reference(want, idx, rows, n_valid)
+    torch.cuda.synchronize()
+    live = idx[:nv].long()
+    outside = torch.ones(CHECK_ROWS, dtype=torch.bool, device=dev)
+    outside[live] = False
+    err = 0.0
+    for t, a, b in zip(tables, got, want):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            fail(f"{name} differs from its plain version")
+        if not torch.equal(a[outside], t[outside]):
+            fail(f"{name} wrote rows outside the live prefix")
+        if torch.equal(a[live], t[live]):
+            fail(f"{name} left the live rows unchanged")
+        err = max(err, (a[live].float() - b[live].float()).abs().max().item())
+    del want, outside
+    row_bytes = [math.prod(shape) * torch.tensor([], dtype=dtype)
+                 .element_size() for dtype, shape in shapes]
+    ms, plain_ms, times = time_in_turns(
+        lambda: fn(got),
+        lambda: row_ops.scatter_rows_reference(got, idx, rows, n_valid))
+    lib_rows = [r[:nv] for r in rows]
+    library_ms = cuda_time_ms(lambda: [
+        t.index_copy_(0, live, r) for t, r in zip(got, lib_rows)], 10)
+    # Bytes: each live position's source rows read, destination rows
+    # written, and its index read.
+    moved = nv * (2 * sum(row_bytes) + 4)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] {name} streams "
+        f"{[(str(d).split('.')[-1], (CHECK_ROWS,) + s) for d, s in shapes]} "
+        f"N={n} n_valid={nv}: max_abs_err {err!r} (bit-exact); kernel "
+        f"{ms!r} ms ({moved / ms / 1e6:.1f} GB/s of {moved / 1e9:.3f} GB), "
+        f"plain {plain_ms!r} ms, index_copy_ {library_ms!r} ms, bound "
+        f"{bound_ms!r} ms (bytes, {bound_ms / ms:.1%} of it); runs {times}")
+    del got, tables, rows, lib_rows
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def phase_small_reference(label: str, bound: str, expect: dict,
+                          **overrides) -> None:
     """The port on the card against the port on the CPU (whose plain
-    paths the CPU tests hold to the JAX package): a small f32 model,
-    identical parameters, 3 steps. Bound 1e-5 (f32; sum order differs)."""
+    paths the CPU tests hold to the JAX package): a small model with f32
+    dense layers, identical parameters and state, 3 steps; the card's
+    kernel launches must be `expect`.
+
+    `bound` "f32": losses and tables within 1e-5 (sums in another
+    order). "bf16 tables": the card and the CPU round the bf16 rows
+    stochastically with different random bits, so tables within one bf16
+    ulp per step taken (3) plus 1e-4 absolute (an element whose gradient
+    nearly cancels takes an update that the f32 differences change in
+    relative terms), losses within 1e-4, as the CPU tests hold the port
+    to the JAX package in this mode."""
     import torch
 
     from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
@@ -308,6 +447,7 @@ def phase_small_reference() -> None:
         DLRMDCNv2,
         bce_loss,
     )
+    from keras_rs_tpu_torch.ops import row_ops
     from keras_rs_tpu_torch.training.train_state import (
         DenseAdagrad,
         make_train_step,
@@ -320,7 +460,7 @@ def phase_small_reference() -> None:
         dcn_projection_dim=32, embedding_threshold=1000,
         max_ids_per_partition=B * 5, max_unique_ids_per_partition=B * 5,
         learning_rate=0.05, global_batch_size=B, table_placement="sharded",
-        compute_dtype=None, dense_output_dtype="float32",
+        compute_dtype=None, dense_output_dtype="float32", **overrides,
     )
     models = {
         dev: DLRMDCNv2(
@@ -330,6 +470,7 @@ def phase_small_reference() -> None:
         for dev in ("cpu", "cuda")
     }
     models["cuda"].load_state_dict(models["cpu"].state_dict())
+    before = launch_counts()
     losses = {}
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -348,15 +489,39 @@ def phase_small_reference() -> None:
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    log(f"[small] f32 losses cuda {losses['cuda']} cpu {losses['cpu']}")
-    torch.testing.assert_close(
-        torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
-        rtol=1e-5, atol=1e-5,
-    )
+    launched = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    log(f"[small {label}] losses cuda {losses['cuda']} cpu {losses['cpu']}; "
+        f"card launches {launched}")
+    if launched != expect:
+        fail(f"small {label}: card launches {launched}, expected {expect}")
     ta = models["cuda"].embedding_layer.get_embedding_tables()
     tb = models["cpu"].embedding_layer.get_embedding_tables()
+    if bound == "f32":
+        torch.testing.assert_close(
+            torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+            rtol=1e-5, atol=1e-5,
+        )
+        for k in tb:
+            torch.testing.assert_close(ta[k].cpu(), tb[k], rtol=1e-5,
+                                       atol=1e-5)
+        return
+    torch.testing.assert_close(
+        torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+        rtol=1e-4, atol=1e-4,
+    )
+    worst = 0.0
     for k in tb:
-        torch.testing.assert_close(ta[k].cpu(), tb[k], rtol=1e-5, atol=1e-5)
+        a, b = ta[k].cpu().float(), tb[k].float()
+        m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0**-126)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        excess = ((a - b).abs() - 3 * ulp).max().item()
+        worst = max(worst, excess)
+        if excess > 1e-4:
+            fail(f"small {label}: table {k} differs by {excess!r} beyond "
+                 "3 bf16 ulp")
+    log(f"[small {label}] tables within 3 bf16 ulp + {max(worst, 0.0)!r}; "
+        f"loss diff {max(abs(a - b) for a, b in zip(losses['cuda'], losses['cpu']))!r}")
 
 
 # Parts of a step for the profile: (part, profiler row, time). "total"
@@ -368,6 +533,18 @@ DLRM_PROFILE_PARTS = [
     ("stacked lookup backward", "_StackLookupBackward", "total"),
     ("  row kernel", "kernel:apply_scatter_row_blocks_kernel", "self"),
     ("  segment-sum index_add_", "aten::index_add_", "self"),
+    ("small-table EmbedReduce backward", "IndexBackward0", "total"),
+    ("stacked lookup forward", "_StackLookup", "total"),
+    ("dense matmuls (forward and backward)", "aten::mm", "self"),
+    ("dtype casts", "aten::_to_copy", "total"),
+]
+CAPACITY_PROFILE_PARTS = [
+    ("stacked lookup backward", "_StackLookupBackward", "total"),
+    ("  B3 row scatter kernel", "kernel:scatter_rows_kernel", "self"),
+    ("  segment-sum index_add_", "aten::index_add_", "self"),
+    ("  row-wise accumulator index_copy_", "aten::index_copy_", "total"),
+    ("  stochastic rounding bits", "aten::random_", "total"),
+    ("gathers, whole step", "aten::index", "total"),
     ("small-table EmbedReduce backward", "IndexBackward0", "total"),
     ("stacked lookup forward", "_StackLookup", "total"),
     ("dense matmuls (forward and backward)", "aten::mm", "self"),
@@ -418,22 +595,29 @@ def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
                    max_name_column_width=60))
 
 
-def state_checksum(packed) -> int:
-    """Sum of the state's 32-bit words, in chunks (no full-size copy)."""
+def state_checksum(state: dict) -> int:
+    """Sum of the 32-bit words of a stack state's table and every slot,
+    in chunks (no full-size copy)."""
     import torch
 
-    words = packed.view(torch.int32).view(packed.shape[0], -1)
-    total = torch.zeros((), dtype=torch.int64, device=packed.device)
-    for lo in range(0, words.shape[0], 1 << 20):
-        total += words[lo : lo + (1 << 20)].sum(dtype=torch.int64)
+    total = torch.zeros((), dtype=torch.int64, device=state["table"].device)
+    for t in [state["table"], *state.get("slots", {}).values()]:
+        words = t.view(torch.int32).view(t.shape[0], -1)
+        for lo in range(0, words.shape[0], 1 << 20):
+            total += words[lo : lo + (1 << 20)].sum(dtype=torch.int64)
     return int(total)
+
+
+ROW_KERNELS = ("apply_scatter_row_blocks", "scatter_row_blocks",
+               "scatter_rows", "_scatter_rows_multi")
 
 
 def reset_launch_counts() -> None:
     from keras_rs_tpu_torch.ops import flash_attention as fa
     from keras_rs_tpu_torch.ops import row_ops
 
-    row_ops.apply_scatter_row_blocks.launches = 0
+    for name in ROW_KERNELS:
+        getattr(row_ops, name).launches = 0
     for name in FLASH_KERNELS:
         getattr(fa, name).launches = 0
 
@@ -442,68 +626,77 @@ def launch_counts() -> dict[str, int]:
     from keras_rs_tpu_torch.ops import flash_attention as fa
     from keras_rs_tpu_torch.ops import row_ops
 
-    counts = {"apply_scatter_row_blocks":
-              row_ops.apply_scatter_row_blocks.launches}
+    counts = {name: getattr(row_ops, name).launches for name in ROW_KERNELS}
     counts.update({name: getattr(fa, name).launches
                    for name in FLASH_KERNELS})
     return counts
 
 
-def run_dlrm(seed: int, profile: bool) -> dict:
-    """The DLRM phases; returns B1's kernel entry."""
+def dlrm_batch(cfg, s: int) -> dict:
+    from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
+
+    return criteo_like_batch(cfg.global_batch_size,
+                             vocab_sizes=cfg.vocab_sizes,
+                             multi_hot_sizes=cfg.multi_hot_sizes, seed=s)
+
+
+def build_dlrm(label: str, cfg, seed: int):
+    """The model on the card, with its build time and state sizes."""
     import torch
 
-    from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
-    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2, bce_loss
-    from keras_rs_tpu_torch.training.train_state import (
-        DenseAdagrad,
-        make_train_step,
-    )
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
 
     dev = torch.device("cuda", 0)
-    cfg = slice_config()
     t0 = time.perf_counter()
     model = DLRMDCNv2(
         cfg, generator=torch.Generator(device=dev).manual_seed(seed),
         device=dev,
     )
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     emb = model.embedding_layer
-    stacks = emb.stacks
-    shapes = [tuple(emb.stack_state(i)["table"].shape)
-              for i in range(len(stacks))]
-    log(f"[model] built in {time.perf_counter() - t0:.1f} s: "
-        f"{len(model.large_idx)} stacked tables in {len(stacks)} stack(s), "
-        f"state {shapes}, {len(model.small_idx)} small tables, "
-        f"{sum(p.numel() for p in model.parameters())} dense parameters")
+    parts, nbytes = [], 0
+    for i in range(len(emb.stacks)):
+        state = emb.stack_state(i)
+        for name, t in [("table", state["table"]),
+                        *state.get("slots", {}).items()]:
+            parts.append(f"{name} {tuple(t.shape)} "
+                         f"{str(t.dtype).split('.')[-1]}")
+            nbytes += t.numel() * t.element_size()
+    log(f"[{label} model] built in {build_s:.1f} s: {len(model.large_idx)} "
+        f"stacked tables in {len(emb.stacks)} stack(s), state {parts} = "
+        f"{nbytes / 1e9:.2f} GB, {len(model.small_idx)} small tables, "
+        f"{sum(p.numel() for p in model.parameters())} dense parameters; "
+        f"device memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} "
+        "GB")
+    return model
 
-    def batch(s):
-        return criteo_like_batch(
-            BATCH, vocab_sizes=cfg.vocab_sizes,
-            multi_hot_sizes=cfg.multi_hot_sizes, seed=s,
-        )
 
-    preprocess_s = []
+def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
+               fixed_steps: int, fresh_steps: int, score_batches: int,
+               preprocess, profile_parts=None) -> dict:
+    """The main path of one DLRM configuration: `fixed_steps` training
+    steps on the preprocessed batch `fixed` (the loss must fall), then
+    `fresh_steps` on fresh batches, then `score_batches` scoring batches
+    under no_grad (finite logits, state unchanged, no kernel launch).
+    Every launch count is set to 0 just before and read just after: each
+    kernel in `expect` must launch that many times per step and stack,
+    every other kernel never. Returns the counts and the timings."""
+    import torch
 
-    def preprocess(raw):
-        t = time.perf_counter()
-        pre = model.preprocess(raw)
-        torch.cuda.synchronize()
-        preprocess_s.append(time.perf_counter() - t)
-        return pre
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
 
-    fixed = preprocess(batch(seed))
-    coo = fixed["large_pre"]["sharded"][stacks[0].name]
-
-    kernel = phase_kernel(coo["unique_slots"], stacks[0].sink_slot, seed)
-    phase_small_reference()
-
-    # --- main path: train, then score -------------------------------------
+    emb = model.embedding_layer
+    n_stacks = len(emb.stacks)
+    B = cfg.global_batch_size
     opt = DenseAdagrad(model.parameters(), cfg.learning_rate)
     step = make_train_step(model, bce_loss, opt)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-
     step_ms, losses = [], []
 
     def timed_step(pre):
@@ -516,39 +709,43 @@ def run_dlrm(seed: int, profile: bool) -> dict:
         step_ms.append(start.elapsed_time(end))
         losses.append(float(loss))
 
-    for _ in range(FIXED_STEPS):
+    for _ in range(fixed_steps):
         timed_step(fixed)
-    log(f"[train] fixed batch losses {losses}")
+    log(f"[{label} train] fixed batch losses {losses}")
     if not all(map(math.isfinite, losses)):
-        fail("non-finite loss")
+        fail(f"{label}: non-finite loss")
     if not losses[-1] < losses[0]:
-        fail(f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    for s in range(FRESH_STEPS):
-        timed_step(preprocess(batch(seed + 1 + s)))
-    log(f"[train] fresh batch losses {losses[FIXED_STEPS:]}")
+        fail(f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    for s in range(fresh_steps):
+        timed_step(preprocess(dlrm_batch(cfg, seed + 1 + s)))
+    if fresh_steps:
+        log(f"[{label} train] fresh batch losses {losses[fixed_steps:]}")
     if not all(map(math.isfinite, losses)):
-        fail("non-finite loss on fresh batches")
-    n_steps = FIXED_STEPS + FRESH_STEPS
-    launches = launch_counts()["apply_scatter_row_blocks"]
-    if launches != n_steps * len(stacks):
-        fail(f"row kernel launched {launches} times in {n_steps} steps of "
-             f"{len(stacks)} stack(s)")
-    steps_done = [float(emb.stack_state(i)["step"])
-                  for i in range(len(stacks))]
-    if steps_done != [float(n_steps)] * len(stacks):
-        fail(f"stack step counters {steps_done}, expected {n_steps}")
+        fail(f"{label}: non-finite loss on fresh batches")
+    n_steps = fixed_steps + fresh_steps
+    trained = launch_counts()
+    want = {name: expect.get(name, 0) * n_steps * n_stacks
+            for name in trained}
+    if trained != want:
+        fail(f"{label}: launches {trained} in {n_steps} steps of {n_stacks} "
+             f"stack(s), expected {want}")
+    steps_done = [float(emb.stack_state(i)["step"]) for i in range(n_stacks)]
+    if steps_done != [float(n_steps)] * n_stacks:
+        fail(f"{label}: stack step counters {steps_done}, expected "
+             f"{n_steps}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[train] step ms {step_ms}; median {statistics.median(step_ms)!r} "
-        f"ms ({BATCH / statistics.median(step_ms) * 1e3:.0f} examples/s); "
-        f"peak device memory {peak_gb:.2f} GB; row kernel launches "
-        f"{launches}")
+    median = statistics.median(step_ms)
+    log(f"[{label} train] step ms {step_ms}; median {median!r} ms "
+        f"({B / median * 1e3:.0f} examples/s); peak device memory "
+        f"{peak_gb:.2f} GB; launches "
+        f"{ {k: v for k, v in trained.items() if v} }; step counters "
+        f"{steps_done}")
 
-    sums = [state_checksum(emb.stack_state(i)["table"])
-            for i in range(len(stacks))]
+    sums = [state_checksum(emb.stack_state(i)) for i in range(n_stacks)]
     score_ms = []
     with torch.no_grad():
-        for s in range(SCORE_BATCHES):
-            pre = preprocess(batch(seed + 100 + s))
+        for s in range(score_batches):
+            pre = preprocess(dlrm_batch(cfg, seed + 100 + s))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -556,34 +753,172 @@ def run_dlrm(seed: int, profile: bool) -> dict:
             end.record()
             torch.cuda.synchronize()
             score_ms.append(start.elapsed_time(end))
-            if tuple(logits.shape) != (BATCH,):
-                fail(f"logits shape {tuple(logits.shape)}")
+            if tuple(logits.shape) != (B,):
+                fail(f"{label}: logits shape {tuple(logits.shape)}")
             if not bool(torch.isfinite(logits).all()):
-                fail("non-finite logits")
-    counts = launch_counts()
-    if [state_checksum(emb.stack_state(i)["table"])
-            for i in range(len(stacks))] != sums:
-        fail("scoring changed the embedding state")
-    if counts["apply_scatter_row_blocks"] != launches:
-        fail("scoring launched the row kernel")
-    if any(counts[name] for name in FLASH_KERNELS):
-        fail(f"the DLRM path launched a flash kernel: {counts}")
-    log(f"[score] {SCORE_BATCHES} batches of {BATCH}: forward ms {score_ms}")
-    log(f"[host] preprocessing s per batch {preprocess_s}; median "
-        f"{statistics.median(preprocess_s)!r} s")
+                fail(f"{label}: non-finite logits")
+    if [state_checksum(emb.stack_state(i))
+            for i in range(n_stacks)] != sums:
+        fail(f"{label}: scoring changed the embedding state")
+    if launch_counts() != trained:
+        fail(f"{label}: scoring launched a kernel")
+    log(f"[{label} score] {score_batches} batches of {B}: forward ms "
+        f"{score_ms}; state checksums (table and slots) unchanged")
+    if profile_parts is not None:
+        phase_profile(label, step, fixed, profile_parts)
+    del opt, step
+    return {"launches": trained, "peak_gb": peak_gb, "median_ms": median}
 
-    if profile:
-        phase_profile("dlrm", step, fixed, DLRM_PROFILE_PARTS)
-    del model, emb, opt, step, fixed, coo
+
+def make_preprocess(model, times: list):
+    """model.preprocess, timed on the host (host-to-device copy
+    included)."""
+    import torch
+
+    def preprocess(raw):
+        t = time.perf_counter()
+        pre = model.preprocess(raw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return pre
+
+    return preprocess
+
+
+def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
+    """The packed DLRM path (f32 tables, Adagrad, 4M-row cap, kernel B1);
+    returns B1's kernel entry and the fixed batch's unique_slots (on the
+    CPU) with its sink."""
+    import torch
+
+    cfg = slice_config()
+    model = build_dlrm("dlrm", cfg, seed)
+    preprocess_s = []
+    preprocess = make_preprocess(model, preprocess_s)
+    fixed = preprocess(dlrm_batch(cfg, seed))
+    stack = model.embedding_layer.stacks[0]
+    coo = fixed["large_pre"]["sharded"][stack.name]
+    kernel = phase_kernel(coo["unique_slots"], stack.sink_slot, seed)
+    phase_small_reference("f32", "f32", {"apply_scatter_row_blocks": 3})
+    run = drive_dlrm(
+        "dlrm", model, cfg, seed, fixed, {"apply_scatter_row_blocks": 1},
+        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES, preprocess,
+        DLRM_PROFILE_PARTS if profile else None)
+    log(f"[dlrm host] preprocessing s per batch {preprocess_s}; median "
+        f"{statistics.median(preprocess_s)!r} s")
+    slots = coo["unique_slots"].cpu()
+    del model, fixed, coo, preprocess
     torch.cuda.empty_cache()
     return {
         "name": "apply_scatter_row_blocks",
         "route": "cuda",
         "source": "keras_rs_tpu_torch/csrc/row_ops.cu",
         "replaces": "keras_rs_tpu/ops/row_ops.py:472",
-        "launches": launches,
+        "launches": run["launches"]["apply_scatter_row_blocks"],
+        **kernel,
+    }, slots, stack.sink_slot
+
+
+def run_capacity(seed: int, profile: bool) -> dict:
+    """Capacity mode on the uncut Criteo vocabulary: bf16 tables with
+    row-wise Adagrad in one 204,102,451-row stack; B3 checked at this
+    batch's N and n_valid, then trained and scored. Returns B3's entry."""
+    import torch
+
+    cfg = slice_config(vocab_cap=None, table_dtype="bfloat16",
+                       embedding_optimizer="rowwise_adagrad")
+    model = build_dlrm("capacity", cfg, seed)
+    (stack,) = model.embedding_layer.stacks
+    if stack.global_rows != CAPACITY_ROWS or stack.packed_state:
+        fail(f"capacity stack: {stack.global_rows} rows, packed "
+             f"{stack.packed_state}; expected {CAPACITY_ROWS}, split")
+    preprocess_s = []
+    preprocess = make_preprocess(model, preprocess_s)
+    fixed = preprocess(dlrm_batch(cfg, seed))
+    coo = fixed["large_pre"]["sharded"][stack.name]
+    kernel = phase_scatter_kernel(
+        "scatter_rows", [(torch.bfloat16, (128,))], coo["unique_slots"],
+        stack.sink_slot, seed)
+    run = drive_dlrm(
+        "capacity", model, cfg, seed, fixed, {"scatter_rows": 1},
+        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES, preprocess,
+        CAPACITY_PROFILE_PARTS if profile else None)
+    if run["peak_gb"] >= PEAK_LIMIT_GB:
+        fail(f"capacity: peak device memory {run['peak_gb']:.2f} GB >= "
+             f"{PEAK_LIMIT_GB}")
+    log(f"[capacity host] preprocessing s per batch {preprocess_s}; median "
+        f"{statistics.median(preprocess_s)!r} s")
+    del model, fixed, coo, preprocess
+    torch.cuda.empty_cache()
+    return {
+        "name": "scatter_rows",
+        "route": "cuda",
+        "source": "keras_rs_tpu_torch/csrc/row_ops.cu",
+        "replaces": "keras_rs_tpu/ops/row_ops.py:56",
+        "launches": run["launches"]["scatter_rows"],
         **kernel,
     }
+
+
+def run_short(label: str, seed: int, slots_4m, expect: dict,
+              **overrides) -> dict:
+    """A short path at the 4M-row cap: 3 steps on one batch, 1 scoring
+    batch. Its fixed batch's unique_slots must equal the packed path's
+    (same cap, same seed), so the kernel checks made with those held the
+    kernel at this path's N and n_valid. Returns the launch counts."""
+    import torch
+
+    cfg = slice_config(**overrides)
+    model = build_dlrm(label, cfg, seed)
+    preprocess = make_preprocess(model, [])
+    fixed = preprocess(dlrm_batch(cfg, seed))
+    (stack,) = model.embedding_layer.stacks
+    coo = fixed["large_pre"]["sharded"][stack.name]
+    if not torch.equal(coo["unique_slots"].cpu(), slots_4m):
+        fail(f"{label}: unique_slots differ from the packed path's")
+    run = drive_dlrm(label, model, cfg, seed, fixed, expect, SHORT_STEPS, 0,
+                     1, preprocess)
+    del model, fixed, coo, preprocess
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
+    """B4 and B2 at the 4M-cap batch's N and n_valid, the capacity path
+    (B3), the two short paths that launch B4 and B2, and the small
+    capacity-mode model against the CPU. Returns the entries of B2, B3
+    and B4."""
+    import torch
+
+    multi = phase_scatter_kernel(
+        "_scatter_rows_multi",
+        [(torch.bfloat16, (128,)), (torch.float32, (128,))],
+        slots_4m.cuda(), sink_4m, seed + 1)
+    blocks = phase_scatter_kernel(
+        "scatter_row_blocks", [(torch.float32, (3, 128))],
+        slots_4m.cuda(), sink_4m, seed + 2)
+    b3 = run_capacity(seed, profile)
+    phase_small_reference("capacity", "bf16 tables", {"scatter_rows": 3},
+                          table_dtype="bfloat16",
+                          embedding_optimizer="rowwise_adagrad")
+    b4_launches = run_short("bf16 adagrad", seed, slots_4m,
+                            {"_scatter_rows_multi": 1},
+                            table_dtype="bfloat16",
+                            embedding_optimizer="adagrad")
+    b2_launches = run_short("f32 adam", seed, slots_4m,
+                            {"scatter_row_blocks": 1},
+                            embedding_optimizer="adam")
+    entry = dict(route="cuda", source="keras_rs_tpu_torch/csrc/row_ops.cu")
+    return [
+        {"name": "scatter_row_blocks", **entry,
+         "replaces": "keras_rs_tpu/ops/row_ops.py:331",
+         "launches": b2_launches["scatter_row_blocks"], **blocks},
+        b3,
+        {"name": "_scatter_rows_multi", **entry,
+         "replaces": "keras_rs_tpu/ops/row_ops.py:209",
+         "launches": b4_launches["_scatter_rows_multi"], **multi},
+    ]
+
 
 
 # --- SASRec -------------------------------------------------------------
@@ -1002,8 +1337,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
 
-    kernels = [run_dlrm(args.seed, args.profile)]
-    log(f"[time] DLRM phases done at {time.perf_counter() - t0:.1f} s")
+    b1, slots_4m, sink_4m = run_dlrm(args.seed, args.profile)
+    log(f"[time] packed DLRM phases done at {time.perf_counter() - t0:.1f} s")
+    kernels = [b1] + run_row_scatter(args.seed, args.profile, slots_4m,
+                                     sink_4m)
+    log(f"[time] capacity and row-scatter phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels += run_sasrec(args.seed, args.profile)
     log(f"[time] SASRec phases done at {time.perf_counter() - t0:.1f} s")
 

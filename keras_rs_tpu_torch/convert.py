@@ -9,21 +9,49 @@ The caller hands over numpy arrays (this module never imports JAX):
     x @ kernel), so they copy without a transpose.
   * `tables`: logical [vocab, dim] embedding tables by table name, as
     `DistributedEmbedding.get_embedding_tables` exports them; they go in
-    through `set_embedding_tables`. Optimizer slots are not copied: both
-    packages start the Adagrad accumulators at 0.1.
+    through `set_embedding_tables`. This works whatever the two stacks'
+    layouts; optimizer slots keep their initial values (both packages
+    start Adagrad-like accumulators at initial_accumulator_value and
+    Adam/FTRL's other slots at 0).
+  * `states`: whole stack states by stack name, as the JAX layer holds
+    them (`layer.state.value`): {"table", "step"} and, for a split
+    stack, "slots" {name: [R, dim] or [R]}. They are copied where the
+    layouts match: the same shapes, which is every stack but the JAX
+    package's bit-packed bf16 dim-128 stacks (those take `tables`).
+
+bf16 arrays arrive as ml_dtypes.bfloat16 numpy arrays, which
+`torch.from_numpy` rejects; `as_tensor` reads them through a uint16 view.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
-    DistributedEmbedding,
-)
+
+def as_tensor(x: Any) -> torch.Tensor:
+    """A tensor of `x` (a tensor is returned as it is); numpy bf16
+    (ml_dtypes) becomes torch.bfloat16 bit for bit."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _copy(dst: torch.Tensor, value: Any, name: str) -> None:
+    src = as_tensor(value)
+    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+        raise ValueError(
+            f"{name}: expected {dst.dtype} {tuple(dst.shape)}, got "
+            f"{src.dtype} {tuple(src.shape)} (layouts differ: pass the "
+            "logical tables instead)."
+        )
+    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -31,10 +59,15 @@ def load_params(
     model: nn.Module,
     params: Mapping[str, np.ndarray],
     tables: Mapping[str, np.ndarray] | None = None,
+    states: Mapping[str, Mapping[str, Any]] | None = None,
 ) -> None:
     """Copies `params` into every named parameter of `model` (all must be
-    given, with matching shapes) and `tables` into the model's
-    DistributedEmbedding layers."""
+    given, with matching shapes), `tables` into the model's
+    DistributedEmbedding layers and `states` into their stacks."""
+    from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
+        DistributedEmbedding,
+    )
+
     named = dict(model.named_parameters())
     missing = set(named) - set(params)
     unknown = set(params) - set(named)
@@ -44,17 +77,17 @@ def load_params(
             f"{sorted(unknown)}."
         )
     for name, p in named.items():
-        value = torch.from_numpy(np.array(params[name]))
+        value = as_tensor(params[name])
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(
                 f"{name}: expected shape {tuple(p.shape)}, got "
                 f"{tuple(value.shape)}."
             )
         p.copy_(value)
+    layers = [
+        m for m in model.modules() if isinstance(m, DistributedEmbedding)
+    ]
     if tables:
-        layers = [
-            m for m in model.modules() if isinstance(m, DistributedEmbedding)
-        ]
         known = {
             t.name for layer in layers for s in layer.stacks for t in s.tables
         } | {name for layer in layers for name in layer.dense_tables}
@@ -64,3 +97,25 @@ def load_params(
             )
         for layer in layers:
             layer.set_embedding_tables(tables)
+    if states:
+        stacks = {
+            s.name: (layer, i)
+            for layer in layers
+            for i, s in enumerate(layer.stacks)
+        }
+        if set(states) - set(stacks):
+            raise ValueError(
+                f"Unknown stacks: {sorted(set(states) - set(stacks))}."
+            )
+        for stack_name, value in states.items():
+            layer, i = stacks[stack_name]
+            state = layer.stack_state(i)
+            if set(value.get("slots", {})) != set(state.get("slots", {})):
+                raise ValueError(
+                    f"{stack_name}: slots {sorted(value.get('slots', {}))} "
+                    f"for a stack with {sorted(state.get('slots', {}))}."
+                )
+            _copy(state["table"], value["table"], f"{stack_name}.table")
+            _copy(state["step"], value["step"], f"{stack_name}.step")
+            for k, slot in state.get("slots", {}).items():
+                _copy(slot, value["slots"][k], f"{stack_name}.slots.{k}")

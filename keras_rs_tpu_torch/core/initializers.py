@@ -38,10 +38,12 @@ def _compute_fans(shape: Shape) -> tuple[int, int]:
 
 
 class Initializer:
-    """`init(shape, dtype, device, generator) -> Tensor`.
+    """`init(shape, dtype, device, generator, fan_shape) -> Tensor`.
 
     `generator` must live on `device` (torch draws on the generator's
-    device).
+    device). `fan_shape` (default `shape`) is the shape whose fans scale
+    the draw, so that a chunk of rows of a larger table is drawn with the
+    whole table's variance.
     """
 
     def __call__(
@@ -50,13 +52,14 @@ class Initializer:
         dtype: torch.dtype = torch.float32,
         device: Any = None,
         generator: torch.Generator | None = None,
+        fan_shape: Shape | None = None,
     ) -> torch.Tensor:
         raise NotImplementedError
 
 
 class Zeros(Initializer):
     def __call__(self, shape, dtype=torch.float32, device=None,
-                 generator=None):
+                 generator=None, fan_shape=None):
         return torch.zeros(tuple(shape), dtype=dtype, device=device)
 
 
@@ -66,7 +69,7 @@ class RandomUniform(Initializer):
         self.maxval = maxval
 
     def __call__(self, shape, dtype=torch.float32, device=None,
-                 generator=None):
+                 generator=None, fan_shape=None):
         out = torch.empty(tuple(shape), dtype=dtype, device=device)
         return out.uniform_(self.minval, self.maxval, generator=generator)
 
@@ -91,8 +94,10 @@ class VarianceScaling(Initializer):
         self.distribution = distribution
 
     def __call__(self, shape, dtype=torch.float32, device=None,
-                 generator=None):
-        fan_in, fan_out = _compute_fans(shape)
+                 generator=None, fan_shape=None):
+        fan_in, fan_out = _compute_fans(
+            shape if fan_shape is None else fan_shape
+        )
         if self.mode == "fan_in":
             denom = max(1.0, fan_in)
         elif self.mode == "fan_out":

@@ -1,8 +1,21 @@
-// Fused optimizer-apply + row-block scatter for the packed embedding state.
+// Row kernels of the embedding update, for the packed and the split state.
 //
-// Replaces keras_rs_tpu/ops/row_ops.py::_make_rmw_kernel (the Pallas kernel
-// behind apply_scatter_row_blocks), which the sharded lookup's backward pass
-// runs once per stack per training step (lookup.py:392-423).
+// 1. apply_scatter_row_blocks_kernel: fused optimizer-apply + row-block
+//    scatter for the packed state. Replaces
+//    keras_rs_tpu/ops/row_ops.py::_make_rmw_kernel (the Pallas kernel behind
+//    apply_scatter_row_blocks), which the sharded lookup's backward pass runs
+//    once per stack per training step (lookup.py:392-423).
+// 2. scatter_rows_kernel: a plain k-stream row scatter. Replaces three Pallas
+//    kernels of the same file, which are one function on this card:
+//      _scatter_kernel    (scatter_rows, B3):        table[idx[i]] = rows[i]
+//      _make_multi_kernel (_scatter_rows_multi, B4): the same for k arrays
+//                                                    sharing one idx
+//      _block_kernel      (scatter_row_blocks, B2):  packed[idx[i]] = blk[i],
+//                                                    a [k, dim] row group
+//    See the section comment above scatter_rows_kernel.
+//
+// ---------------------------------------------------------------------------
+// 1. Fused apply + block scatter.
 //
 // What it computes, for every live position i < n_valid:
 //   blk = packed[idx[i]]                  // [K, dim]: table row + K-1 slots
@@ -145,4 +158,128 @@ extern "C" int krt_apply_scatter_row_blocks(
     return launch(p, ix, g, sc, nv, num_rows, n, dim, Sgd{lr}, s);
   }
   return kUnsupported;
+}
+
+// ---------------------------------------------------------------------------
+// 2. Row scatter (B2, B3, B4 as one kernel).
+//
+// What it computes, for every stream s < k and every live position
+// i < n_valid (n_valid null: all N):
+//   dst[s][idx[i]] = src[s][i]            // one row of row_bytes[s] bytes
+// A row is everything after the leading dimension, so a packed [R, k, dim]
+// state is one stream whose rows are [k, dim] groups (B2), a [R, dim] table
+// is one stream (B3), and a table with its optimizer slots is k streams of
+// possibly different widths and types sharing one idx (B4). Positions past
+// n_valid and indices outside [0, num_rows) are skipped; n_valid is read on
+// the device, so the caller never syncs with the host. The live prefix of
+// idx is unique (the dedup list), or repeats an index only with identical
+// bytes, so no two warps race on a row.
+//
+// The TPU kernels keep 64 row DMAs in flight per core, issued in unrolled
+// groups from a scalar loop over 2048-row tiles, with the index list padded
+// to a tile; none of that carries over. Here one warp copies one position's
+// rows: 32 lanes stride over the row in 16-byte vectors where the row bytes
+// and both base pointers are multiples of 16 (a 256-byte bf16 row of dim 128
+// is 16 lanes of one uint4 each), 4-byte words otherwise, 2-byte halves for
+// rows of an odd number of 2-byte elements. Thousands of resident warps keep
+// enough loads in flight to cover HBM latency, which is the card's way to do
+// what the TPU's DMA window did.
+//
+// Bound: HBM bytes. Per live position the kernel reads each stream's source
+// row and the index and writes each destination row: 2 * 256 + 4 bytes for
+// the bf16 dim-128 table row. Rows land at random addresses, so each write
+// is its own 256-byte (or larger) burst; no data is reused.
+//
+// Row offsets are 64-bit: 204,102,451 rows of 256 bytes is 52 GB, far past
+// 2^31.
+
+namespace {
+
+constexpr int kMaxStreams = 4;
+
+struct ScatterStreams {
+  char* dst[kMaxStreams];
+  const char* src[kMaxStreams];
+  int64_t row_bytes[kMaxStreams];
+  int vec_bytes[kMaxStreams];  // 16, 4 or 2
+  int k;
+};
+
+template <class V>
+__device__ __forceinline__ void copy_row(char* __restrict__ dst,
+                                         const char* __restrict__ src,
+                                         int64_t row_bytes, int lane) {
+  V* d = reinterpret_cast<V*>(dst);
+  const V* s = reinterpret_cast<const V*>(src);
+  const int64_t n = row_bytes / static_cast<int64_t>(sizeof(V));
+  for (int64_t j = lane; j < n; j += 32) d[j] = s[j];
+}
+
+__global__ void scatter_rows_kernel(ScatterStreams st,
+                                    const int32_t* __restrict__ idx,
+                                    const int32_t* __restrict__ n_valid,
+                                    int64_t num_rows, int64_t n) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  int64_t live = n;
+  if (n_valid != nullptr) {
+    live = *n_valid;
+    live = live < 0 ? 0 : (live > n ? n : live);
+  }
+  if (i >= live) return;
+  const int64_t r = idx[i];
+  if (r < 0 || r >= num_rows) return;
+#pragma unroll
+  for (int s = 0; s < kMaxStreams; ++s) {
+    if (s >= st.k) break;
+    const int64_t rb = st.row_bytes[s];
+    char* dst = st.dst[s] + r * rb;
+    const char* src = st.src[s] + i * rb;
+    if (st.vec_bytes[s] == 16) {
+      copy_row<uint4>(dst, src, rb, lane);
+    } else if (st.vec_bytes[s] == 4) {
+      copy_row<uint32_t>(dst, src, rb, lane);
+    } else {
+      copy_row<uint16_t>(dst, src, rb, lane);
+    }
+  }
+}
+
+}  // namespace
+
+// k streams (1..4) of row_bytes[s] bytes per row, dst[s] with num_rows rows
+// and src[s] with n rows; idx int32 [n]; n_valid a device int32 or null.
+// Returns cudaGetLastError() after the launch, or -1 for an unsupported
+// stream count, row width or alignment (row bytes and pointers must be
+// even) or grid size; 0 means launched.
+extern "C" int krt_scatter_rows(int k, void* const* dst,
+                                const void* const* src,
+                                const long long* row_bytes, const void* idx,
+                                const void* n_valid, long long num_rows,
+                                long long n, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kMaxStreams) return kUnsupported;
+  ScatterStreams st{};
+  st.k = k;
+  for (int s = 0; s < k; ++s) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(dst[s]) |
+                           reinterpret_cast<uintptr_t>(src[s]);
+    const long long rb = row_bytes[s];
+    if (rb <= 0 || rb % 2 != 0 || addr % 2 != 0) return kUnsupported;
+    st.dst[s] = static_cast<char*>(dst[s]);
+    st.src[s] = static_cast<const char*>(src[s]);
+    st.row_bytes[s] = rb;
+    st.vec_bytes[s] = (rb % 16 == 0 && addr % 16 == 0)  ? 16
+                      : (rb % 4 == 0 && addr % 4 == 0) ? 4
+                                                        : 2;
+  }
+  const int64_t rows_per_block = kThreads / 32;
+  const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL) return kUnsupported;
+  scatter_rows_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      st, static_cast<const int32_t*>(idx),
+      static_cast<const int32_t*>(n_valid), num_rows, n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,14 @@ Usage:
     activations = layer(pre)         # backward updates the stacked
                                      # tables in place (Overwrite contract)
 
+Each stack's state is registered as buffers: `stack{i}_table` (the
+packed [R, stride, dim] f32 state, or the split layout's [R, dim] table
+in its storage dtype, f32 or bf16), `stack{i}_slot_{name}` for each
+optimizer slot of a split stack ([R, dim] f32, or [R] f32 when
+row-wise) and `stack{i}_step`; `stack_state(i)` bundles them as the
+lookup takes them. Tables are exported and imported as logical
+[vocab, dim] tensors in the storage dtype.
+
 Not ported yet: multi-device sharding, stats tracking and capacity
 growth, freeze / serving_copy, ragged and sparse inputs, serialization.
 """
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from keras_rs_tpu_torch.convert import as_tensor
 from keras_rs_tpu_torch.layers.embedding.config import (
     FeatureConfig,
     TableConfig,
@@ -78,12 +87,6 @@ def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
     }
 
 
-def _as_tensor(x: np.ndarray | torch.Tensor) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.array(x)
-    )
-
-
 class DistributedEmbedding(nn.Module):
     def __init__(
         self,
@@ -125,6 +128,8 @@ class DistributedEmbedding(nn.Module):
             state = init_stack_state(stack, table)
             del table
             self.register_buffer(f"stack{i}_table", state["table"])
+            for name, slot in state.get("slots", {}).items():
+                self.register_buffer(f"stack{i}_slot_{name}", slot)
             self.register_buffer(f"stack{i}_step", state["step"])
 
         self.dense_tables = nn.ModuleDict()
@@ -144,13 +149,20 @@ class DistributedEmbedding(nn.Module):
                 )
 
     # ------------------------------------------------------------------
-    def stack_state(self, i: int) -> dict[str, torch.Tensor]:
-        """{"table": [R, stride, dim], "step": []} of stack i (the
-        registered buffers themselves, updated in place)."""
-        return {
+    def stack_state(self, i: int) -> dict[str, Any]:
+        """Stack i's state as init_stack_state lays it out (the registered
+        buffers themselves, updated in place): {"table", "step"}, and
+        "slots" {name: tensor} for a split stack."""
+        state = {
             "table": getattr(self, f"stack{i}_table"),
             "step": getattr(self, f"stack{i}_step"),
         }
+        if not self.stacks[i].packed_state:
+            state["slots"] = {
+                name: getattr(self, f"stack{i}_slot_{name}")
+                for name in self.stacks[i].optimizer.slot_names
+            }
+        return state
 
     def _match_features(
         self, structure: Mapping[str, Any], allow_partial: bool = False
@@ -241,12 +253,13 @@ class DistributedEmbedding(nn.Module):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def get_embedding_tables(self) -> dict[str, torch.Tensor]:
-        """Unstacked [vocab, dim] tables by name (copies)."""
+        """Unstacked [vocab, dim] tables by name (copies, in the storage
+        dtype)."""
         out = {}
         for i, stack in enumerate(self.stacks):
-            packed = self.stack_state(i)["table"]
+            table = self.stack_state(i)["table"]
             for ts in stack.tables:
-                out[ts.name] = gather_table(stack, packed, ts.name)
+                out[ts.name] = gather_table(stack, table, ts.name)
         for name, layer in self.dense_tables.items():
             out[name] = layer.embeddings.detach().clone()
         return out
@@ -256,14 +269,16 @@ class DistributedEmbedding(nn.Module):
         self, tables: Mapping[str, np.ndarray | torch.Tensor]
     ) -> None:
         """Writes [vocab, dim] values into the stacked state (table rows
-        only; optimizer slots are untouched) and the dense tables."""
+        only, rounded to nearest in a bf16 table; optimizer slots are
+        untouched) and the dense tables. numpy arrays may be bf16
+        (ml_dtypes, as the JAX package exports a bf16 table)."""
         for i, stack in enumerate(self.stacks):
-            packed = self.stack_state(i)["table"]
+            table = self.stack_state(i)["table"]
             for ts in stack.tables:
                 if ts.name in tables:
                     scatter_table(
-                        stack, packed, ts.name, _as_tensor(tables[ts.name])
+                        stack, table, ts.name, as_tensor(tables[ts.name])
                     )
         for name, layer in self.dense_tables.items():
             if name in tables:
-                layer.embeddings.copy_(_as_tensor(tables[name]))
+                layer.embeddings.copy_(as_tensor(tables[name]))

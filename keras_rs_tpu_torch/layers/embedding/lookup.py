@@ -1,14 +1,25 @@
 """Stacked embedding lookup with the fused optimizer update (D = 1).
 
 Counterpart of keras_rs_tpu/layers/embedding/lookup.py at one device, for
-the packed [R, stride, dim] state.
+both state layouts (init_stack_state).
 
   forward  (construction order, lookup.py:275-302): gather each entry's
-    table row, then per feature a dense [B, L, dim] * gain sum over L.
-  backward (lookup.py:330-423): gather the cotangent by each entry's
+    table row (bf16 rows cast to f32), then per feature a dense
+    [B, L, dim] * gain sum over L.
+  backward (lookup.py:330-523): gather the cotangent by each entry's
     segment and scale by its gain, segment-sum into the U unique rows,
-    then one fused read-apply-write per live unique row
-    (ops/row_ops.py::apply_scatter_row_blocks, the CUDA kernel on a card).
+    then update the live unique rows (the first n_valid of U, counted on
+    the device):
+      * packed state, Adagrad or SGD: one fused read-apply-write per row
+        (ops/row_ops.py::apply_scatter_row_blocks, kernel B1);
+      * packed state, other optimizers (Adam, FTRL): gather the [k, dim]
+        blocks, `optimizer.apply`, write the blocks back
+        (scatter_row_blocks_unique, kernel B2);
+      * split state: gather the rows and the slot rows, `optimizer.apply`,
+        stochastic rounding for bf16 tables, then one scatter of the table
+        and every [R, dim] slot (scatter_rows_unique_multi: B3 for the
+        table alone, B4 for the table with slots) and `index_copy_` for
+        each row-wise [R] slot.
 
 The update follows the Overwrite contract of the JAX package
 (training/train_state.py:30-35): the backward pass writes the new table
@@ -23,26 +34,49 @@ from typing import Mapping
 import torch
 
 from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
-from keras_rs_tpu_torch.ops.row_ops import apply_scatter_row_blocks
+from keras_rs_tpu_torch.ops.quant import cast_rows_for_storage
+from keras_rs_tpu_torch.ops.row_ops import (
+    FUSED_OPTIMIZERS,
+    apply_scatter_row_blocks,
+    scatter_row_blocks_unique,
+    scatter_rows_unique_multi,
+)
+
+#: Seed base of the stochastic rounding of bf16 rows; the step count is
+#: added, so a run repeats itself (the JAX package folds its step into
+#: jax.random.key(0x5EED)).
+ROUNDING_SEED = 0x5EED << 32
 
 
 def init_stack_state(
     stack: TableStack, table: torch.Tensor
 ) -> dict[str, torch.Tensor]:
-    """Packs a stacked [R, dim] table with its optimizer slots.
+    """Bundles a stacked [R, dim] table with its optimizer slots and step.
 
-    Returns {"table": [R, state_stride, dim], "step": []}: the table row
-    and its slot rows form one contiguous block per logical row, so the
-    backward's update reads and writes each unique row once.
+    Packed layout (`stack.packed_state`): {"table": [R, state_stride,
+    dim], "step": []}: the table row and its slot rows form one
+    contiguous block per logical row, so the backward's update reads and
+    writes each unique row once.
+    Split layout (every other stack): {"table": [R, dim] in the storage
+    dtype, "slots": {name: [R, dim] f32, or [R] f32 for a row-wise
+    slot}, "step": []}. Slots stay f32 for bf16 tables.
     """
-    if not stack.packed_state:
-        raise NotImplementedError(
-            f"Stack {stack.name!r} does not take the packed layout "
-            "(f32, Adagrad-like, dim % 128 == 0); the split layout is not "
-            "ported yet."
-        )
     R, dim = table.shape
     opt = stack.optimizer
+    step = torch.zeros((), dtype=torch.float32, device=table.device)
+    if not stack.packed_state:
+        slots = {
+            name: opt.init_slot(
+                name, (R,) if name in opt.rowwise_slots else (R, dim),
+                torch.float32, table.device,
+            )
+            for name in opt.slot_names
+        }
+        return {
+            "table": table.to(stack.storage_dtype),
+            "slots": slots,
+            "step": step,
+        }
     packed = torch.empty(
         (R, stack.state_stride, dim), dtype=table.dtype, device=table.device
     )
@@ -51,24 +85,23 @@ def init_stack_state(
         packed[:, 1 + i] = opt.init_slot(
             name, (R, dim), table.dtype, table.device
         )
-    return {
-        "table": packed,
-        "step": torch.zeros((), dtype=torch.float32, device=table.device),
-    }
+    return {"table": packed, "step": step}
 
 
-def _forward(stack: TableStack, packed: torch.Tensor,
+def _forward(stack: TableStack, table: torch.Tensor,
              coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
     B = stack.batch_size
     dim = stack.stack_dim
-    rows = packed[coo["fwd_slots"], 0]  # [N, dim]
+    slots = coo["fwd_slots"]
+    # [N, dim] table rows, in the storage dtype (cast per feature).
+    rows = table[slots, 0] if stack.packed_state else table[slots]
     gains = coo["fwd_gains"]
     parts: list = [None] * stack.num_features
     off = 0
     for f in stack.features:
         n = f.batch_size * f.valence
         parts[f.feature_index] = (
-            rows[off : off + n].view(B, f.valence, dim)
+            rows[off : off + n].float().view(B, f.valence, dim)
             * gains[off : off + n].view(B, f.valence, 1)
         ).sum(dim=1)
         off += n
@@ -90,19 +123,72 @@ def _backward_update(stack: TableStack, state: dict[str, torch.Tensor],
     row_grads = torch.zeros(
         (U + 1, dim), dtype=torch.float32, device=d_acts.device
     ).index_add_(0, coo["entry_unique"], ge)[:U]
+    del ge
     u_slots = coo["unique_slots"]
     # Uniques are a prefix of u_slots, sink-padded at the top: only the
     # first n_valid rows update (counted on the device, no host sync).
-    n_valid = (u_slots != stack.sink_slot).sum(dtype=torch.int32)
-    apply_scatter_row_blocks(
-        state["table"],
-        u_slots,
-        row_grads,
-        state["step"].reshape(1),
-        stack.optimizer,
-        n_valid.reshape(1),
+    # The tail rows carry exactly-zero gradients, so the functions that
+    # write them (the plain versions, index_copy_) write their own bytes.
+    n_valid = (u_slots != stack.sink_slot).sum(dtype=torch.int32).reshape(1)
+    optimizer = stack.optimizer
+    table = state["table"]
+    step = state["step"]
+    if stack.packed_state and optimizer.name in FUSED_OPTIMIZERS:
+        apply_scatter_row_blocks(
+            table, u_slots, row_grads, step.reshape(1), optimizer, n_valid
+        )
+    elif stack.packed_state:
+        blk = table[u_slots.long()]  # [U, stride, dim]
+        names = optimizer.slot_names
+        new_rows, new_slots = optimizer.apply(
+            blk[:, 0], row_grads,
+            {name: blk[:, 1 + i] for i, name in enumerate(names)}, step,
+        )
+        del blk
+        new_blk = torch.stack(
+            [new_rows] + [new_slots[name] for name in names], dim=1
+        )
+        del new_rows, new_slots
+        scatter_row_blocks_unique(table, u_slots, new_blk, n_valid)
+    else:
+        _split_update(stack, state, u_slots, row_grads, n_valid)
+    step.add_(1.0)
+
+
+def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
+                  u_slots: torch.Tensor, row_grads: torch.Tensor,
+                  n_valid: torch.Tensor) -> None:
+    """The split layout's update (JAX lookup.py:448-523, without the
+    bit-packed branches)."""
+    optimizer = stack.optimizer
+    table, slots, step = state["table"], state["slots"], state["step"]
+    u64 = u_slots.long()
+    rows = table[u64].float()
+    slot_rows = {k: v[u64] for k, v in slots.items()}
+    new_rows, new_slot_rows = optimizer.apply(
+        rows, row_grads, slot_rows, step
     )
-    state["step"].add_(1.0)
+    del rows, slot_rows
+    generator = None
+    if table.dtype == torch.bfloat16:
+        # Stochastic rounding with bits seeded from the step: one host
+        # read of the step counter per bf16 stack and step.
+        generator = torch.Generator(device=table.device).manual_seed(
+            ROUNDING_SEED + int(step)
+        )
+    new_rows = cast_rows_for_storage(new_rows, table.dtype, generator)
+    row_keys = [k for k in slots if slots[k].ndim == 2]
+    scatter_rows_unique_multi(
+        [table] + [slots[k] for k in row_keys],
+        u_slots,
+        [new_rows] + [new_slot_rows[k] for k in row_keys],
+        n_valid,
+    )
+    # Row-wise [R] slots: U * 4 bytes through index_copy_ (the JAX package
+    # uses XLA's 1-D scatter). The sink duplicates write identical values.
+    for k in slots:
+        if slots[k].ndim == 1:
+            slots[k].index_copy_(0, u64, new_slot_rows[k])
 
 
 class _StackLookup(torch.autograd.Function):

@@ -1,16 +1,22 @@
-"""Fused row-wise embedding optimizers (SGD and Adagrad).
+"""Fused row-wise embedding optimizers.
 
 Counterpart of keras_rs_tpu/layers/embedding/optimizers.py. `apply` is the
-plain PyTorch math on gathered unique rows; the CUDA kernel
-(csrc/row_ops.cu) carries the same formulas as template functors, and
-ops/row_ops.py's plain version calls `apply`.
+plain PyTorch math on gathered unique rows, in the JAX package's formulas;
+the CUDA kernel of csrc/row_ops.cu carries SGD and Adagrad as template
+functors (packed stacks), and the split-layout backward runs `apply` in
+PyTorch before the row-scatter kernel writes the rows back.
 
-  * SGD:      w -= lr * g
-  * Adagrad:  acc += g^2;  w -= lr * g / (sqrt(acc) + eps)
-              (accumulator initialized to 0.1 like Keras/TPUEmbedding)
+  * SGD:             w -= lr * g
+  * Adagrad:         acc += g^2;  w -= lr * g / (sqrt(acc) + eps)
+                     (accumulator initialized to 0.1 like Keras/TPUEmbedding)
+  * RowWiseAdagrad:  acc += sum(g^2, -1) (one f32 per row);
+                     w -= lr * g / (sqrt(acc) + eps)
+  * Adam:            t = step + 1, bias-corrected moments, eps outside the
+                     square root
+  * FTRL:            keras.optimizers.Ftrl, with l2_shrinkage and beta
 
-Learning rates are floats; schedules (callables of the step), row-wise
-Adagrad, Adam and FTRL are not ported yet.
+Learning rates are floats; schedules (callables of the step) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ class EmbeddingOptimizer:
 
     name = "base"
     slot_names: tuple[str, ...] = ()
+    #: Slots listed here hold one f32 per row ([R] 1-D tensors) instead of
+    #: a [R, dim] buffer; their `apply` inputs and outputs are [U] vectors.
+    rowwise_slots: tuple[str, ...] = ()
 
     def __init__(self, learning_rate: float = 0.001):
         self.learning_rate = float(learning_rate)
@@ -37,7 +46,7 @@ class EmbeddingOptimizer:
         self,
         rows: torch.Tensor,  # [U, dim] gathered table rows
         grads: torch.Tensor,  # [U, dim] row gradients
-        slots: dict[str, torch.Tensor],  # each [U, dim]
+        slots: dict[str, torch.Tensor],  # each [U, dim] ([U] if row-wise)
         step: torch.Tensor,  # scalar float step count (0-based)
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         raise NotImplementedError
@@ -90,7 +99,138 @@ class Adagrad(EmbeddingOptimizer):
         }
 
 
-_BY_NAME = {"sgd": SGD, "adagrad": Adagrad}
+class RowWiseAdagrad(Adagrad):
+    """Adagrad with one accumulator per row: the sum (not the mean) of the
+    row's squared gradient, so zero-padded stack columns change nothing.
+    With a bf16 table the state is 2 * dim + 4 bytes per row (260 at dim
+    128) instead of the packed f32 + Adagrad's 8 * dim."""
+
+    name = "rowwise_adagrad"
+    rowwise_slots = ("accumulator",)
+
+    def apply(self, rows, grads, slots, step):
+        acc = slots["accumulator"] + torch.sum(torch.square(grads), dim=-1)
+        update = grads / (torch.sqrt(acc)[:, None] + self.epsilon)
+        return rows - self.learning_rate * update, {"accumulator": acc}
+
+
+class Adam(EmbeddingOptimizer):
+    name = "adam"
+    slot_names = ("momentum", "velocity")
+
+    def __init__(
+        self,
+        learning_rate: float = 0.001,
+        beta_1: float = 0.9,
+        beta_2: float = 0.999,
+        epsilon: float = 1e-7,
+    ):
+        super().__init__(learning_rate)
+        self.beta_1 = beta_1
+        self.beta_2 = beta_2
+        self.epsilon = epsilon
+
+    def init_slot(self, slot_name, shape, dtype=torch.float32, device=None):
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+    def apply(self, rows, grads, slots, step):
+        t = step + 1.0
+        m = self.beta_1 * slots["momentum"] + (1.0 - self.beta_1) * grads
+        v = self.beta_2 * slots["velocity"] + (
+            1.0 - self.beta_2
+        ) * torch.square(grads)
+        m_hat = m / (1.0 - torch.pow(self.beta_1, t))
+        v_hat = v / (1.0 - torch.pow(self.beta_2, t))
+        update = m_hat / (torch.sqrt(v_hat) + self.epsilon)
+        return rows - self.learning_rate * update, {
+            "momentum": m,
+            "velocity": v,
+        }
+
+    def get_config(self):
+        return {
+            **super().get_config(),
+            "beta_1": self.beta_1,
+            "beta_2": self.beta_2,
+            "epsilon": self.epsilon,
+        }
+
+
+class FTRL(EmbeddingOptimizer):
+    name = "ftrl"
+    slot_names = ("accumulator", "linear")
+
+    def __init__(
+        self,
+        learning_rate: float = 0.001,
+        learning_rate_power: float = -0.5,
+        initial_accumulator_value: float = 0.1,
+        l1_regularization_strength: float = 0.0,
+        l2_regularization_strength: float = 0.0,
+        l2_shrinkage_regularization_strength: float = 0.0,
+        beta: float = 0.0,
+    ):
+        super().__init__(learning_rate)
+        self.learning_rate_power = learning_rate_power
+        self.initial_accumulator_value = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+        self.l2_shrinkage = l2_shrinkage_regularization_strength
+        self.beta = beta
+
+    def init_slot(self, slot_name, shape, dtype=torch.float32, device=None):
+        if slot_name == "accumulator":
+            return torch.full(
+                tuple(shape), self.initial_accumulator_value, dtype=dtype,
+                device=device,
+            )
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+    def apply(self, rows, grads, slots, step):
+        # keras.optimizers.Ftrl: the accumulator takes the raw gradient,
+        # the linear term the shrinkage-adjusted g + 2 * l2_shrinkage * w,
+        # and beta adds beta / lr to the quadratic.
+        lr = self.learning_rate
+        p = -self.learning_rate_power
+        acc, linear = slots["accumulator"], slots["linear"]
+        new_acc = acc + torch.square(grads)
+        sigma = (torch.pow(new_acc, p) - torch.pow(acc, p)) / lr
+        grads_lin = (
+            grads + 2.0 * self.l2_shrinkage * rows
+            if self.l2_shrinkage
+            else grads
+        )
+        new_linear = linear + grads_lin - sigma * rows
+        quadratic = torch.pow(new_acc, p) / lr + 2.0 * self.l2 + self.beta / lr
+        pruned = torch.where(
+            torch.abs(new_linear) > self.l1,
+            self.l1 * torch.sign(new_linear) - new_linear,
+            torch.zeros_like(new_linear),
+        )
+        return pruned / quadratic, {
+            "accumulator": new_acc,
+            "linear": new_linear,
+        }
+
+    def get_config(self):
+        return {
+            **super().get_config(),
+            "learning_rate_power": self.learning_rate_power,
+            "initial_accumulator_value": self.initial_accumulator_value,
+            "l1_regularization_strength": self.l1,
+            "l2_regularization_strength": self.l2,
+            "l2_shrinkage_regularization_strength": self.l2_shrinkage,
+            "beta": self.beta,
+        }
+
+
+_BY_NAME = {
+    "sgd": SGD,
+    "adagrad": Adagrad,
+    "rowwise_adagrad": RowWiseAdagrad,
+    "adam": Adam,
+    "ftrl": FTRL,
+}
 
 
 def get(identifier: Any) -> EmbeddingOptimizer:
@@ -100,7 +240,12 @@ def get(identifier: Any) -> EmbeddingOptimizer:
         if identifier.lower() not in _BY_NAME:
             raise ValueError(
                 f"Unknown embedding optimizer {identifier!r}. The port "
-                f"supports {sorted(_BY_NAME)} so far."
+                f"supports {sorted(_BY_NAME)}."
             )
         return _BY_NAME[identifier.lower()]()
     raise ValueError(f"Cannot interpret optimizer: {identifier!r}")
+
+
+def deserialize(spec: dict[str, Any]) -> EmbeddingOptimizer:
+    """{"class_name": name, "config": kwargs} -> optimizer."""
+    return _BY_NAME[spec["class_name"]](**spec["config"])

@@ -14,7 +14,10 @@ bit with the JAX package:
 
 The port runs at D = 1 so far; the layout keeps D so that the D > 1 path
 can reuse it. The bit-packed bf16 layout of the JAX package is not
-ported (it exists for a TPU DMA limit).
+ported (it exists for a TPU DMA limit): a bf16 stack stores plain
+[R, dim] bf16 rows and keeps `rows_per_shard = offset + 1`, where the
+JAX package's bit-packed stacks (bf16, dim 128) round it to
+`round_up(offset, 2) + 2`. Logical tables agree either way.
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ from keras_rs_tpu_torch.layers.embedding.config import (
     TableConfig,
 )
 from keras_rs_tpu_torch.utils.shape_utils import round_up as _round_up
+
+_STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: Rows drawn from one generator when a table is initialized: every block
+#: of this many rows has its own seed, so the values do not depend on how
+#: many rows are drawn at once (`init_stack_table`'s chunk_rows).
+INIT_DRAW_ROWS = 1 << 18
+#: Default rows per initialization chunk (2 GB of f32 at dim 128).
+INIT_CHUNK_ROWS = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +91,11 @@ class TableStack:
     #: table + slots are one contiguous byte range and the backward's
     #: update is one read-modify-write per row (ops/row_ops.py).
     packed_state: bool = False
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The table's storage type (optimizer slots are always f32)."""
+        return _STORAGE_DTYPES[self.dtype]
 
     @property
     def state_stride(self) -> int:
@@ -221,6 +237,7 @@ def build_stacks(
         packed = (
             group[0].dtype == "float32"
             and n_slots >= 1
+            and not optimizer.rowwise_slots  # [R] slots are not rows
             and stack_dim % 128 == 0
             and (1 + n_slots) * stack_dim <= 512
         )
@@ -247,11 +264,14 @@ def build_stacks(
     return stacks
 
 
-def _global_rows_of(stack: TableStack, t: StackedTableSpec,
-                    device) -> torch.Tensor:
-    """Stacked global row of each logical row r < vocabulary_size."""
+def _global_rows_of(stack: TableStack, t: StackedTableSpec, device,
+                    lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Stacked global row of each logical row r in [lo, hi) (default: the
+    whole vocabulary)."""
     D = stack.num_shards
-    r = torch.arange(t.vocabulary_size, device=device)
+    r = torch.arange(
+        lo, t.vocabulary_size if hi is None else hi, device=device
+    )
     return (
         (r + t.rotation) % D
     ) * stack.rows_per_shard + t.local_offset + r // D
@@ -262,25 +282,51 @@ def init_stack_table(
     table_configs: dict[str, TableConfig],
     generator: torch.Generator | None = None,
     device=None,
+    chunk_rows: int = INIT_CHUNK_ROWS,
 ) -> torch.Tensor:
-    """Materializes the stacked global array [D * rows_per_shard, dim].
+    """Materializes the stacked global array [D * rows_per_shard, dim] in
+    the stack's storage dtype.
 
-    Each table draws from its own initializer at its true
-    [vocabulary_size, embedding_dim] (so fan-based initializers see the
-    table's dim), is written to its MOD-interleaved rows, and every other
-    row (dim padding, vocab padding, the sink) is zero.
+    Each table draws from its own initializer, scaled by its true
+    [vocabulary_size, embedding_dim] shape (so fan-based initializers see
+    the table's dim), in f32 chunks of at most `chunk_rows` rows, each
+    rounded to the storage dtype and written straight into its
+    MOD-interleaved rows; every other row (dim padding, vocab padding,
+    the sink) is zero. A table takes one seed from `generator` and draws
+    each INIT_DRAW_ROWS-row block from its own generator seeded from it,
+    so the same rows come out for a given generator whatever chunk_rows
+    is. `generator` must live on `device`.
     """
     out = torch.zeros(
-        (stack.global_rows, stack.stack_dim), dtype=torch.float32,
+        (stack.global_rows, stack.stack_dim), dtype=stack.storage_dtype,
         device=device,
     )
+    gen_device = out.device if generator is None else generator.device
+    chunk = max(1, chunk_rows // INIT_DRAW_ROWS) * INIT_DRAW_ROWS
     for t in stack.tables:
         initializer = init_lib.get(table_configs[t.name].initializer)
-        values = initializer(
-            (t.vocabulary_size, t.embedding_dim), torch.float32, device,
-            generator,
-        )
-        out[_global_rows_of(stack, t, device), : t.embedding_dim] = values
+        fan_shape = (t.vocabulary_size, t.embedding_dim)
+        seed = int(torch.randint(
+            0, 1 << 62, (1,), generator=generator, device=gen_device
+        ))
+        for lo in range(0, t.vocabulary_size, chunk):
+            hi = min(lo + chunk, t.vocabulary_size)
+            values = torch.empty(
+                (hi - lo, t.embedding_dim), dtype=torch.float32,
+                device=out.device,
+            )
+            for b in range(lo, hi, INIT_DRAW_ROWS):
+                n = min(INIT_DRAW_ROWS, hi - b)
+                block = torch.Generator(device=out.device).manual_seed(
+                    seed + b // INIT_DRAW_ROWS
+                )
+                values[b - lo : b - lo + n] = initializer(
+                    (n, t.embedding_dim), torch.float32, out.device,
+                    block, fan_shape=fan_shape,
+                )
+            out[_global_rows_of(stack, t, out.device, lo, hi),
+                : t.embedding_dim] = values.to(out.dtype)
+            del values
     return out
 
 

@@ -33,9 +33,16 @@ from keras_rs_tpu_torch.utils.device import resolve_device
 class DLRMConfig:
     """Criteo-shaped configuration, with the JAX package's defaults
     (the MLPerf widths; bf16 compute and bf16-resident activations).
-    Large tables train with Adagrad (the packed state and kernel B1);
-    the JAX package's table_dtype, embedding_optimizer and
-    embedding_comm_dtype are not ported yet."""
+
+    `table_dtype` and `embedding_optimizer` apply to the large, stacked
+    tables only. The default, f32 tables with Adagrad, gives the packed
+    [R, 2, dim] state whose update is kernel B1. `table_dtype="bfloat16"`
+    with `embedding_optimizer="rowwise_adagrad"` is capacity mode: a bf16
+    [R, dim] table with stochastically rounded updates and one f32
+    accumulator per row, 260 bytes per row at dim 128 instead of 1,024,
+    updated by the row scatter (kernel B3). Any optimizer of
+    layers/embedding/optimizers.py may be named. The JAX package's
+    embedding_comm_dtype (a multi-device option) is not ported."""
 
     def __init__(
         self,
@@ -53,7 +60,9 @@ class DLRMConfig:
         learning_rate: float = 0.0034,
         global_batch_size: int = 256,
         table_placement: str = "auto",
+        table_dtype: str = "float32",
         compute_dtype: str | None = "bfloat16",
+        embedding_optimizer: str = "adagrad",
         dense_output_dtype: str | None = "bfloat16",
     ):
         self.vocab_sizes = list(vocab_sizes)
@@ -74,7 +83,9 @@ class DLRMConfig:
         self.learning_rate = learning_rate
         self.global_batch_size = global_batch_size
         self.table_placement = table_placement
+        self.table_dtype = table_dtype
         self.compute_dtype = compute_dtype
+        self.embedding_optimizer = embedding_optimizer
         #: None/"float32" keeps f32 activations; "bfloat16" keeps the
         #: DCN/top-MLP stream in bf16 (parameters and bias adds stay f32).
         self.dense_output_dtype = (
@@ -112,9 +123,13 @@ class DLRMDCNv2(nn.Module):
                 name=f"table_{i}",
                 vocabulary_size=cfg.vocab_sizes[i],
                 embedding_dim=cfg.embedding_dim,
-                optimizer=opt_lib.Adagrad(learning_rate=cfg.learning_rate),
+                optimizer=opt_lib.deserialize({
+                    "class_name": cfg.embedding_optimizer,
+                    "config": {"learning_rate": cfg.learning_rate},
+                }),
                 combiner="sum",
                 placement=cfg.table_placement,
+                dtype=cfg.table_dtype,
                 max_ids_per_partition=cfg.max_ids_per_partition,
                 max_unique_ids_per_partition=(
                     cfg.max_unique_ids_per_partition

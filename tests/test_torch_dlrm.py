@@ -13,6 +13,13 @@ Tolerances:
     bf16 first, so the two packages round at different points through
     the 5-7 layer stack (measured on CPU: 1e-3 on logits of magnitude
     0.3, 2e-4 on the losses).
+  * capacity mode (bf16 tables, row-wise Adagrad; f32 dense stack), 3
+    steps: losses within 1e-4 (measured 1.5e-5 over two seeds), tables
+    within 3 bf16 ulp (one per step: each package rounds its updates
+    stochastically with its own random bits) plus 1e-4 absolute (an
+    element whose summed gradient nearly cancels takes an update that
+    the packages' f32 differences change in relative terms; measured
+    5.9e-5 beyond 3 ulp), row-wise accumulators rtol 1e-4.
 """
 
 import numpy as np
@@ -23,6 +30,7 @@ from torch_parity import (
     LR,
     MULTI_HOT,
     VOCAB,
+    bf16_ulp,
     build_pair,
     train_jax,
     train_torch,
@@ -77,3 +85,45 @@ def test_dlrm_trains_on_fixed_batch():
     losses = train_torch(tmodel, LR, [_batch(seed=0)] * 6)
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0]
+
+
+CAPACITY = dict(F32, table_dtype="bfloat16",
+                embedding_optimizer="rowwise_adagrad")
+
+
+@pytest.mark.parametrize(
+    "dim, carry_states",
+    [pytest.param(32, True, id="dim32_states"),
+     pytest.param(128, False, id="dim128_tables")],
+)
+def test_capacity_mode_three_steps_track_jax(dim, carry_states):
+    """At dim 32 both packages lay the stack out alike and the whole
+    state is carried; at dim 128 the JAX package bit-packs the bf16 table
+    and the logical tables are carried."""
+    jmodel, tmodel = build_pair(seed=2, carry_states=carry_states,
+                                embedding_dim=dim, bottom_mlp=(64, dim),
+                                **CAPACITY)
+    emb = tmodel.embedding_layer
+    (stack,) = emb.stacks
+    assert stack.dtype == "bfloat16" and not stack.packed_state
+    assert stack.optimizer.name == "rowwise_adagrad"
+    batches = [_batch(seed=s) for s in (10, 11, 10)]
+    j_losses, j_after = train_jax(jmodel, LR, batches)
+    t_losses = train_torch(tmodel, LR, batches)
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4, atol=1e-4)
+    assert t_losses[2] < t_losses[0]
+    j_tables = j_after.embedding_layer.get_embedding_tables()
+    for name, t in emb.get_embedding_tables().items():
+        assert t.dtype == torch.bfloat16
+        a = t.float().numpy()
+        b = np.asarray(j_tables[name]).astype(np.float32)
+        bound = 3 * bf16_ulp(np.maximum(np.abs(a), np.abs(b))) + 1e-4
+        assert (np.abs(a - b) <= bound).all(), name
+    state = emb.stack_state(0)
+    assert float(state["step"]) == 3.0
+    n = sum(t.vocabulary_size for t in stack.tables)
+    j_acc = j_after.embedding_layer.state.value[stack.name]["slots"]
+    np.testing.assert_allclose(
+        state["slots"]["accumulator"][:n].numpy(),
+        np.asarray(j_acc["accumulator"])[:n], rtol=1e-4,
+    )

@@ -87,8 +87,42 @@ def jax_dlrm_params(model) -> tuple[dict, dict]:
     return params, tables
 
 
-def build_pair(seed: int = 0, **overrides):
-    """A JAX DLRM on one device and the port's DLRM with its parameters."""
+def jax_stack_states(layer) -> dict:
+    """A JAX DistributedEmbedding's raw stack states as numpy arrays
+    (bf16 tables stay ml_dtypes.bfloat16), keyed by stack name."""
+    return {
+        name: {
+            "table": np.asarray(st["table"]),
+            "step": np.asarray(st["step"]),
+            **({"slots": {k: np.asarray(v) for k, v in st["slots"].items()}}
+               if "slots" in st else {}),
+        }
+        for name, st in layer.state.value.items()
+    }
+
+
+def bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """The bf16 spacing at |a| (8 significant bits), for normal values."""
+    m = np.maximum(np.abs(np.asarray(a, np.float32)), np.float32(2.0**-126))
+    return np.exp2(np.floor(np.log2(m)) - 7).astype(np.float32)
+
+
+def assert_within_bf16_ulps(got, want, ulps: float = 1.0) -> None:
+    """|got - want| <= ulps bf16 spacings at the larger magnitude."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    bound = ulps * bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    over = np.abs(got - want) > bound
+    assert not over.any(), (
+        f"{int(over.sum())} of {over.size} values differ by more than "
+        f"{ulps} bf16 ulp; worst {np.abs(got - want)[over].max()!r}"
+    )
+
+
+def build_pair(seed: int = 0, carry_states: bool = False, **overrides):
+    """A JAX DLRM on one device and the port's DLRM with its parameters:
+    logical tables through `tables`, or (`carry_states`) the whole stack
+    states, where the two layouts match."""
     kw = dlrm_config_kwargs(**overrides)
     jmodel = jax_dlrm.DLRMDCNv2(
         jax_dlrm.DLRMConfig(**kw),
@@ -101,7 +135,13 @@ def build_pair(seed: int = 0, **overrides):
         device="cpu",
     )
     params, tables = jax_dlrm_params(jmodel)
-    convert.load_params(tmodel, params, tables)
+    if carry_states:
+        convert.load_params(
+            tmodel, params,
+            states=jax_stack_states(jmodel.embedding_layer),
+        )
+    else:
+        convert.load_params(tmodel, params, tables)
     return jmodel, tmodel
 
 
