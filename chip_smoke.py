@@ -53,9 +53,12 @@ Phases (any failure raises, so the exit code is not 0):
                    scoring batch;
  10. flash kernel  B5, B6, B7 each against its plain version at (a) the
                    slice (B 128, H 1, T 1024, hd 50, f32), (b) the
-                   published T 200, (c) bf16 B 8, H 4, T 4096, hd 64,
-                   with CUDA-event times, the bound, and
-                   scaled_dot_product_attention as a yardstick only;
+                   published T 200, (c) bf16 B 8, H 4, T 4096, hd 64, and
+                   B5 alone at (d) the serving launch (B 1024, T 1024,
+                   hd 50, f32; compared on 128 rows of the batch), with
+                   CUDA-event times, the bound, the layers' einsum path
+                   (forward, at a-c) and scaled_dot_product_attention as
+                   yardsticks only;
  11. sasrec small  a small f32 SASRec (T 512) 3 Adam steps on the card
                    (kernels) and on the CPU (einsum path): losses and
                    parameters agree;
@@ -122,7 +125,13 @@ FLASH_SHAPES = [
     ("a", SAS_BATCH, SAS_T, 1, 50, "float32"),
     ("b", SAS_BATCH, 200, 1, 50, "float32"),
     ("c", 8, 4096, 4, 64, "bfloat16"),
+    ("d", SAS_SERVE_USERS, SAS_T, 1, 50, "float32"),
 ]
+#: Shapes at which only the forward (B5) runs: the serving launch.
+FLASH_FORWARD_ONLY = {"d"}
+#: Batch rows on which a forward-only shape meets its plain version (the
+#: plain scores are [rows, H, T, T] f32).
+FLASH_PLAIN_ROWS = 128
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 FLASH_REPLACES = {
@@ -130,10 +139,15 @@ FLASH_REPLACES = {
     "flash_attention_bwd_dq": "keras_rs_tpu/ops/flash_attention.py:85",
     "flash_attention_bwd_dkv": "keras_rs_tpu/ops/flash_attention.py:116",
 }
-# H100 SXM published peaks: HBM bytes/s, and FLOP/s by
-# input type (f32 on the CUDA cores, bf16 on the tensor cores).
+# H100 SXM published peaks: HBM bytes/s, and FLOP/s by input type. bf16
+# runs on the tensor cores at 989 TFLOP/s. f32 inputs: B5 and B7 run each
+# product as three TF32 tensor-core products (big*big + big*small +
+# small*big, to stay within 1e-5 of f32 math), so their rate is the TF32
+# peak over three, 495 / 3 = 165 TFLOP/s; B6 is still on the FP32 CUDA
+# cores, 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 165e12, "bfloat16": 989e12}
+PEAK_FLOPS_BY_KERNEL = {("flash_attention_bwd_dq", "float32"): 67e12}
 
 
 def log(msg: str) -> None:
@@ -239,13 +253,21 @@ def phase_build() -> None:
     for name, lib in built.items():
         log(f"[build] {name}: nvcc {lib.build_seconds:.2f} s -> "
             f"{lib.path.relative_to(ROOT)}")
-        entry = "?"
+        # ptxas -v: one line per kernel (registers, spilled bytes).
+        entry, spills = "?", ""
         for line in lib.build_log.splitlines():
             m = re.search(r"Compiling entry function '(.*?)'", line)
             if m:
                 entry = _entry_name(m.group(1))
-            elif "registers" in line or "spill" in line:
-                log(f"[build]   {entry}: {line.strip()}")
+            elif "bytes spill" in line:
+                stores, loads = re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                    line).groups()
+                spills = ("no spills" if stores == loads == "0" else
+                          f"SPILLS {stores} B stored, {loads} B loaded")
+            elif "registers" in line:
+                used = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"[build]   {entry}: {used} registers, {spills}")
 
 
 def phase_kernel(unique_slots, sink: int, seed: int) -> dict:
@@ -972,7 +994,8 @@ def flash_bound(name: str, B: int, T: int, H: int, hd: int, dtype: str,
         "flash_attention_bwd_dkv": (8 * hd * pairs,
                                     4 * n * elem + 8 * n + 2 * stats + bias),
     }[name]
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rate = PEAK_FLOPS_BY_KERNEL.get((name, dtype), PEAK_FLOPS[dtype])
+    t_ops = flops / rate * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -981,12 +1004,15 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
                        dtype_name: str, seed: int) -> dict:
     """B5, B6 and B7 against their plain versions on one shape, with
     times. Compared on the query rows that see a real key (the kernel
-    contract); dO is 0 on the others, as in SASRec."""
+    contract); dO is 0 on the others, as in SASRec. A forward-only shape
+    runs B5 on the whole batch and compares its first FLASH_PLAIN_ROWS
+    rows."""
     import torch
     import torch.nn.functional as F
 
     from keras_rs_tpu_torch.ops import flash_attention as fa
 
+    forward_only = label in FLASH_FORWARD_ONLY
     dev = torch.device("cuda", 0)
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1003,6 +1029,9 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
     f32 = dtype == torch.float32
     tol = dict(rtol=1e-5, atol=1e-5) if f32 else dict(rtol=3e-2, atol=3e-2)
     gtol = dict(rtol=1e-4, atol=2e-5) if f32 else tol
+    # The batch rows held against the plain version.
+    n = min(B, FLASH_PLAIN_ROWS) if forward_only else B
+    plain_fwd_args = (q[:n], k[:n], v[:n], bias[:n], scale, True)
 
     def check(what, got, want, bound):
         if not bool(torch.isfinite(got.float()).all()):
@@ -1015,43 +1044,45 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
         return err
 
     out, lse = fa.flash_attention_fwd(q, k, v, bias, scale, True)
-    want_out, want_lse = fa.flash_attention_fwd_reference(
-        q, k, v, bias, scale, True)
+    want_out, want_lse = fa.flash_attention_fwd_reference(*plain_fwd_args)
     torch.cuda.synchronize()
     if not (bool(torch.isfinite(out.float()).all())
             and bool(torch.isfinite(lse).all())):
         fail(f"({label}) forward: non-finite values on uncovered rows")
     errs = {"flash_attention_fwd": max(
-        check("O", out[rows], want_out[rows], tol),
-        check("lse", lse.transpose(1, 2)[rows],
-              want_lse.transpose(1, 2)[rows], dict(rtol=1e-5, atol=1e-5)),
+        check("O", out[:n][rows[:n]], want_out[rows[:n]], tol),
+        check("lse", lse[:n].transpose(1, 2)[rows[:n]],
+              want_lse.transpose(1, 2)[rows[:n]],
+              dict(rtol=1e-5, atol=1e-5)),
     )}
-    dout = dout * rows[:, :, None, None].to(dtype)
-    delta = (dout.float() * want_out.float()).sum(-1).transpose(1, 2)
-    args = (q, k, v, bias, dout, want_lse, delta.contiguous(), scale, True)
-    dq = fa.flash_attention_bwd_dq(*args)
-    dk, dv = fa.flash_attention_bwd_dkv(*args)
-    want_dq = fa.flash_attention_bwd_dq_reference(*args)
-    want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args)
-    torch.cuda.synchronize()
-    errs["flash_attention_bwd_dq"] = check("dQ", dq[rows], want_dq[rows],
-                                           gtol)
-    errs["flash_attention_bwd_dkv"] = max(check("dK", dk, want_dk, gtol),
-                                          check("dV", dv, want_dv, gtol))
-    del out, lse, want_out, dq, dk, dv, want_dq, want_dk, want_dv
-
     calls = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, bias, scale, True),
-            lambda: fa.flash_attention_fwd_reference(q, k, v, bias, scale,
-                                                     True)),
-        "flash_attention_bwd_dq": (
-            lambda: fa.flash_attention_bwd_dq(*args),
-            lambda: fa.flash_attention_bwd_dq_reference(*args)),
-        "flash_attention_bwd_dkv": (
-            lambda: fa.flash_attention_bwd_dkv(*args),
-            lambda: fa.flash_attention_bwd_dkv_reference(*args)),
+            lambda: fa.flash_attention_fwd_reference(*plain_fwd_args)),
     }
+    if not forward_only:
+        dout = dout * rows[:, :, None, None].to(dtype)
+        delta = (dout.float() * want_out.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, bias, dout, want_lse, delta.contiguous(), scale,
+                True)
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        want_dq = fa.flash_attention_bwd_dq_reference(*args)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_reference(*args)
+        torch.cuda.synchronize()
+        errs["flash_attention_bwd_dq"] = check("dQ", dq[rows],
+                                               want_dq[rows], gtol)
+        errs["flash_attention_bwd_dkv"] = max(
+            check("dK", dk, want_dk, gtol), check("dV", dv, want_dv, gtol))
+        del dq, dk, dv, want_dq, want_dk, want_dv
+        calls["flash_attention_bwd_dq"] = (
+            lambda: fa.flash_attention_bwd_dq(*args),
+            lambda: fa.flash_attention_bwd_dq_reference(*args))
+        calls["flash_attention_bwd_dkv"] = (
+            lambda: fa.flash_attention_bwd_dkv(*args),
+            lambda: fa.flash_attention_bwd_dkv_reference(*args))
+    del out, lse, want_out
+
     result = {}
     for name, (kern, plain) in calls.items():
         kern(), plain()  # warm-up
@@ -1069,9 +1100,25 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
                         "bound_by": bound_by, "library_ms": None}
         log(f"[flash {label}] {name} B={B} T={T} H={H} hd={hd} "
             f"{dtype_name}: max_abs_err {errs[name]!r}; kernel {ms!r} ms, "
-            f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}, "
+            f"plain {plain_ms!r} ms"
+            + (f" (on {n} of the {B} batch rows)" if n < B else "")
+            + f", bound {bound_ms!r} ms ({bound_by}, "
             f"{bound_ms / ms:.1%} of it); runs {times}")
     torch.cuda.empty_cache()
+
+    if not forward_only:
+        # The layers' einsum path (layers/attention.py below FLASH_MIN_T):
+        # the same attention without a kernel, forward only.
+        def einsum_path():
+            return fa.attention_reference(q, k, v, causal=True,
+                                          key_mask=mask)
+
+        einsum_path()
+        result["einsum_fwd_ms"] = cuda_time_ms(einsum_path, 5)
+        log(f"[flash {label}] einsum path forward "
+            f"{result['einsum_fwd_ms']!r} ms against B5 "
+            f"{result['flash_attention_fwd']['ms']!r} ms")
+        torch.cuda.empty_cache()
 
     # Yardstick only (the port never calls it): PyTorch's fused attention
     # with the same boolean mask, forward and forward + backward.
@@ -1085,23 +1132,27 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
                                               attn_mask=attn_mask,
                                               scale=scale)
 
-    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(
-            *leaves, attn_mask=attn_mask, scale=scale).backward(dot)
-
-    sdpa(), sdpa_fwd_bwd()
+    sdpa()
     sdpa_ms = cuda_time_ms(sdpa, 10)
-    sdpa_fb_ms = cuda_time_ms(sdpa_fwd_bwd, 5)
     result["flash_attention_fwd"]["library_ms"] = sdpa_ms
-    result["sdpa_fwd_bwd_ms"] = sdpa_fb_ms
     log(f"[flash {label}] yardstick scaled_dot_product_attention with the "
-        f"boolean mask: forward {sdpa_ms!r} ms, forward+backward "
-        f"{sdpa_fb_ms!r} ms (kernels: forward "
-        f"{result['flash_attention_fwd']['ms']!r} ms, fwd + dQ + dK/dV "
-        f"{sum(result[n]['ms'] for n in FLASH_KERNELS)!r} ms)")
-    del qt, kt, vt, dot, attn_mask, leaves
+        f"boolean mask: forward {sdpa_ms!r} ms (B5 "
+        f"{result['flash_attention_fwd']['ms']!r} ms, "
+        f"{result['flash_attention_fwd']['ms'] / sdpa_ms:.2f}x)")
+    if not forward_only:
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(
+                *leaves, attn_mask=attn_mask, scale=scale).backward(dot)
+
+        sdpa_fwd_bwd()
+        result["sdpa_fwd_bwd_ms"] = cuda_time_ms(sdpa_fwd_bwd, 5)
+        log(f"[flash {label}] yardstick forward+backward "
+            f"{result['sdpa_fwd_bwd_ms']!r} ms (kernels fwd + dQ + dK/dV "
+            f"{sum(result[name]['ms'] for name in FLASH_KERNELS)!r} ms)")
+        del leaves
+    del qt, kt, vt, dot, attn_mask
     torch.cuda.empty_cache()
     return result
 
@@ -1304,6 +1355,13 @@ def run_sasrec(seed: int, profile: bool) -> dict:
         f"{sum(a[n]['ms'] for n in FLASH_KERNELS)!r} ms against "
         f"scaled_dot_product_attention forward + backward "
         f"{a['sdpa_fwd_bwd_ms']!r} ms")
+    d = checks["d"]["flash_attention_fwd"]
+    log(f"[flash] B5 on the SASRec path: {trained['flash_attention_fwd']} "
+        f"training launches at (a) {a['flash_attention_fwd']['ms']!r} ms, "
+        f"{served['flash_attention_fwd'] - trained['flash_attention_fwd']} "
+        f"serving launches at (d) {d['ms']!r} ms (bound {d['bound_ms']!r} "
+        f"ms by {d['bound_by']}, scaled_dot_product_attention "
+        f"{d['library_ms']!r} ms)")
     return [{
         "name": name,
         "route": "cuda",

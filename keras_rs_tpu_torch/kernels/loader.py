@@ -11,7 +11,8 @@ Flags: sm_90a (Hopper) and -O3 for every source. row_ops.cu adds
 -fmad=false, so that its kernel rounds each multiply and add separately,
 in the order of its plain PyTorch version (bit-exact). flash_attention.cu
 keeps FMA contraction on: attention sums in another order than its plain
-version in any case, and is held to a tolerance.
+version in any case, and is held to a tolerance. It adds -split-compile 0
+(its many template instances compile in parallel).
 """
 
 from __future__ import annotations
@@ -37,8 +38,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-#: Flags of one source on top of NVCC_FLAGS.
-SOURCE_FLAGS = {"row_ops": ("-fmad=false",)}
+#: Flags of one source on top of NVCC_FLAGS. flash_attention.cu holds one
+#: instance of its tensor-core kernels per padded head dim (54 kernels):
+#: -split-compile 0 lets nvcc optimise them on all cores (about half the
+#: build time on 8 cores).
+SOURCE_FLAGS = {
+    "row_ops": ("-fmad=false",),
+    "flash_attention": ("-split-compile", "0"),
+}
 
 
 def _nvcc() -> str:

@@ -109,7 +109,10 @@ class LayerNorm(nn.Module):
 
 
 #: Shortest sequence for which "auto" takes the kernels. Kept from the JAX
-#: package (measured there on a TPU); not yet measured on the H100.
+#: package (measured there on a TPU). On the H100 the forward kernel
+#: already wins at T 200 (chip_smoke.py times it beside this einsum path,
+#: PERF.md section 7); the constant moves once the backward kernels have
+#: been measured there too.
 FLASH_MIN_T = 512
 
 

@@ -8,7 +8,10 @@ none:
 
 Shapes: the SASRec slice (T 1024, hd 50, f32, a quarter of the rows
 left-padded) and the long bf16 case (T 4096, H 4, hd 64), both with a
-smaller batch, plus a T that is no multiple of the 64-row tile. Compared
+smaller batch; head dims that are and are not a multiple of the tensor
+core's depth, in both types, down to 2-byte-aligned rows; several heads;
+T of 1, 63, 65, 130 and 200 around the 64-row tile; a batch row with no
+real key. Each case runs causal and not. Compared
 on the query rows that see a real key (the kernel contract); dO is 0 on
 the other rows, as in SASRec, so dK and dV agree on every row. Bounds:
 f32 O and lse 1e-5, gradients atol 2e-5 / rtol 1e-4 (sums in another
@@ -27,6 +30,23 @@ CASES = {
     "long_bf16": (1, 4096, 4, 64, torch.bfloat16),
     "ragged_f32": (3, 200, 2, 17, torch.float32),
     "hd128_f32": (2, 130, 1, 128, torch.float32),
+    # Rows of 100 and 34 bytes: 4- and 2-byte copies, hd padded to 64, 32.
+    "hd50_bf16": (2, 200, 2, 50, torch.bfloat16),
+    "hd17_bf16": (2, 130, 2, 17, torch.bfloat16),
+    "hd128_bf16": (2, 130, 1, 128, torch.bfloat16),
+    # No padding column, one padding-free 16-byte row, and heads apart.
+    "hd56_f32": (2, 200, 1, 56, torch.float32),
+    "hd64_f32": (2, 256, 2, 64, torch.float32),
+    "heads_hd50_f32": (2, 300, 3, 50, torch.float32),
+    # Around the 64-row tile.
+    "t1_f32": (2, 1, 1, 50, torch.float32),
+    "t63_f32": (2, 63, 2, 50, torch.float32),
+    "t65_f32": (2, 65, 2, 50, torch.float32),
+    "t130_f32": (2, 130, 2, 50, torch.float32),
+    "t65_bf16": (2, 65, 2, 64, torch.bfloat16),
+    # Batch row 1 has no real key at all (only finite there).
+    "padded_row_f32": (3, 200, 1, 50, torch.float32),
+    "padded_row_bf16": (3, 200, 2, 64, torch.bfloat16),
 }
 
 
@@ -59,6 +79,8 @@ def _inputs(B, T, H, hd, dtype, device, seed=0):
 def test_kernels_match_plain_versions(cuda, case, causal):
     B, T, H, hd, dtype = CASES[case]
     q, k, v, dout, mask = _inputs(B, T, H, hd, dtype, cuda)
+    if case.startswith("padded_row"):
+        mask[1] = 0
     bias = fa.key_bias(mask, B, T, cuda)
     scale = 1.0 / math.sqrt(hd)
     rows = fa.rows_with_visible_key(mask, B, T, causal, cuda)
