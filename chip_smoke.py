@@ -57,8 +57,9 @@ Phases (any failure raises, so the exit code is not 0):
                    B5 alone at (d) the serving launch (B 1024, T 1024,
                    hd 50, f32; compared on 128 rows of the batch), with
                    CUDA-event times, the bound, the layers' einsum path
-                   (forward, at a-c) and scaled_dot_product_attention as
-                   yardsticks only;
+                   (forward, at a-c) and scaled_dot_product_attention
+                   (forward; forward + backward; backward alone, the
+                   library time of B6 and B7) as yardsticks only;
  11. sasrec small  a small f32 SASRec (T 512) 3 Adam steps on the card
                    (kernels) and on the CPU (einsum path): losses and
                    parameters agree;
@@ -140,14 +141,12 @@ FLASH_REPLACES = {
     "flash_attention_bwd_dkv": "keras_rs_tpu/ops/flash_attention.py:116",
 }
 # H100 SXM published peaks: HBM bytes/s, and FLOP/s by input type. bf16
-# runs on the tensor cores at 989 TFLOP/s. f32 inputs: B5 and B7 run each
+# runs on the tensor cores at 989 TFLOP/s. f32 inputs: B5-B7 run each
 # product as three TF32 tensor-core products (big*big + big*small +
 # small*big, to stay within 1e-5 of f32 math), so their rate is the TF32
-# peak over three, 495 / 3 = 165 TFLOP/s; B6 is still on the FP32 CUDA
-# cores, 67 TFLOP/s.
+# peak over three, 495 / 3 = 165 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 165e12, "bfloat16": 989e12}
-PEAK_FLOPS_BY_KERNEL = {("flash_attention_bwd_dq", "float32"): 67e12}
 
 
 def log(msg: str) -> None:
@@ -994,8 +993,7 @@ def flash_bound(name: str, B: int, T: int, H: int, hd: int, dtype: str,
         "flash_attention_bwd_dkv": (8 * hd * pairs,
                                     4 * n * elem + 8 * n + 2 * stats + bias),
     }[name]
-    rate = PEAK_FLOPS_BY_KERNEL.get((name, dtype), PEAK_FLOPS[dtype])
-    t_ops = flops / rate * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1151,7 +1149,22 @@ def phase_flash_kernel(label: str, B: int, T: int, H: int, hd: int,
         log(f"[flash {label}] yardstick forward+backward "
             f"{result['sdpa_fwd_bwd_ms']!r} ms (kernels fwd + dQ + dK/dV "
             f"{sum(result[name]['ms'] for name in FLASH_KERNELS)!r} ms)")
-        del leaves
+        # The backward alone (forward once, outside the timed window): the
+        # one PyTorch call that computes dQ, with dK and dV beside it, so
+        # the library time of B6 and of B7 alike.
+        sdpa_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=attn_mask, scale=scale)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True)
+
+        sdpa_bwd()
+        bwd_ms = cuda_time_ms(sdpa_bwd, 5)
+        for name in FLASH_KERNELS[1:]:
+            result[name]["library_ms"] = bwd_ms
+        log(f"[flash {label}] yardstick backward alone {bwd_ms!r} ms (B6 + "
+            f"B7 {sum(result[n]['ms'] for n in FLASH_KERNELS[1:])!r} ms)")
+        del leaves, sdpa_out
     del qt, kt, vt, dot, attn_mask
     torch.cuda.empty_cache()
     return result
@@ -1172,8 +1185,8 @@ def sasrec_model(seed: int, **overrides):
 
 
 def phase_sasrec_small() -> None:
-    """The port on the card (flash kernels: T = FLASH_MIN_T) against the
-    port on the CPU (einsum path, held to the JAX package by the CPU
+    """The port on the card (flash kernels: T 512 >= FLASH_MIN_T) against
+    the port on the CPU (einsum path, held to the JAX package by the CPU
     tests): a small f32 SASRec, identical parameters, 3 Adam steps on
     left-padded batches. Bound 1e-5 (f32; sums in another order). Adam's
     eps is 1e-5 here (1e-8 in the slice): with 1e-8 a parameter whose

@@ -19,8 +19,9 @@
 //     (only those at or below the diagonal when causal) with an online
 //     softmax: running max m, running sum l and an f32 accumulator per
 //     query row, rescaled by exp(m_old - m_new) at each tile;
-//   * dQ: one block per (b*h, 64-query tile) walks the key tiles and
-//     recomputes P = exp(S - lse) from the saved logsumexp;
+//   * dQ: one block per (b*h, 128-query tile) walks the 32-key tiles at
+//     or below the diagonal, recomputes P = exp(S - lse) from the saved
+//     logsumexp and accumulates dQ in registers;
 //   * dK/dV: one block per (b*h, 64-key tile) walks the 32-query tiles at
 //     or above the diagonal and accumulates dK and dV in registers.
 // The backward keeps the JAX package's two-pass split, so no block
@@ -28,8 +29,8 @@
 // scheduling. Blocks are ordered heaviest first (the last query tiles,
 // the first key tiles), so the causal imbalance does not idle the tail.
 //
-// B5 and B7: tensor cores (the TPU kernels are MXU-bound; the tensor core
-// is this card's matrix unit). B6 is still the first SIMT version.
+// All three run on the tensor cores (the TPU kernels are MXU-bound; the
+// tensor core is this card's matrix unit).
 //
 //   Matrix unit: warp-level mma.sync (m16n8k8 TF32 for f32 inputs,
 //   m16n8k16 for bf16), not wgmma. Three reasons. (1) f32 inputs need an
@@ -44,11 +45,12 @@
 //   (NVIDIA H100 80GB HBM3, 700 W; kernels/mma_rate.py): one scheduler
 //   starts an mma.sync every ~3.4 ns, TF32 m16n8k8 and bf16 m16n8k16
 //   alike, 65% of the published tensor peak, so three products per tile
-//   put the f32 kernels' floor at 0.15 ms (B5) and 0.30 ms (B7) at the
-//   SASRec slice.
+//   put the f32 kernels' floor at 0.15 ms (B5), 0.23 ms (B6) and 0.30 ms
+//   (B7) at the SASRec slice.
 //
 //   Numbers. bf16 inputs go to the tensor cores as they are; P and dS are
-//   rounded to bf16 for the second product; accumulators, softmax
+//   rounded to bf16 for the product that takes them as its A operand
+//   (P . V, dS . K, P^T . dO, dS^T . Q); accumulators, softmax
 //   statistics, lse and delta are f32. f32 inputs must stay within 1e-5
 //   of f32 math, which one TF32 product (10 mantissa bits) does not give.
 //   Each operand x is split into big = tf32(x), rounded to nearest, and
@@ -64,11 +66,12 @@
 //   is run over a group of 4 column tiles.
 //
 //   Block: warp w owns rows 16w .. 16w+15 of the block's tile: 8 warps
-//   and 128 query rows in B5, 4 warps and 64 key rows in B7. Lane = 4g + t
-//   holds accumulator rows g and g + 8 and columns 8j + 2t, 8j + 2t + 1 of
-//   each 8-wide column tile j. B7 computes S transposed (K Q^T: rows are
-//   keys), so P^T and dS^T are its accumulators. In B5 a warp skips a
-//   key tile that lies wholly after its rows (it would add zeros).
+//   and 128 query rows in B5 and B6, 4 warps and 64 key rows in B7. Lane
+//   = 4g + t holds accumulator rows g and g + 8 and columns 8j + 2t,
+//   8j + 2t + 1 of each 8-wide column tile j. B7 computes S transposed
+//   (K Q^T: rows are keys), so P^T and dS^T are its accumulators. In B5
+//   and B6 a warp skips a key tile that lies wholly after its rows (it
+//   would add zeros).
 //
 //   Fragments. A tile is row-major in shared memory with row stride
 //   ld = HDP + 4 floats or HDP + 8 bf16, where HDP is hd rounded up to
@@ -85,8 +88,9 @@
 //   from ldmatrix (.trans for P . B); rows of 16 * odd bytes keep it free
 //   of conflicts.
 //
-//   Copies. K/V tiles (B5) or Q/dO tiles (B7), with their bias or
-//   lse/delta rows, go through a ring of two stages filled by cp.async:
+//   Copies. K/V tiles with their bias rows (B5, B6) or Q/dO tiles with
+//   their lse/delta rows (B7) go through a ring of two stages filled by
+//   cp.async (B6 and B7 copy their resident tiles the same way):
 //   the next tile's copies are in flight during this tile's products. The
 //   copy width is chosen at launch from the row bytes and the pointers:
 //   16 bytes (cp.async.cg) where rows allow, else 8 or 4 (cp.async.ca);
@@ -101,8 +105,14 @@
 //   lse/delta = 61,952 B: three blocks, 12 warps per SM. The 32-query
 //   ring tile keeps P^T and dS^T at 16 registers each beside the 2 x
 //   HDP / 2 of dK and dV (64-query tiles took 166 registers and 93 KB:
-//   two blocks per SM, 5% slower). The widest instance (HDP 128, f32)
-//   fits one block per SM: B5 203,264 B, B7 135,680 B.
+//   two blocks per SM, 5% slower). B6: 116 registers x 256 threads;
+//   (128 Q + 128 dO + 4 x 32 ring rows) x 240 B + bias = 92,416 B: two
+//   blocks, 16 warps per SM; S, dP and dQ are 16 + 16 + 28 accumulator
+//   registers (64-key ring tiles: 127 registers, 11% slower at the slice
+//   and 9% faster in bf16 at T 4096, where HDP 64 spills; 4 warps and 64
+//   queries: 1% slower in f32, 9% in bf16). The widest instance (HDP
+//   128, f32) fits one block per SM: B5 203,264 B, B6 203,008 B, B7
+//   135,680 B.
 //
 // Masking follows the TPU kernel: S = (Q K^T) * scale + bias, then -1e9
 // where the key lies after the query (causal). Keys at t >= T do not
@@ -118,13 +128,9 @@
 
 namespace {
 
-constexpr int TILE = 64;  // key rows of a B5 ring tile; B6: rows of every tile
+constexpr int TILE = 64;  // key rows of a B5 ring tile
 constexpr float kNegInf = -1e9f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -161,6 +167,9 @@ constexpr int FWD_ROWS = 16 * FWD_WARPS;
 constexpr int DKV_WARPS = 4;  // 16 key rows each
 constexpr int DKV_ROWS = 16 * DKV_WARPS;
 constexpr int DKV_RING_ROWS = 32;  // query rows of a dK/dV ring tile
+constexpr int DQ_WARPS = 8;  // 16 query rows each
+constexpr int DQ_ROWS = 16 * DQ_WARPS;
+constexpr int DQ_RING_ROWS = 32;  // key rows of a dQ ring tile
 
 // Depth of one MMA in elements, and the padding of a shared-memory row.
 template <typename T>
@@ -546,6 +555,12 @@ constexpr size_t dkv_smem_bytes() {
   return (2 * DKV_ROWS + 4 * DKV_RING_ROWS) * row +
          4 * DKV_RING_ROWS * sizeof(float);
 }
+template <int HDP, typename T>
+constexpr size_t dq_smem_bytes() {
+  constexpr size_t row = (size_t)row_stride<T>(HDP) * sizeof(T);
+  return (2 * DQ_ROWS + 4 * DQ_RING_ROWS) * row +
+         2 * DQ_RING_ROWS * sizeof(float);
+}
 
 // --------------------------------------------------------------------------
 // B5: forward
@@ -814,208 +829,127 @@ __global__ void __launch_bounds__(32 * DKV_WARPS)
   }
 }
 
-// ==========================================================================
-// B6: dQ (first version: f32 math on the CUDA cores)
-// ==========================================================================
-//
-// Block: 256 threads = 16 groups of 16 lanes. Group r owns tile rows
-// 4r..4r+3; lane c of the group owns score columns c + 16j (j < 4) and
-// output columns c + 16v (v < HD / 16), with hd padded to HD = 32, 64 or
-// 128. A 64 x 64 score tile S = A . B^T reads A transposed in shared
-// memory ([HD][68] floats: one float4 gives the group's 4 rows) and B
-// row-major with an odd row stride HD + 1. dS goes back to shared memory
-// transposed, and dQ += dS . K reads K from the same odd-stride tile. A
-// group reads only the dS rows it wrote, so __syncwarp suffices between
-// the two products. Tiles are single-buffered.
-
-constexpr int THREADS = 256;  // 16 groups of 16 lanes
-constexpr int LDT = 68;       // row stride of a transposed tile (floats)
-
-// Rows [t0, t0 + 64) transposed into dst[d * LDT + r]; zeros past T and
-// past hd.
-template <int HD, typename T>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
-                                                const Head& g, int t0,
-                                                int T_len, int hd) {
-  for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD;
-    const int t = t0 + r;
-    float x = 0.f;
-    if (t < T_len && d < hd) x = to_f32(src[g.base + t * g.rs + d]);
-    dst[d * LDT + r] = x;
-  }
-}
-
-// Rows [t0, t0 + 64) row-major into dst[r * (HD + 1) + d]; zeros past T
-// and past hd.
-template <int HD, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          const Head& g, int t0, int T_len,
-                                          int hd) {
-  for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
-    const int r = e / HD, d = e % HD;
-    const int t = t0 + r;
-    float x = 0.f;
-    if (t < T_len && d < hd) x = to_f32(src[g.base + t * g.rs + d]);
-    dst[r * (HD + 1) + d] = x;
-  }
-}
-
-// s[i][j] = sum_d A[4r + i][d] * B[c + 16j][d] over d < hd4 (At
-// transposed, Bs row-major with stride HD + 1; zero padding past hd).
-template <int HD>
-__device__ __forceinline__ void tile_scores(float (&s)[4][4],
-                                            const float* __restrict__ At,
-                                            const float* __restrict__ Bs,
-                                            int r, int c, int hd4) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  const float* a_ptr = At + 4 * r;
-  const float* b_ptr = Bs + c * (HD + 1);
-#pragma unroll 4
-  for (int d = 0; d < hd4; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(a_ptr + d * LDT);
-    float b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = b_ptr[16 * j * (HD + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[0][j] = fmaf(a.x, b[j], s[0][j]);
-      s[1][j] = fmaf(a.y, b[j], s[1][j]);
-      s[2][j] = fmaf(a.z, b[j], s[2][j]);
-      s[3][j] = fmaf(a.w, b[j], s[3][j]);
-    }
-  }
-}
-
-// Pt[(c + 16j) * LDT + 4r + i] = p[i][j]: the group's 4 rows of a 64-wide
-// tile, transposed, one float4 per column.
-__device__ __forceinline__ void store_transposed(float* Pt,
-                                                 const float (&p)[4][4],
-                                                 int r, int c) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(Pt + (c + 16 * j) * LDT + 4 * r) =
-        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-}
-
-// acc[i][v] += sum_{kk < n} P[4r + i][kk] * D[kk][c + 16v] (Pt transposed,
-// Ds row-major with stride HD + 1).
-template <int HD>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[4][HD / 16],
-                                                const float* __restrict__ Pt,
-                                                const float* __restrict__ Ds,
-                                                int r, int c, int n) {
-  constexpr int NV = HD / 16;
-  const float* p_ptr = Pt + 4 * r;
-  const float* d_ptr = Ds + c;
-#pragma unroll 4
-  for (int kk = 0; kk < n; ++kk) {
-    const float4 p = *reinterpret_cast<const float4*>(p_ptr + kk * LDT);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const float x = d_ptr[kk * (HD + 1) + 16 * v];
-      acc[0][v] = fmaf(p.x, x, acc[0][v]);
-      acc[1][v] = fmaf(p.y, x, acc[1][v]);
-      acc[2][v] = fmaf(p.z, x, acc[2][v]);
-      acc[3][v] = fmaf(p.w, x, acc[3][v]);
-    }
-  }
-}
-
-template <int HD>
-struct DqSmem {
-  static constexpr int kTransposed = HD * LDT;   // [HD][LDT]
-  static constexpr int kRows = TILE * (HD + 1);  // [64][HD + 1]
-  static constexpr int kP = TILE * LDT;          // [64][LDT]
-  static constexpr size_t bytes =
-      sizeof(float) * (2 * kTransposed + kP + 2 * kRows + TILE);
-};
-
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
+// --------------------------------------------------------------------------
+// B6: dQ
+// --------------------------------------------------------------------------
+// B7's structure with queries as the rows: the block's Q and dO tiles stay
+// in shared memory, K, V and the key bias walk through the ring, and per
+// key tile S = Q K^T, P = exp(S - lse), dP = dO V^T, dS = P (dP - delta)
+// scale and dQ += dS K, with P, dP and dS in registers throughout.
+template <int HDP, typename T>
+__global__ void __launch_bounds__(32 * DQ_WARPS, HDP <= 64 ? 2 : 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const float* __restrict__ bias,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int T_len, int H, int hd, float scale, int causal) {
-  constexpr int NV = HD / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;
-  float* dOt = Qt + DqSmem<HD>::kTransposed;
-  float* Pt = dOt + DqSmem<HD>::kTransposed;
-  float* Ks = Pt + DqSmem<HD>::kP;
-  float* Vs = Ks + DqSmem<HD>::kRows;
-  float* bias_s = Vs + DqSmem<HD>::kRows;
+                        int T_len, int H, int hd, float scale, int causal,
+                        int width) {
+  constexpr int BK = DQ_RING_ROWS, NT = BK / 8, ND = HDP / 8;
+  constexpr int ld = row_stride<T>(HDP), tile = BK * ld;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  // Q, dO, then stage s: K at ring + 2 s tile, V one tile later; bias
+  // [2][BK].
+  T* Qs = reinterpret_cast<T*>(tc_smem);
+  T* dOs = Qs + DQ_ROWS * ld;
+  T* ring = dOs + DQ_ROWS * ld;
+  float* bias_s = reinterpret_cast<float*>(ring + 4 * tile);
 
-  const int n_tiles = (T_len + TILE - 1) / TILE;
+  const int n_tiles = (T_len + DQ_ROWS - 1) / DQ_ROWS;
   const int bh = blockIdx.x / n_tiles;
-  const int q0 = (n_tiles - 1 - blockIdx.x % n_tiles) * TILE;
-  const int tid = threadIdx.x, r = tid >> 4, c = tid & 15;
-  const int hd4 = (hd + 3) & ~3;
-  const Head g = head_of(bh, T_len, H, hd);
+  // Heaviest (last) query tiles first: they walk the most key tiles.
+  const int q0 = (n_tiles - 1 - blockIdx.x % n_tiles) * DQ_ROWS;
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const Head gh = head_of(bh, T_len, H, hd);
+  const RowCopy rc = row_copy(hd * (int)sizeof(T), width);
+  const float* bias_row = bias + (long long)gh.b * T_len;
 
-  load_transposed<HD>(Qt, q, g, q0, T_len, hd);
-  load_transposed<HD>(dOt, dout, g, q0, T_len, hd);
+  const int q_end = min(q0 + DQ_ROWS, T_len);
+  const int k_tiles = ((causal ? q_end : T_len) + BK - 1) / BK;
 
-  float lse_r[4], delta_r[4], acc[4][NV];
+  auto fetch = [&](int kt) {
+    T* Ks = ring + (kt & 1) * 2 * tile;
+    load_tile(Ks, k, gh, kt * BK, T_len, BK, hd, ld, rc);
+    load_tile(Ks + tile, v, gh, kt * BK, T_len, BK, hd, ld, rc);
+    load_stats(bias_s + (kt & 1) * BK, bias_row, kt * BK, T_len, BK);
+    cp_commit();
+  };
+
+  zero_padding(Qs, 2 * DQ_ROWS + 4 * BK, hd, HDP, ld);
+  load_tile(Qs, q, gh, q0, T_len, DQ_ROWS, hd, ld, rc);
+  load_tile(dOs, dout, gh, q0, T_len, DQ_ROWS, hd, ld, rc);
+  fetch(0);
+
+  // Per thread: rows g and g + 8 of the warp's 16, with their lse and
+  // delta (0 past T: those rows are never written).
+  const int qr0 = q0 + w0 + g, qr1 = qr0 + 8;
+  const long long stat0 = (long long)bh * T_len;
+  const float lse0 = qr0 < T_len ? lse[stat0 + qr0] : 0.f;
+  const float lse1 = qr1 < T_len ? lse[stat0 + qr1] : 0.f;
+  const float dl0 = qr0 < T_len ? delta[stat0 + qr0] : 0.f;
+  const float dl1 = qr1 < T_len ? delta[stat0 + qr1] : 0.f;
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * r + i;
-    const long long at = (long long)bh * T_len + qi;
-    lse_r[i] = qi < T_len ? lse[at] : 0.f;
-    delta_r[i] = qi < T_len ? delta[at] : 0.f;
+  for (int jd = 0; jd < ND; ++jd)
 #pragma unroll
-    for (int vv = 0; vv < NV; ++vv) acc[i][vv] = 0.f;
-  }
+    for (int c = 0; c < 4; ++c) acc[jd][c] = 0.f;
 
-  const int q_end = min(q0 + TILE, T_len);
-  const int k_tiles = causal ? (q_end + TILE - 1) / TILE : n_tiles;
   for (int kt = 0; kt < k_tiles; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_rows<HD>(Ks, k, g, k0, T_len, hd);
-    load_rows<HD>(Vs, v, g, k0, T_len, hd);
-    if (tid < TILE) {
-      const int t = k0 + tid;
-      bias_s[tid] = t < T_len ? bias[(long long)g.b * T_len + t] : 0.f;
+    if (kt + 1 < k_tiles) {
+      fetch(kt + 1);  // into the stage the previous iteration released
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile kt (and Q, dO) landed for every thread
+    const T* Ks = ring + (kt & 1) * 2 * tile;
+    const float* bs = bias_s + (kt & 1) * BK;
+    const int k0 = kt * BK;
 
-    float p[4][4], dp[4][4];
-    tile_scores<HD>(p, Qt, Ks, r, c, hd4);
-    tile_scores<HD>(dp, dOt, Vs, r, c, hd4);
+    // A key tile wholly after the warp's rows has P = 0: it adds nothing.
+    if (!(causal && k0 > q0 + w0 + 15)) {
+      // p[j][c]: query qr0 (c < 2) or qr1 against key k0 + 8j + 2t + c % 2.
+      float p[NT][4];
+      product_abt<NT, HDP>(p, Qs + w0 * ld, Ks, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * r + i;
+      for (int j = 0; j < NT; ++j) {
+        const int kj = k0 + 8 * j + 2 * t;
+        const float2 bj =
+            *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + c + 16 * j;
-        float x = p[i][j] * scale + bias_s[c + 16 * j];
-        if (causal && kj > qi) x = kNegInf;
-        const float pij = kj < T_len ? expf(x - lse_r[i]) : 0.f;
-        p[i][j] = pij * (dp[i][j] - delta_r[i]) * scale;  // dS
+        for (int c = 0; c < 4; ++c) {
+          const int key = kj + (c & 1);
+          float x = p[j][c] * scale + ((c & 1) ? bj.y : bj.x);
+          if (causal && key > (c < 2 ? qr0 : qr1)) x = kNegInf;
+          p[j][c] = key < T_len ? exp_of<T>(x - (c < 2 ? lse0 : lse1)) : 0.f;
+        }
       }
+      float ds[NT][4];
+      product_abt<NT, HDP>(ds, dOs + w0 * ld, Ks + tile, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          ds[j][c] = p[j][c] * (ds[j][c] - (c < 2 ? dl0 : dl1)) * scale;
+      product_pb<NT, HDP>(acc, ds, Ks, lane);  // dQ += dS K
     }
-    store_transposed(Pt, p, r, c);
-    __syncwarp();
-    tile_accumulate<HD>(acc, Pt, Ks, r, c, min(TILE, T_len - k0));
-    __syncwarp();
+    __syncthreads();  // the stage may be refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * r + i;
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? qr1 : qr0;
     if (qi >= T_len) continue;
+    T* dq_row = dq + gh.base + qi * gh.rs;
 #pragma unroll
-    for (int vv = 0; vv < NV; ++vv) {
-      const int d = c + 16 * vv;
-      if (d < hd) dq[g.base + qi * g.rs + d] = from_f32<T>(acc[i][vv]);
-    }
+    for (int jd = 0; jd < ND; ++jd)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = 8 * jd + 2 * t + c;
+        if (d < hd) dq_row[d] = from_f32<T>(acc[jd][2 * half + c]);
+      }
   }
 }
 
@@ -1060,21 +994,23 @@ int launch_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int HD, typename T>
+template <int HDP, typename T>
 int launch_dq(const void* q, const void* k, const void* v,
               const float* bias, const void* dout, const float* lse,
               const float* delta, void* dq, int B, int T_len, int H, int hd,
               float scale, int causal, cudaStream_t stream) {
-  const size_t smem = DqSmem<HD>::bytes;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, T>, smem);
+  constexpr size_t smem = dq_smem_bytes<HDP, T>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<HDP, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks =
-      (long long)B * H * ((T_len + TILE - 1) / TILE);
+      (long long)B * H * ((T_len + DQ_ROWS - 1) / DQ_ROWS);
   if (blocks > 0x7fffffffLL) return -1;
-  flash_bwd_dq_kernel<HD, T><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse,
-      delta, static_cast<T*>(dq), T_len, H, hd, scale, causal);
+  flash_bwd_dq_kernel<HDP, T>
+      <<<(unsigned)blocks, 32 * DQ_WARPS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse,
+          delta, static_cast<T*>(dq), T_len, H, hd, scale, causal,
+          copy_width(hd * sizeof(T), q, k, v, dout));
   return (int)cudaGetLastError();
 }
 
@@ -1098,24 +1034,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// B6: returns LAUNCH<HD, T>(args...) for hd padded to HD = 32, 64 or 128
-// and the element type T (dtype 0: f32, 1: bf16); -1 for anything else.
-#define KRT_DISPATCH(LAUNCH, hd, dtype, ...)                            \
-  do {                                                                  \
-    if (T_len <= 0 || B <= 0 || H <= 0 || hd <= 0) return -1;           \
-    if ((dtype) == 0) {                                                 \
-      if ((hd) <= 32) return LAUNCH<32, float>(__VA_ARGS__);            \
-      if ((hd) <= 64) return LAUNCH<64, float>(__VA_ARGS__);            \
-      if ((hd) <= 128) return LAUNCH<128, float>(__VA_ARGS__);          \
-    } else if ((dtype) == 1) {                                          \
-      if ((hd) <= 32) return LAUNCH<32, __nv_bfloat16>(__VA_ARGS__);    \
-      if ((hd) <= 64) return LAUNCH<64, __nv_bfloat16>(__VA_ARGS__);    \
-      if ((hd) <= 128) return LAUNCH<128, __nv_bfloat16>(__VA_ARGS__);  \
-    }                                                                   \
-    return -1;                                                          \
-  } while (0)
-
-// B5, B7: returns LAUNCH<HDP, T>(args...) for hd padded to the MMA depth
+// Returns LAUNCH<HDP, T>(args...) for hd padded to the MMA depth
 // (HDP a multiple of 8 for f32, of 16 for bf16, at most 128).
 #define KRT_CASE(LAUNCH, T, HDP, ...) \
   case HDP:                           \
@@ -1175,9 +1094,9 @@ int krt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const float* delta, void* dq, int B, int T_len, int H,
                      int hd, float scale, int causal, int dtype,
                      void* stream) {
-  KRT_DISPATCH(launch_dq, hd, dtype, q, k, v, bias, dout, lse, delta, dq, B,
-               T_len, H, hd, scale, causal,
-               static_cast<cudaStream_t>(stream));
+  KRT_DISPATCH_MMA(launch_dq, hd, dtype, q, k, v, bias, dout, lse, delta,
+                   dq, B, T_len, H, hd, scale, causal,
+                   static_cast<cudaStream_t>(stream));
 }
 
 int krt_flash_bwd_dkv(const void* q, const void* k, const void* v,

@@ -173,17 +173,21 @@ extern "C" int krt_apply_scatter_row_blocks(
 // n_valid and indices outside [0, num_rows) are skipped; n_valid is read on
 // the device, so the caller never syncs with the host. The live prefix of
 // idx is unique (the dedup list), or repeats an index only with identical
-// bytes, so no two warps race on a row.
+// bytes, so no two lane groups race on a row.
 //
 // The TPU kernels keep 64 row DMAs in flight per core, issued in unrolled
 // groups from a scalar loop over 2048-row tiles, with the index list padded
-// to a tile; none of that carries over. Here one warp copies one position's
-// rows: 32 lanes stride over the row in 16-byte vectors where the row bytes
-// and both base pointers are multiples of 16 (a 256-byte bf16 row of dim 128
-// is 16 lanes of one uint4 each), 4-byte words otherwise, 2-byte halves for
-// rows of an odd number of 2-byte elements. Thousands of resident warps keep
-// enough loads in flight to cover HBM latency, which is the card's way to do
-// what the TPU's DMA window did.
+// to a tile; none of that carries over. Here a group of lanes copies one
+// position's rows, striding over each row in 16-byte vectors where the row
+// bytes and both base pointers are multiples of 16, 4-byte words otherwise,
+// 2-byte halves for rows of an odd number of 2-byte elements. The group is
+// the smallest power of two of at least 4 lanes that covers the widest
+// stream in vectors, at most a warp, chosen at launch: a 256-byte bf16 row
+// of dim 128 is 16 vectors, so a warp copies two positions (a warp per
+// position would idle half its lanes and keep half the bytes in flight);
+// [3, 128] f32 groups (B2) and 512-byte f32 rows (B4) keep whole warps.
+// Thousands of resident warps keep enough loads in flight to cover HBM
+// latency, which is the card's way to do what the TPU's DMA window did.
 //
 // Bound: HBM bytes. Per live position the kernel reads each stream's source
 // row and the index and writes each destination row: 2 * 256 + 4 bytes for
@@ -203,25 +207,29 @@ struct ScatterStreams {
   int64_t row_bytes[kMaxStreams];
   int vec_bytes[kMaxStreams];  // 16, 4 or 2
   int k;
+  int lane_bits;  // one position per 2^lane_bits lanes (2 .. 5)
 };
 
 template <class V>
 __device__ __forceinline__ void copy_row(char* __restrict__ dst,
                                          const char* __restrict__ src,
-                                         int64_t row_bytes, int lane) {
+                                         int64_t row_bytes, int lane,
+                                         int lanes) {
   V* d = reinterpret_cast<V*>(dst);
   const V* s = reinterpret_cast<const V*>(src);
   const int64_t n = row_bytes / static_cast<int64_t>(sizeof(V));
-  for (int64_t j = lane; j < n; j += 32) d[j] = s[j];
+  for (int64_t j = lane; j < n; j += lanes) d[j] = s[j];
 }
 
 __global__ void scatter_rows_kernel(ScatterStreams st,
                                     const int32_t* __restrict__ idx,
                                     const int32_t* __restrict__ n_valid,
                                     int64_t num_rows, int64_t n) {
+  const int lanes = 1 << st.lane_bits;
   const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >>
+      st.lane_bits;
+  const int lane = threadIdx.x & (lanes - 1);
   int64_t live = n;
   if (n_valid != nullptr) {
     live = *n_valid;
@@ -237,11 +245,11 @@ __global__ void scatter_rows_kernel(ScatterStreams st,
     char* dst = st.dst[s] + r * rb;
     const char* src = st.src[s] + i * rb;
     if (st.vec_bytes[s] == 16) {
-      copy_row<uint4>(dst, src, rb, lane);
+      copy_row<uint4>(dst, src, rb, lane, lanes);
     } else if (st.vec_bytes[s] == 4) {
-      copy_row<uint32_t>(dst, src, rb, lane);
+      copy_row<uint32_t>(dst, src, rb, lane, lanes);
     } else {
-      copy_row<uint16_t>(dst, src, rb, lane);
+      copy_row<uint16_t>(dst, src, rb, lane, lanes);
     }
   }
 }
@@ -262,6 +270,7 @@ extern "C" int krt_scatter_rows(int k, void* const* dst,
   if (k < 1 || k > kMaxStreams) return kUnsupported;
   ScatterStreams st{};
   st.k = k;
+  long long widest = 1;  // vectors in the widest stream's row
   for (int s = 0; s < k; ++s) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(dst[s]) |
                            reinterpret_cast<uintptr_t>(src[s]);
@@ -273,8 +282,11 @@ extern "C" int krt_scatter_rows(int k, void* const* dst,
     st.vec_bytes[s] = (rb % 16 == 0 && addr % 16 == 0)  ? 16
                       : (rb % 4 == 0 && addr % 4 == 0) ? 4
                                                         : 2;
+    widest = rb / st.vec_bytes[s] > widest ? rb / st.vec_bytes[s] : widest;
   }
-  const int64_t rows_per_block = kThreads / 32;
+  st.lane_bits = 2;
+  while (st.lane_bits < 5 && (1LL << st.lane_bits) < widest) ++st.lane_bits;
+  const int64_t rows_per_block = kThreads >> st.lane_bits;
   const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
   if (blocks > 0x7fffffffLL) return kUnsupported;
   scatter_rows_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,

@@ -85,14 +85,9 @@ def time_tree(tree: str) -> dict:
     return times
 
 
-def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--time":
-        print(json.dumps(time_tree(sys.argv[2])))
-        return 0
-    if len(sys.argv) != 3:
-        print(__doc__)
-        return 2
-    parent, new = sys.argv[1:]
+def compare(script: str, parent: str, new: str) -> int:
+    """Runs `script --time TREE` for parent, new, new, parent, one process
+    each; prints the card, one JSON line per run and a closing table."""
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -101,7 +96,7 @@ def main() -> int:
     runs = []
     for which, tree in (("parent", parent), ("new", new), ("new", new),
                         ("parent", parent)):
-        out = subprocess.run([sys.executable, __file__, "--time", tree],
+        out = subprocess.run([sys.executable, script, "--time", tree],
                              capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout, out.stderr, sep="\n")
@@ -117,6 +112,16 @@ def main() -> int:
               f"{cur[0]:11.4f} {cur[1]:11.4f} "
               f"{sum(old) / sum(cur):7.2f}")
     return 0
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--time":
+        print(json.dumps(time_tree(sys.argv[2])))
+        return 0
+    if len(sys.argv) != 3:
+        print(__doc__)
+        return 2
+    return compare(__file__, *sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -11,10 +11,10 @@ switch again; the loader's own flags (kernels/loader.py) come first in
 every build. The builds run in parallel, then every variant is timed
 twice, round-robin, with flash_compare.py's inputs and timing
 (CUDA-event mean of 20 launches after a warm-up) at (a) B 128, T 1024,
-H 1, hd 50, f32 and (c) B 8, T 4096, H 4, hd 64, bf16, forward (B5) and
-dK/dV (B7). In the first round each variant's O at (a) is compared with
-the plain version on 16 batch rows (max_abs_err_O), so a switch that
-breaks the numbers shows.
+H 1, hd 50, f32 and (c) B 8, T 4096, H 4, hd 64, bf16: forward (B5), dQ
+(B6) and dK/dV (B7). In the first round each variant's O and dQ at (a)
+are compared with the plain versions on 16 batch rows (max_abs_err_O,
+max_abs_err_dQ), so a switch that breaks the numbers shows.
 
 Prints the card's name and power limit, then per variant its registers
 for the instances those shapes run and one JSON line of milliseconds per
@@ -56,7 +56,8 @@ def build(variant: tuple[str, list[str]]):
     # Registers of the instances the two shapes run (HDP 56 f32, 64 bf16).
     registers, entry = {}, None
     for line in proc.stderr.splitlines():
-        m = re.search(r"(flash_(?:fwd|bwd_dkv)_kernel)ILi(56Ef|64E13)", line)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(56Ef|64E13)",
+                      line)
         if "Compiling entry" in line:
             entry = f"{m.group(1)}<{m.group(2)[:2]}>" if m else None
         elif entry and "registers" in line:
@@ -114,18 +115,26 @@ def main() -> int:
                 bias = fa.key_bias(mask, B, T, dev)
                 scale = 1.0 / math.sqrt(hd)
                 out, lse = fa.flash_attention_fwd(q, k, v, bias, scale, True)
-                if rnd == 0 and label == "a":
-                    rows = fa.rows_with_visible_key(mask, B, T, True, dev)
-                    want, _ = fa.flash_attention_fwd_reference(
-                        q[:16], k[:16], v[:16], bias[:16], scale, True)
-                    ms["a:max_abs_err_O"] = float(
-                        (out[:16][rows[:16]] - want[rows[:16]]).abs().max())
                 delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
                 args = (q, k, v, bias, dout, lse, delta.contiguous(), scale,
                         True)
+                if rnd == 0 and label == "a":
+                    rows = fa.rows_with_visible_key(mask, B, T, True,
+                                                    dev)[:16]
+                    want, _ = fa.flash_attention_fwd_reference(
+                        q[:16], k[:16], v[:16], bias[:16], scale, True)
+                    ms["a:max_abs_err_O"] = float(
+                        (out[:16][rows] - want[rows]).abs().max())
+                    small = tuple(x[:16] for x in args[:7]) + args[7:]
+                    got = fa.flash_attention_bwd_dq(*small)
+                    want = fa.flash_attention_bwd_dq_reference(*small)
+                    ms["a:max_abs_err_dQ"] = float(
+                        (got[rows] - want[rows]).abs().max())
                 ms[f"{label}:fwd"] = flash_compare.time_ms(
                     lambda: fa.flash_attention_fwd(q, k, v, bias, scale,
                                                    True))
+                ms[f"{label}:dq"] = flash_compare.time_ms(
+                    lambda: fa.flash_attention_bwd_dq(*args))
                 ms[f"{label}:dkv"] = flash_compare.time_ms(
                     lambda: fa.flash_attention_bwd_dkv(*args))
             if rnd == 0:

@@ -108,12 +108,13 @@ class LayerNorm(nn.Module):
         return (x - mean) * inv * self.scale + self.offset
 
 
-#: Shortest sequence for which "auto" takes the kernels. Kept from the JAX
-#: package (measured there on a TPU). On the H100 the forward kernel
-#: already wins at T 200 (chip_smoke.py times it beside this einsum path,
-#: PERF.md section 7); the constant moves once the backward kernels have
-#: been measured there too.
-FLASH_MIN_T = 512
+#: Shortest sequence for which "auto" takes the kernels: the shortest
+#: length timed at the SASRec widths (batch 128, hidden 50, one head, f32)
+#: by kernels/flash_crossover.py, where the kernels beat this einsum path
+#: forward + backward on an H100 on the mean of four runs. Both paths are
+#: launch-bound at these lengths, so a single run can swap them (PERF.md
+#: section 7).
+FLASH_MIN_T = 64
 
 
 class MultiHeadSelfAttention(nn.Module):

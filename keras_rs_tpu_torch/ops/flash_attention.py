@@ -42,7 +42,8 @@ import torch
 from keras_rs_tpu_torch.kernels import loader
 
 NEG_INF = -1e9
-#: The kernels' largest head dim (they pad hd to 32, 64 or 128).
+#: The kernels' largest head dim (they pad hd to a multiple of the
+#: tensor-core depth: 8 for f32, 16 for bf16).
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

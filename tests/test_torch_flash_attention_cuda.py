@@ -10,8 +10,9 @@ Shapes: the SASRec slice (T 1024, hd 50, f32, a quarter of the rows
 left-padded) and the long bf16 case (T 4096, H 4, hd 64), both with a
 smaller batch; head dims that are and are not a multiple of the tensor
 core's depth, in both types, down to 2-byte-aligned rows; several heads;
-T of 1, 63, 65, 130 and 200 around the 64-row tile; a batch row with no
-real key. Each case runs causal and not. Compared
+T of 1, 63, 65, 127, 129, 130 and 200 around the 32- and 64-row ring
+tiles and the 128-row query tile; a batch row with no real key. Each
+case runs causal and not. Compared
 on the query rows that see a real key (the kernel contract); dO is 0 on
 the other rows, as in SASRec, so dK and dV agree on every row. Bounds:
 f32 O and lse 1e-5, gradients atol 2e-5 / rtol 1e-4 (sums in another
@@ -44,6 +45,15 @@ CASES = {
     "t65_f32": (2, 65, 2, 50, torch.float32),
     "t130_f32": (2, 130, 2, 50, torch.float32),
     "t65_bf16": (2, 65, 2, 64, torch.bfloat16),
+    # Around the 128-query tile of B5 and B6.
+    "t127_f32": (2, 127, 2, 50, torch.float32),
+    "t129_f32": (2, 129, 2, 50, torch.float32),
+    "t129_bf16": (2, 129, 1, 64, torch.bfloat16),
+    # f32 head dims padded to 8 (one and three MMA steps) and the widest
+    # padded instance below 128.
+    "hd8_f32": (2, 200, 2, 8, torch.float32),
+    "hd24_f32": (2, 200, 1, 24, torch.float32),
+    "hd120_f32": (2, 130, 1, 120, torch.float32),
     # Batch row 1 has no real key at all (only finite there).
     "padded_row_f32": (3, 200, 1, 50, torch.float32),
     "padded_row_bf16": (3, 200, 2, 64, torch.bfloat16),

@@ -1,5 +1,5 @@
-"""The numeric scheme of the tensor-core flash kernels (B5 forward and B7
-dK/dV in csrc/flash_attention.cu), emulated on the CPU.
+"""The numeric scheme of the tensor-core flash kernels (B5 forward, B6 dQ
+and B7 dK/dV in csrc/flash_attention.cu), emulated on the CPU.
 
 For f32 inputs the kernels run every product on the TF32 tensor cores
 with error compensation ("3xTF32"): each operand x is split into
@@ -12,8 +12,8 @@ an integer add and a mask), truncation is the mask alone, and the
 products are f32 einsums of the parts.
 
 Two halves, at small slice-like shapes (hd 17 / 50 / 64, causal or not):
-  * with the split, O, lse, dK and dV stay within the f32 bounds of the
-    kernels' plain versions (forward 1e-5, gradients rtol 1e-4 / atol
+  * with the split, O, lse, dQ, dK and dV stay within the f32 bounds of
+    the kernels' plain versions (forward 1e-5, gradients rtol 1e-4 / atol
     2e-5: the bounds the card is held to);
   * with a single TF32 product they do not, which is why the split is
     there.
@@ -80,6 +80,17 @@ def emulated_forward(product, q, k, v, bias, scale, causal):
     return o, (m + torch.log(l))[..., 0]
 
 
+def emulated_dq(product, q, k, v, bias, dout, lse, delta, scale, causal):
+    """B6: S and dP as two products, dS formed from them in f32, then
+    dS . K with dS split like any other A operand (in the kernel it never
+    leaves the registers that accumulated dP)."""
+    s = _mask_scores(product("bqhd,bkhd->bhqk", q, k), bias, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = product("bqhd,bkhd->bhqk", dout, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return product("bhqk,bkhd->bqhd", ds, k)
+
+
 def emulated_dkv(product, q, k, v, bias, dout, lse, delta, scale, causal):
     s = _mask_scores(product("bqhd,bkhd->bhqk", q, k), bias, scale, causal)
     p = torch.exp(s - lse[..., None])
@@ -105,11 +116,14 @@ def _case(hd, causal):
     delta = (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
     dk, dv = tfa.flash_attention_bwd_dkv_reference(
         q, k, v, bias, dout, lse, delta, scale, causal)
-    return (q, k, v, bias, scale), (dout, lse, delta), (out, lse, dk, dv)
+    dq = tfa.flash_attention_bwd_dq_reference(
+        q, k, v, bias, dout, lse, delta, scale, causal)
+    return ((q, k, v, bias, scale), (dout, lse, delta), (out, lse, dk, dv),
+            dq)
 
 
 def _emulate(product, case, causal):
-    (q, k, v, bias, scale), (dout, lse, delta), _ = case
+    (q, k, v, bias, scale), (dout, lse, delta), *_ = case
     out, got_lse = emulated_forward(product, q, k, v, bias, scale, causal)
     dk, dv = emulated_dkv(product, q, k, v, bias, dout, lse, delta, scale,
                           causal)
@@ -155,3 +169,28 @@ def test_single_tf32_product_breaks_the_f32_bounds(hd, causal):
         assert bool(over.any()), f"{name} within the bound with one product"
         # ... and by a wide margin, not by a rounding at the edge.
         assert float(err.max()) > 10 * tol["atol"], name
+
+
+def _emulate_dq(product, case, causal):
+    (q, k, v, bias, scale), (dout, lse, delta), *_ = case
+    return emulated_dq(product, q, k, v, bias, dout, lse, delta, scale,
+                       causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [17, 50, 64])
+def test_split_dq_stays_within_the_gradient_bound(hd, causal):
+    case = _case(hd, causal)
+    torch.testing.assert_close(_emulate_dq(product_3x, case, causal),
+                               case[3], **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [17, 50, 64])
+def test_single_tf32_dq_breaks_the_gradient_bound(hd, causal):
+    case = _case(hd, causal)
+    got, want = _emulate_dq(product_1x, case, causal), case[3]
+    err = (got - want).abs()
+    over = err > GRAD_TOL["atol"] + GRAD_TOL["rtol"] * want.abs()
+    assert bool(over.any()), "dQ within the bound with one product"
+    assert float(err.max()) > 10 * GRAD_TOL["atol"]

@@ -127,6 +127,46 @@ def test_duplicate_sink_indices_in_the_tail(cuda):
         _check(tables, got, want, idx, 700 if nv is not None else N)
 
 
+# Rows narrower than a warp's 32 vectors: one position per 4 (bf16 dim 8,
+# f32 dim 16), 8 (bf16 dim 64) or 16 lanes (bf16 dim 128, f32 dim 64).
+NARROW = [
+    (torch.bfloat16, (8,)),
+    (torch.bfloat16, (64,)),
+    (torch.bfloat16, (128,)),
+    (torch.float32, (16,)),
+    (torch.float32, (64,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [None, 601])
+@pytest.mark.parametrize("dtype, shape", NARROW)
+def test_narrow_rows_share_a_warp(cuda, dtype, shape, n_valid):
+    """Several positions per warp, with an odd n and an odd n_valid, so
+    the last lane groups of a warp have no position."""
+    tables, rows, idx = _case(cuda, [(dtype, shape)], seed=13, n=999)
+    nv = None if n_valid is None else torch.tensor(
+        [n_valid], dtype=torch.int32, device=cuda)
+    got, want = _run(_multi, row_ops.scatter_rows, tables, rows, idx, nv)
+    _check(tables, got, want, idx, 999 if n_valid is None else n_valid)
+
+
+@pytest.mark.cuda
+def test_out_of_range_index_in_one_lane_group(cuda):
+    """bf16 dim-128 rows: two positions per warp. Positions 4 and 7 are
+    out of range; their warp partners 5 and 6 are written all the same."""
+    tables, rows, idx = _case(cuda, [(torch.bfloat16, (128,))], seed=17)
+    idx[4], idx[7] = -1, R
+    got = tables[0].clone()
+    row_ops.scatter_rows(got, idx, rows[0])
+    torch.cuda.synchronize()
+    ok = (idx >= 0) & (idx < R)
+    want = tables[0].clone()
+    want[idx[ok].long()] = rows[0][ok]
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got[idx[5:7].long()], rows[0][5:7])
+
+
 @pytest.mark.cuda
 def test_out_of_range_indices_are_skipped(cuda):
     tables, rows, idx = _case(cuda, STREAMS[:1], seed=5)
