@@ -17,6 +17,9 @@ from --seed:
         Adagrad, one stack of 204,102,451 rows (53.1 GB); kernel B3;
       - two short paths at the 4M cap: bf16 tables with Adagrad (B4, k =
         2) and f32 tables with Adam (packed [R, 3, 128], B2).
+  * the same DLRM through the ml_perf entry point
+    (keras_rs_tpu_torch/examples/ml_perf/main.py) with the COO
+    preprocessing on the device inside the step, and in host mode;
   * SASRec at the published ML-1M widths (models/sasrec.py defaults: 2
     blocks, 1 head, hidden 50, MLP 50, 3,706 items; Adam lr 0.005, batch
     128, f32) with the long-history context T = 1024, trained through
@@ -68,13 +71,31 @@ Phases (any failure raises, so the exit code is not 0):
  13. sasrec serve  3 batches of 1024 users under no_grad: user states,
                    top-10 ids in [0, 3706], parameters unchanged, B5 only;
  14. profile       only with --profile: torch.profiler over 3 more steps
-                   of the packed DLRM, the capacity DLRM and SASRec,
-                   device time per step by part.
+                   of the packed DLRM, the capacity DLRM, SASRec and
+                   (in phase 16) the ml_perf device-mode step, device
+                   time per step by part;
+ 15. coo           one full-width batch of the packed slice (2,818,048
+                   ids) through the device COO transform (in
+                   set_sync_debug_mode("error")), the numpy path and the
+                   C++ engine: every array and stat bit-exact; times of
+                   each (the engine on one thread and on four);
+ 16. mlperf        the ml_perf entry point, main("full_criteo") with each
+                   vocabulary capped at 4M rows: 70 steps with device
+                   preprocessing, the device step time over chained
+                   steps, the dummy eval (B1 once per step, no other
+                   kernel); end-to-end examples/s and the device's idle
+                   share; 16 steps in host mode (C++ engine, 4 loader
+                   threads); both modes' losses over the same 3 batches
+                   from the same weights, and the host syncs of one
+                   device-mode step;
+ 17. auc           main("smoke_test", num_steps=300,
+                   device_preprocessing=True): AUC > 0.60.
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
 just after it (B1 from the packed path, B2 from f32 + Adam, B3 from
-capacity mode, B4 from bf16 + Adagrad, B5-B7 from SASRec).
+capacity mode, B4 from bf16 + Adagrad, B5-B7 from SASRec). The ml_perf
+path's counts (phase 16) are checked on their own line.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), then one JSON line {"kernels": [...]}, then last one JSON
@@ -90,12 +111,14 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import logging
 import math
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -554,7 +577,7 @@ DLRM_PROFILE_PARTS = [
     ("stacked lookup backward", "_StackLookupBackward", "total"),
     ("  row kernel", "kernel:apply_scatter_row_blocks_kernel", "self"),
     ("  segment-sum index_add_", "aten::index_add_", "self"),
-    ("small-table EmbedReduce backward", "IndexBackward0", "total"),
+    ("small-table EmbedReduce backward", "EmbeddingBackward0", "total"),
     ("stacked lookup forward", "_StackLookup", "total"),
     ("dense matmuls (forward and backward)", "aten::mm", "self"),
     ("dtype casts", "aten::_to_copy", "total"),
@@ -566,11 +589,15 @@ CAPACITY_PROFILE_PARTS = [
     ("  row-wise accumulator index_copy_", "aten::index_copy_", "total"),
     ("  stochastic rounding bits", "aten::random_", "total"),
     ("gathers, whole step", "aten::index", "total"),
-    ("small-table EmbedReduce backward", "IndexBackward0", "total"),
+    ("small-table EmbedReduce backward", "EmbeddingBackward0", "total"),
     ("stacked lookup forward", "_StackLookup", "total"),
     ("dense matmuls (forward and backward)", "aten::mm", "self"),
     ("dtype casts", "aten::_to_copy", "total"),
 ]
+MLPERF_PROFILE_PARTS = [
+    ("device COO transform", "device COO transform", "total"),
+    ("  stable sort", "aten::sort", "total"),
+] + DLRM_PROFILE_PARTS
 SASREC_PROFILE_PARTS = [
     ("B5 flash forward kernel", "kernel:flash_fwd_kernel", "self"),
     ("B6 flash dQ kernel", "kernel:flash_bwd_dq_kernel", "self"),
@@ -581,8 +608,10 @@ SASREC_PROFILE_PARTS = [
 ]
 
 
-def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
-    """Device time per training step by part, from torch.profiler."""
+def profile_steps(step, batch, steps: int = 3):
+    """torch.profiler over `steps` calls of step(batch) after one warm
+    call: (the profiler's averages, wall ms per step, device ms per step
+    summed over the kernel and copy rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -596,18 +625,32 @@ def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
     avgs = prof.key_averages()
+    cpu = torch.autograd.DeviceType.CPU
     # Operator rows also carry the device time of the kernels they
-    # launch: only the kernel rows are summed for the total.
+    # launch: only the kernel rows are summed for the total. A labelled
+    # range (record_function) has a CPU row and a device-timeline twin of
+    # the same name, which spans the range's kernels and the gaps between
+    # them: the twin is no kernel.
+    cpu_keys = {e.key for e in avgs if e.device_type == cpu}
     kernel_ms = sum(e.self_device_time_total for e in avgs
-                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    if e.device_type != cpu and e.key not in cpu_keys
                     ) / 1e3 / steps
+    return avgs, wall_ms, kernel_ms
+
+
+def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
+    """Device time per training step by part, from torch.profiler."""
+    import torch
+
+    avgs, wall_ms, kernel_ms = profile_steps(step, batch, steps)
+    cpu = torch.autograd.DeviceType.CPU
     log(f"[profile] {label}, {steps} steps: wall {wall_ms!r} ms per step, "
         f"device kernels {kernel_ms!r} ms per step")
     for part, row, time_of in parts:
         if row.startswith("kernel:"):
             rows = [e for e in avgs if row[len("kernel:"):] in e.key]
         else:
-            rows = [e for e in avgs if e.key == row]
+            rows = [e for e in avgs if e.key == row and e.device_type == cpu]
         us = sum(e.self_device_time_total if time_of == "self"
                  else e.device_time_total for e in rows)
         log(f"[profile] {label} {part}: {us / 1e3 / steps!r} ms per step "
@@ -1385,6 +1428,278 @@ def run_sasrec(seed: int, profile: bool) -> dict:
     } for name in FLASH_KERNELS]
 
 
+# --- COO preprocessing and the ml_perf entry point ------------------------
+
+
+#: Steps of the ml_perf runs: device mode (the first 10 warm up, the
+#: other 60, 7.5 times the loader's queue of 8 batches, are timed end to
+#: end, as main counts them) and host mode.
+MLPERF_STEPS = 70
+MLPERF_HOST_STEPS = 16
+#: main's honest_timing: one warm-up block and 3 timed blocks of 20.
+MLPERF_TIMING_STEPS = 4 * 20
+#: The two modes' losses over the same 3 batches: equal on the first
+#: step; then the segment-sum's float atomics add in another order in
+#: each run, and the bf16 dense stream can round a changed value to the
+#: next bf16 step, so the later losses are held to 1e-3 absolute.
+MODE_LOSS_BOUND = 1e-3
+AUC_GATE = 0.60
+
+
+def sync_count(fn) -> tuple[object, int]:
+    """fn()'s result and the number of host syncs it made, read in
+    set_sync_debug_mode("warn")."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_coo(seed: int) -> None:
+    """The device transform, the numpy path and the C++ engine on one
+    full-width batch (the packed slice: 9 large features, 2,818,048 ids,
+    one all-sum stack): every array and stat bit-exact, the device
+    transform run in set_sync_debug_mode("error"). Times: the device
+    transform (CUDA events, median of 10), numpy and the C++ engine (host
+    clock; the engine on one thread, then 8 batches on 4 threads)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from keras_rs_tpu_torch.layers.embedding import preprocessing
+    from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
+        preprocess_stack_device,
+    )
+    from keras_rs_tpu_torch.layers.embedding.stacking import build_stacks
+    from keras_rs_tpu_torch.models.dlrm import large_feature_configs
+
+    cfg = slice_config()
+    (stack,) = build_stacks(list(large_feature_configs(cfg).values()), 1)
+    raw = dlrm_batch(cfg, seed)
+    inputs = {f.name: raw[f.name] for f in stack.features}
+    n_ids = sum(v.size for v in inputs.values())
+    dev_inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    torch.cuda.synchronize()
+
+    def transform():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return preprocess_stack_device(stack, dev_inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    transform()  # warm-up (allocator, sort workspace)
+    events = []
+    for _ in range(10):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        coo, stats = transform()
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        transform()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    host = {}
+    for backend, runs in (("numpy", 3), ("native", 5)):
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            host[backend] = preprocessing.preprocess_stack(
+                stack, inputs, backend=backend)
+            times.append(time.perf_counter() - t)
+        host[backend + "_s"] = times
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        t = time.perf_counter()
+        list(pool.map(lambda _: preprocessing.preprocess_stack(
+            stack, inputs, backend="native"), range(8)))
+        four_s = (time.perf_counter() - t) / 8
+
+    got = {k: v.cpu().numpy() for k, v in coo.arrays().items()}
+    got_stats = preprocessing.InputStats(*(int(x) for x in stats))
+    for backend in ("numpy", "native"):
+        want, want_stats = host[backend]
+        if got.keys() != want.arrays().keys():
+            fail(f"coo: device arrays {sorted(got)} vs {backend} "
+                 f"{sorted(want.arrays())}")
+        for k, a in want.arrays().items():
+            if got[k].dtype != a.dtype or not np.array_equal(got[k], a):
+                fail(f"coo: device {k} differs from {backend}")
+        if got_stats != want_stats:
+            fail(f"coo: device stats {got_stats} vs {backend} "
+                 f"{want_stats}")
+    one_s = statistics.median(host["native_s"])
+    log(f"[coo] {n_ids} ids in {stack.num_features} features, stack "
+        f"{stack.name} ({stack.global_rows} rows, C = U = "
+        f"{stack.max_ids_per_partition}): device, numpy and C++ arrays "
+        f"and stats bit-exact ({', '.join(sorted(got))}; {got_stats})")
+    log(f"[coo] device transform: median {statistics.median(dev_ms)!r} ms "
+        f"(CUDA events, 10 runs, no host sync: {dev_ms}); "
+        f"{len(kernels)} device operations, {kernel_ms!r} ms of kernel "
+        f"time (profiler, one run)")
+    log(f"[coo] host: numpy {host['numpy_s']} s; C++ engine one thread "
+        f"{host['native_s']} s (median {one_s!r}); four threads "
+        f"{four_s!r} s per batch over 8 batches ({one_s / four_s:.2f}x "
+        "one thread's rate)")
+    del coo, dev_inputs
+    torch.cuda.empty_cache()
+
+
+def run_mlperf(seed: int, profile: bool) -> None:
+    """The port's ml_perf `main` at full width (the MLPerf DLRM-DCNv2,
+    each vocabulary capped at 4M rows, packed f32 + Adagrad state, batch
+    16,384), device preprocessing, learnable dummy batches: MLPERF_STEPS
+    steps, the device step time over chained steps, the dummy eval. B1
+    must launch once per step and no other kernel. Then host mode (C++
+    engine, 4 loader threads) for MLPERF_HOST_STEPS steps; then the two
+    modes' losses over the same 3 batches from the same weights, with
+    the syncs of one device-mode step counted, and the device's idle
+    share of main's loop: 1 - the device time of one whole device-mode
+    step (torch.profiler's kernel and copy rows over 3 steps from the raw
+    batch) / main's wall time per step. With `profile`, also the
+    profiler's breakdown of 3 device-mode steps (the transform
+    labelled)."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
+    dev = torch.device("cuda", 0)
+
+    def drive(label, steps, expect_b1, **overrides):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t = time.perf_counter()
+        r = mlperf.main("full_criteo", device=dev, num_steps=steps,
+                        vocab_sizes=capped, **overrides)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        want = {k: expect_b1 if k == "apply_scatter_row_blocks" else 0
+                for k in counts}
+        if counts != want:
+            fail(f"mlperf {label}: launches {counts}, expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+            fail(f"mlperf {label}: results {r}")
+        log(f"[mlperf {label}] results {r}; {wall:.1f} s in main; peak "
+            f"device memory {peak:.2f} GB; B1 launches {expect_b1}")
+        torch.cuda.empty_cache()
+        return r
+
+    r = drive("device", MLPERF_STEPS, MLPERF_STEPS + MLPERF_TIMING_STEPS,
+              device_preprocessing=True, honest_timing=True)
+    step_ms = BATCH / r["throughput"] * 1e3
+    log(f"[mlperf device] device step {r['device_step_ms']!r} ms "
+        f"({r['device_examples_per_sec']:.0f} examples/s on the device); "
+        f"end to end {r['throughput']:.0f} examples/s ({step_ms!r} ms per "
+        f"step of wall time over the {MLPERF_STEPS - 10} timed steps)")
+    rh = drive("host", MLPERF_HOST_STEPS, MLPERF_HOST_STEPS,
+               num_loader_threads=4)
+    log(f"[mlperf host] end to end {rh['throughput']:.0f} examples/s "
+        f"(C++ engine on 4 loader threads) against "
+        f"{r['throughput']:.0f} with device preprocessing")
+
+    cfg = configs.full_criteo(vocab_sizes=capped)
+    # The host's share of the loop: drawing a dummy batch (the loader
+    # draws them one at a time, under its source lock) and copying the
+    # raw batch to the card (the consuming thread).
+    source = CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(3, seed=seed)
+    batches, draw_s, copy_s = [], [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        batches.append(next(source))
+        draw_s.append(time.perf_counter() - t)
+    losses = {}
+    for device_preprocessing in (True, False):
+        model = mlperf.build_model(cfg, dev)
+        step = make_train_step(
+            model, mlperf.make_loss_fn(device_preprocessing),
+            DenseAdagrad(model.parameters(), cfg.learning_rate))
+        if device_preprocessing:
+            def whole_step(b, model=model, step=step):
+                t = time.perf_counter()
+                on_card = model.to_device(b)
+                torch.cuda.synchronize()
+                copy_s.append(time.perf_counter() - t)
+                return step(on_card)
+
+            first, syncs = sync_count(lambda: whole_step(batches[0]))
+            log(f"[mlperf syncs] one device-mode step (the copy of the "
+                f"raw batch, the transform, forward, backward, both "
+                f"optimizers): {syncs} host syncs")
+        else:
+            def whole_step(b, model=model, step=step):
+                return step(model.preprocess(b))
+
+            first = whole_step(batches[0])
+        losses[device_preprocessing] = [float(first)] + [
+            float(whole_step(b)) for b in batches[1:]]
+        if device_preprocessing:  # after the losses: it trains on
+            _, _, busy_ms = profile_steps(
+                lambda b: step(model.to_device(b)), batches[0])
+        if profile and device_preprocessing:
+            def labelled(m, b):
+                with torch.profiler.record_function("device COO transform"):
+                    pre = m.preprocess_on_device(b)
+                return bce_loss(m, pre)
+
+            phase_profile(
+                "mlperf device mode",
+                make_train_step(model, labelled, DenseAdagrad(
+                    model.parameters(), cfg.learning_rate)),
+                model.to_device(batches[0]),
+                MLPERF_PROFILE_PARTS)
+        del model, step, whole_step
+        torch.cuda.empty_cache()
+    log(f"[mlperf host path] drawing one dummy batch {draw_s} s; the raw "
+        f"batch to the card (pinned copy) {copy_s} s")
+    log(f"[mlperf device] device idle {1 - busy_ms / step_ms:.1%} of main's "
+        f"loop: {busy_ms!r} ms of kernels and copies per whole step "
+        f"(profiler, 3 steps from the raw batch) against {step_ms!r} ms of "
+        f"wall time per step")
+    diff = [abs(a - b) for a, b in zip(losses[True], losses[False])]
+    log(f"[mlperf modes] losses device {losses[True]} host "
+        f"{losses[False]}: differences {diff} (bound {MODE_LOSS_BOUND})")
+    if diff[0] != 0.0 or max(diff) > MODE_LOSS_BOUND:
+        fail(f"mlperf: device and host modes disagree: {diff}")
+
+
+def phase_auc() -> None:
+    """`main("smoke_test", num_steps=300, device_preprocessing=True)` on
+    the card: the learnable dummy batches must reach AUC > 0.60."""
+    import torch
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+
+    r = mlperf.main("smoke_test", device=torch.device("cuda", 0),
+                    num_steps=300, device_preprocessing=True)
+    log(f"[auc] smoke_test, 300 steps, device preprocessing: {r}")
+    if not r["auc"] > AUC_GATE:
+        fail(f"auc {r['auc']} <= {AUC_GATE}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1401,6 +1716,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this runs on a GPU only")
 
+    # The ml_perf entry point logs its progress and results line.
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="[%(name)s] %(message)s", force=True)
     card = nvidia_smi_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
@@ -1416,6 +1734,11 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     kernels += run_sasrec(args.seed, args.profile)
     log(f"[time] SASRec phases done at {time.perf_counter() - t0:.1f} s")
+    phase_coo(args.seed)
+    run_mlperf(args.seed, args.profile)
+    phase_auc()
+    log(f"[time] COO, ml_perf and AUC phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(card)
     print(json.dumps({"kernels": kernels}))

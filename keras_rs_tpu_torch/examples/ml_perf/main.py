@@ -1,0 +1,381 @@
+"""MLPerf DLRM-DCNv2 training entry point, on one CUDA device.
+
+The port of examples/ml_perf/main.py: the DLRM-DCNv2 of configs.py
+trained on Criteo TFRecord files or on learnable dummy batches, with the
+COO preprocessing either on host loader threads (`ThreadedDataLoader`,
+`num_loader_threads`; the C++ engine where it builds, numpy otherwise)
+or on the device inside the training step (`--device_preprocessing`).
+Dense parameters take Adagrad in optax's formula; the stacked tables
+take their embedding optimizer inside the lookup's backward, in place.
+After training it evaluates streaming AUC and accuracy and logs the same
+`results: {...}` line as the JAX entry point.
+
+On one device the large tables always go to the stacked engine
+(`table_placement="sharded"`; the JAX package's "auto" keeps them as
+dense tables on a one-device mesh and runs no COO path at all), and both
+modes take the worst-case capacities main.py:87-108 gives the device
+mode: the port has neither capacity growth nor the sorted forward, which
+smaller capacities would need (ROADMAP A10). Profiling, checkpoints,
+pipelined embedding, the multi-device exchange dtype and more than one
+process are not ported: main raises NotImplementedError for each.
+
+Run from the repository root:
+  python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
+      --device cpu
+  python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
+      --device_preprocessing          # on cuda:0
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from keras_rs_tpu_torch.data.criteo import CriteoDataset
+from keras_rs_tpu_torch.data.loader import ThreadedDataLoader
+from keras_rs_tpu_torch.examples.ml_perf.configs import (
+    CONFIGS,
+    ExperimentConfig,
+)
+from keras_rs_tpu_torch.metrics.classification import AUC, BinaryAccuracy
+from keras_rs_tpu_torch.models.dlrm import DLRMConfig, DLRMDCNv2, bce_loss
+from keras_rs_tpu_torch.training.train_state import (
+    DenseAdagrad,
+    make_train_step,
+)
+from keras_rs_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("ml_perf")
+
+
+def binary_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """Rank-based AUC (equivalent to the Wilcoxon statistic)."""
+    order = np.argsort(scores)
+    ranks = np.empty(len(scores))
+    ranks[order] = np.arange(1, len(scores) + 1)
+    pos = labels > 0.5
+    n_pos, n_neg = pos.sum(), (~pos).sum()
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return float(
+        (ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+    )
+
+
+def check_supported(cfg: ExperimentConfig) -> None:
+    """Raises NotImplementedError for what the port does not run yet."""
+    missing = []
+    if cfg.do_profile:
+        missing.append("profiling (--profile; ROADMAP A13)")
+    if cfg.checkpoint_dir:
+        missing.append("checkpoints (checkpoint_dir; ROADMAP A13)")
+    if cfg.pipeline_embedding:
+        missing.append("pipelined embedding (--pipeline_embedding; "
+                       "ROADMAP A10)")
+    if cfg.embedding_comm_dtype is not None:
+        missing.append("the multi-device exchange dtype "
+                       "(embedding_comm_dtype; ROADMAP A10)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        missing.append("more than one process (WORLD_SIZE > 1; ROADMAP A10)")
+    if missing:
+        raise NotImplementedError(
+            "Not ported to keras_rs_tpu_torch yet: " + "; ".join(missing)
+        )
+
+
+def capacities(cfg: ExperimentConfig) -> tuple[int, int]:
+    """(max_ids_per_partition, max_unique_ids_per_partition): the worst
+    case of main.py:87-108 at one device, every large id of the batch in
+    the one bucket and every one of them unique."""
+    D = 1
+    large_mh = sum(
+        m for v, m in zip(cfg.vocab_sizes, cfg.multi_hot_sizes)
+        if v >= cfg.embedding_threshold
+    )
+    max_ids = (cfg.global_batch_size // D) * large_mh
+    max_unique = max(
+        1, min(max_ids, cfg.device_unique_factor * -(-max_ids // D))
+    )
+    return max_ids, max_unique
+
+
+def model_config(cfg: ExperimentConfig) -> DLRMConfig:
+    max_ids, max_unique = capacities(cfg)
+    return DLRMConfig(
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes,
+        embedding_dim=cfg.embedding_dim,
+        bottom_mlp=cfg.bottom_mlp,
+        top_mlp=cfg.top_mlp,
+        num_dcn_layers=cfg.num_dcn_layers,
+        dcn_projection_dim=cfg.dcn_projection_dim,
+        embedding_threshold=cfg.embedding_threshold,
+        max_ids_per_partition=max_ids,
+        max_unique_ids_per_partition=max_unique,
+        learning_rate=cfg.learning_rate,
+        global_batch_size=cfg.global_batch_size,
+        table_placement="sharded",
+        dense_output_dtype=cfg.dense_output_dtype,
+    )
+
+
+def build_model(cfg: ExperimentConfig, device: torch.device) -> DLRMDCNv2:
+    """The config's model with its weights drawn from seed 0."""
+    return DLRMDCNv2(
+        model_config(cfg),
+        generator=torch.Generator(device=device).manual_seed(0),
+        device=device,
+    )
+
+
+def make_loss_fn(device_preprocessing: bool):
+    """The training loss of a batch as the loader hands it over: a raw
+    batch on the device (COO transform inside the step) or a
+    preprocessed one."""
+    if device_preprocessing:
+        def loss_fn(m: DLRMDCNv2, b: dict) -> torch.Tensor:
+            return bce_loss(m, m.preprocess_on_device(b))
+
+        return loss_fn
+    return bce_loss
+
+
+def _raw(batch: dict) -> dict:
+    return {k: np.asarray(v) for k, v in batch.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(config_name: str = "smoke_test", *, device: Any = None,
+         **overrides) -> dict:
+    """Trains and evaluates the named config (with `overrides` of its
+    fields); returns the results dict it logs. `device` defaults to
+    cuda:0 (utils/device.py)."""
+    cfg = CONFIGS[config_name](**overrides)
+    check_supported(cfg)
+    device = resolve_device(device)
+    logger.info("config=%s device=%s device_preprocessing=%s", cfg.name,
+                device, cfg.device_preprocessing)
+    model = build_model(cfg, device)
+    max_ids, max_unique = capacities(cfg)
+    logger.info("capacities: max_ids_per_partition=%d "
+                "max_unique_ids_per_partition=%d", max_ids, max_unique)
+
+    dataset = CriteoDataset(
+        cfg.file_pattern,
+        global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes,
+        file_batch_size=cfg.file_batch_size,
+    )
+
+    def raw_batches():
+        if cfg.file_pattern:
+            yield from dataset.batches(epochs=1000)
+        else:
+            yield from dataset.dummy_batches(cfg.num_steps)
+
+    # Workers return host arrays (the raw batch, or its host COO); the
+    # consuming thread moves them to the device.
+    loader = ThreadedDataLoader(
+        raw_batches(),
+        _raw if cfg.device_preprocessing else model.preprocess_host,
+        transfer_fn=model.to_device,
+        num_workers=cfg.num_loader_threads,
+    )
+    optimizer = DenseAdagrad(model.parameters(), cfg.learning_rate)
+    step_fn = make_train_step(model, make_loss_fn(cfg.device_preprocessing),
+                              optimizer)
+
+    def dropped_ids(batch: dict) -> int:
+        """Device mode drops ids over a capacity without a warning: one
+        extra transform, host-reading the summed DeviceStats."""
+        with torch.no_grad():
+            _, stats = model.embedding_layer.preprocess_on_device(
+                {f"cat_{i}": batch[f"cat_{i}"] for i in model.large_idx},
+                return_stats=True,
+            )
+        return int(sum(s.dropped_ids for s in stats.values()))
+
+    auc_m = AUC(num_thresholds=512, device=device)
+    acc_m = BinaryAccuracy(device=device)
+
+    def eval_batch_iter():
+        if cfg.val_file_pattern:
+            return CriteoDataset(
+                cfg.val_file_pattern,
+                global_batch_size=cfg.global_batch_size,
+                vocab_sizes=cfg.vocab_sizes,
+                multi_hot_sizes=cfg.multi_hot_sizes,
+                file_batch_size=cfg.file_batch_size,
+            ).batches(epochs=1)
+        return dataset.dummy_batches(4, seed=777)
+
+    @torch.no_grad()
+    def run_eval(collect_probs: bool = False):
+        """(accuracy, auc, labels, probs) over the eval set."""
+        auc_m.reset_state()
+        acc_m.reset_state()
+        ck_labels, ck_probs = [], []
+        for eval_batch in eval_batch_iter():
+            if cfg.device_preprocessing:
+                b = model.preprocess_on_device(model.to_device(eval_batch))
+            else:
+                b = model.preprocess(eval_batch)
+            probs = torch.sigmoid(model(b).float())
+            auc_m.update_state(b["label"], probs)
+            acc_m.update_state(b["label"], probs)
+            if collect_probs:
+                ck_labels.append(np.asarray(eval_batch["label"]))
+                ck_probs.append(probs.cpu().numpy())
+        return (float(acc_m.result()), float(auc_m.result()), ck_labels,
+                ck_probs)
+
+    t0 = time.time()
+    warmup = min(10, max(0, cfg.num_steps - 1))
+    t_warm = t0
+    losses, auc_curve = [], []
+    batch = None
+    for step in range(cfg.num_steps):
+        batch = next(loader)
+        loss = step_fn(batch)
+        losses.append(loss)
+        if step + 1 == warmup:
+            # Throughput counts from here (first-call costs excluded).
+            _sync(device)
+            t_warm = time.time()
+        if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
+            # Eval wall time stays out of the training throughput.
+            t_eval = time.time()
+            acc_pt, auc_pt, _, _ = run_eval()
+            auc_curve.append(
+                {"step": step + 1, "auc": auc_pt, "accuracy": acc_pt}
+            )
+            logger.info("eval @ step %d: auc %.4f acc %.4f", step + 1,
+                        auc_pt, acc_pt)
+            t_warm += time.time() - t_eval
+        if (step + 1) % 100 == 0:
+            logger.info(
+                "step %d loss %.5f (%.1f ex/s post-warmup)", step + 1,
+                float(loss),
+                cfg.global_batch_size * (step + 1 - warmup)
+                / max(time.time() - t_warm, 1e-9),
+            )
+            if cfg.device_preprocessing:
+                n_dropped = dropped_ids(batch)
+                if n_dropped:
+                    logger.warning(
+                        "device preprocessing dropped %d ids at step %d "
+                        "(unique capacity overflow: raise "
+                        "device_unique_factor)", n_dropped, step + 1,
+                    )
+    _sync(device)
+    throughput = (
+        cfg.global_batch_size * max(cfg.num_steps - warmup, 0)
+        / max(time.time() - t_warm, 1e-9)
+    )
+
+    device_step_ms = None
+    if cfg.honest_timing and batch is not None:
+        from keras_rs_tpu_torch.utils.timing import measure_step_time
+
+        device_step_ms = measure_step_time(step_fn, batch) * 1e3
+        logger.info("device step: %.3f ms (%.1f ex/s on the device)",
+                    device_step_ms,
+                    cfg.global_batch_size / device_step_ms * 1e3)
+    loader.stop()
+
+    # Final eval; the exact rank AUC on the host checks the thresholded
+    # streaming one.
+    acc, auc, ck_labels, ck_probs = run_eval(collect_probs=True)
+    exact = binary_auc(np.concatenate(ck_labels), np.concatenate(ck_probs))
+    if abs(exact - auc) > 0.01:
+        logger.warning("streaming AUC %.4f deviates from exact rank AUC "
+                       "%.4f", auc, exact)
+
+    results = {
+        "loss": float(losses[-1]) if losses else float("nan"),
+        "throughput": throughput,
+        "accuracy": acc,
+        "auc": auc,
+    }
+    if auc_curve:
+        results["auc_curve"] = auc_curve
+    if device_step_ms is not None:
+        results["device_step_ms"] = device_step_ms
+        results["device_examples_per_sec"] = (
+            cfg.global_batch_size / (device_step_ms / 1e3)
+        )
+    logger.info("results: %s", results)
+    return results
+
+
+def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
+    """(config name, main's keyword arguments) from the command line
+    (examples/ml_perf/main.py's flags, and --device)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", default="smoke_test")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda:0)")
+    parser.add_argument("--num_steps", type=int, default=None)
+    parser.add_argument("--global_batch_size", type=int, default=None)
+    parser.add_argument(
+        "--dense_output_dtype", default=None,
+        help="e.g. bfloat16: bf16-resident dense activations "
+        "(params/accumulation stay f32)",
+    )
+    parser.add_argument("--file_pattern", default=None)
+    parser.add_argument("--val_file_pattern", default=None)
+    parser.add_argument("--profile", action="store_true",
+                        help="not ported (raises)")
+    parser.add_argument(
+        "--device_preprocessing", action="store_true",
+        help="run COO preprocessing on the device inside the step",
+    )
+    parser.add_argument(
+        "--eval_every", type=int, default=None,
+        help="evaluate every N steps and record an AUC curve",
+    )
+    parser.add_argument("--pipeline_embedding", action="store_true",
+                        help="not ported (raises)")
+    parser.add_argument(
+        "--honest_timing", action="store_true",
+        help="after training, measure the device step time with CUDA "
+        "events over chained steps",
+    )
+    args = parser.parse_args(argv)
+    overrides: dict[str, Any] = {}
+    for name in ("num_steps", "global_batch_size", "dense_output_dtype",
+                 "file_pattern", "val_file_pattern", "eval_every"):
+        if getattr(args, name):
+            overrides[name] = getattr(args, name)
+    for flag, name in (("profile", "do_profile"),
+                       ("device_preprocessing", "device_preprocessing"),
+                       ("honest_timing", "honest_timing"),
+                       ("pipeline_embedding", "pipeline_embedding")):
+        if getattr(args, flag):
+            overrides[name] = True
+    # The JAX entry point's environment overrides.
+    if os.environ.get("KRT_PROFILE_DIR"):
+        overrides["do_profile"] = True
+        overrides["profile_dir"] = os.environ["KRT_PROFILE_DIR"]
+    if os.environ.get("KRT_CHECKPOINT_DIR"):
+        overrides["checkpoint_dir"] = os.environ["KRT_CHECKPOINT_DIR"]
+    if args.device is not None:
+        overrides["device"] = args.device
+    return args.config, overrides
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, force=True)
+    name, kwargs = parse_args()
+    main(name, **kwargs)

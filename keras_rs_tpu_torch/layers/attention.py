@@ -10,8 +10,11 @@ multi-head self-attention with two compute paths:
     tensor, their plain versions on a CPU tensor.
 
 `use_flash="auto"` takes the kernels for a CUDA tensor with
-T >= FLASH_MIN_T and the einsum path otherwise; `use_flash=True` always
-takes the fused function. Weights keep the JAX package's [in, out]
+T >= FLASH_MIN_T and a head dim the kernels take (<= fa.MAX_HEAD_DIM),
+and the einsum path otherwise (the reference pads any head dim for its
+kernels; the einsum path computes the same attention). `use_flash=True`
+always takes the fused function, which raises on a CUDA tensor whose
+head dim is too wide. Weights keep the JAX package's [in, out]
 layout (y = x @ w), so they move between the packages without a
 transpose.
 """
@@ -147,7 +150,8 @@ class MultiHeadSelfAttention(nn.Module):
 
     def _flash_enabled(self, x: torch.Tensor) -> bool:
         if self.use_flash == "auto":
-            return x.is_cuda and x.shape[1] >= FLASH_MIN_T
+            return (x.is_cuda and x.shape[1] >= FLASH_MIN_T
+                    and self.head_dim <= fa.MAX_HEAD_DIM)
         return bool(self.use_flash)
 
     def forward(

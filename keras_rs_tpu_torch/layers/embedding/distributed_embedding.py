@@ -3,12 +3,17 @@
 Counterpart of keras_rs_tpu/layers/embedding/distributed_embedding.py on
 one device: per-table placement ("sharded" tables go to the stacked
 engine of lookup.py, "default_device" tables to EmbedReduce), table
-sharing by TableConfig identity, auto table stacking, host-side
-`preprocess`, and table import/export.
+sharing by TableConfig identity, auto table stacking, COO preprocessing
+on the host (`preprocess`, or `preprocess_host` + `to_device` where a
+loader thread does the host part) or on the device
+(`preprocess_on_device`), and table import/export.
 
 Usage:
     layer = DistributedEmbedding(feature_configs, generator=g, device=dev)
-    pre = layer.preprocess(inputs)   # host numpy COO, moved to `dev`
+    pre = layer.preprocess(inputs)   # host COO (numpy or C++), moved to
+                                     # `dev`
+    pre = layer.preprocess_on_device(device_inputs)  # the same, computed
+                                     # on the device from device tensors
     activations = layer(pre)         # backward updates the stacked
                                      # tables in place (Overwrite contract)
 
@@ -21,7 +26,8 @@ lookup takes them. Tables are exported and imported as logical
 [vocab, dim] tensors in the storage dtype.
 
 Not ported yet: multi-device sharding, stats tracking and capacity
-growth, freeze / serving_copy, ragged and sparse inputs, serialization.
+growth (`record_stats` / `update_stats`), freeze / serving_copy, ragged
+and sparse inputs, serialization.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ from keras_rs_tpu_torch.convert import as_tensor
 from keras_rs_tpu_torch.layers.embedding.config import (
     FeatureConfig,
     TableConfig,
+)
+from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
+    DeviceStats,
+    preprocess_stack_device,
 )
 from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
 from keras_rs_tpu_torch.layers.embedding.lookup import (
@@ -54,16 +64,18 @@ from keras_rs_tpu_torch.layers.embedding.stacking import (
     init_stack_table,
     scatter_table,
 )
-from keras_rs_tpu_torch.utils.device import resolve_device
+from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
 
 
 def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
-    """The D = 1 lookup's arrays of a CooBatch, flattened, on `device`.
+    """The D = 1 lookup's arrays of a CooBatch (host numpy arrays, or
+    device tensors from preprocess_stack_device), flattened, on `device`.
 
     Gather indices become int64 once per batch (on the device, so the
     host moves int32); `unique_slots` stays int32 for the row kernel.
+    Host arrays go through pinned memory without waiting for the copy.
     """
     if coo.fwd_slots is None:
         raise ValueError(
@@ -72,10 +84,10 @@ def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
             "below the stack's entry count."
         )
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(
-            device
-        )
+    def put(a: np.ndarray | torch.Tensor) -> torch.Tensor:
+        if isinstance(a, np.ndarray):
+            a = to_device(a, device)
+        return a.reshape(-1).to(device)
 
     return {
         "fwd_slots": put(coo.fwd_slots).long(),
@@ -181,11 +193,10 @@ class DistributedEmbedding(nn.Module):
             for k, fc in zip(self._keys, self._feature_leaves)
         }
 
-    def preprocess(
-        self, inputs: Any, weights: Any = None
-    ) -> dict[str, Any]:
-        """Host-side COO preprocessing; returns a marker-wrapped dict of
-        device tensors to pass to `__call__`."""
+    def _bind(self, inputs: Any, weights: Any, host: bool) -> tuple:
+        """(ids, weights) by feature name, each shaped as its feature
+        declares (weights None where not given): numpy arrays (`host`) or
+        the device tensors given."""
         in_leaves = self._match_features(inputs)
         w_leaves = (
             self._match_features(weights, allow_partial=True)
@@ -196,17 +207,20 @@ class DistributedEmbedding(nn.Module):
             target = (
                 (fc.batch_size, -1) if fc.reduced else (fc.batch_size,)
             )
-            in_leaves[fc.name] = np.asarray(in_leaves[fc.name]).reshape(
+            ids, w = in_leaves[fc.name], w_leaves[fc.name]
+            in_leaves[fc.name] = (np.asarray(ids) if host else ids).reshape(
                 target
             )
-            if w_leaves.get(fc.name) is not None:
-                w_leaves[fc.name] = np.asarray(
-                    w_leaves[fc.name], np.float32
+            if w is not None:
+                w_leaves[fc.name] = (
+                    np.asarray(w, np.float32) if host else w
                 ).reshape(target)
+        return in_leaves, w_leaves
 
-        sharded = {}
+    def _per_stack(self, in_leaves: dict, w_leaves: dict):
+        """(stack, its features' ids, their given weights) per stack."""
         for stack in self.stacks:
-            coo, _ = preprocess_stack(
+            yield (
                 stack,
                 {f.name: in_leaves[f.name] for f in stack.features},
                 {
@@ -215,18 +229,75 @@ class DistributedEmbedding(nn.Module):
                     if w_leaves[f.name] is not None
                 },
             )
-            sharded[stack.name] = coo_to_device(coo, self.device)
 
-        dense = {}
-        for name in self._dense_feature_to_table:
-            ids = torch.from_numpy(np.asarray(in_leaves[name])).to(
-                self.device
-            )
-            w = w_leaves.get(name)
-            if w is not None:
-                w = torch.from_numpy(w).to(self.device)
-            dense[name] = (ids, w)
+    def preprocess_host(
+        self, inputs: Any, weights: Any = None
+    ) -> dict[str, Any]:
+        """Host-side COO preprocessing (the C++ engine where it builds,
+        numpy otherwise), numpy arrays only: safe on a loader thread. Pass
+        the result through `to_device`."""
+        in_leaves, w_leaves = self._bind(inputs, weights, host=True)
+        sharded = {
+            stack.name: preprocess_stack(stack, ids, w)[0]
+            for stack, ids, w in self._per_stack(in_leaves, w_leaves)
+        }
+        dense = {
+            name: (in_leaves[name], w_leaves[name])
+            for name in self._dense_feature_to_table
+        }
         return {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+
+    def to_device(self, host_pre: dict[str, Any]) -> dict[str, Any]:
+        """`preprocess_host`'s result on the layer's device, as
+        `__call__` takes it."""
+        sharded = {
+            name: coo_to_device(coo, self.device)
+            for name, coo in host_pre["sharded"].items()
+        }
+        dense = {
+            name: (
+                to_device(ids, self.device),
+                None if w is None else to_device(w, self.device),
+            )
+            for name, (ids, w) in host_pre["dense"].items()
+        }
+        return {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+
+    def preprocess(
+        self, inputs: Any, weights: Any = None
+    ) -> dict[str, Any]:
+        """Host-side COO preprocessing; returns a marker-wrapped dict of
+        device tensors to pass to `__call__`."""
+        return self.to_device(self.preprocess_host(inputs, weights))
+
+    def preprocess_on_device(
+        self,
+        inputs: Any,
+        weights: Any = None,
+        return_stats: bool = False,
+    ) -> Any:
+        """COO preprocessing on the device, from id (and weight) tensors
+        on the layer's device: the structure `preprocess` returns, with
+        the same arrays, computed without a host round trip
+        (device_preprocessing.py), so a training step can take raw ids.
+
+        Shapes are static: ids over a capacity are dropped without a
+        warning. With `return_stats=True` also returns {stack name:
+        DeviceStats} (0-d device tensors); read `dropped_ids` on the host
+        now and then to see drops.
+        """
+        in_leaves, w_leaves = self._bind(inputs, weights, host=False)
+        sharded = {}
+        stats: dict[str, DeviceStats] = {}
+        for stack, ids, w in self._per_stack(in_leaves, w_leaves):
+            coo, stats[stack.name] = preprocess_stack_device(stack, ids, w)
+            sharded[stack.name] = coo_to_device(coo, self.device)
+        dense = {
+            name: (in_leaves[name], w_leaves[name])
+            for name in self._dense_feature_to_table
+        }
+        pre = {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+        return (pre, stats) if return_stats else pre
 
     def forward(self, inputs: Any, weights: Any = None) -> Any:
         """Looks up embeddings; accepts raw inputs or preprocessed ones.

@@ -3,7 +3,7 @@
 Counterpart of keras_rs_tpu/layers/embedding/embed_reduce.py for padded
 dense inputs: a (B, L) id matrix plus an optional (B, L) weight matrix
 whose zeros mark padding. The table is an `nn.Parameter` with a dense
-gradient, updated by the dense optimizer. Ragged and sparse inputs and
+gradient (`F.embedding`'s backward), updated by the dense optimizer. Ragged and sparse inputs and
 the int8 serving variant are not ported yet.
 """
 
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
@@ -68,7 +69,7 @@ class EmbedReduce(nn.Module):
     ) -> torch.Tensor:
         if inputs.ndim < 1:
             raise ValueError("`inputs` must have rank >= 1.")
-        x = self.embeddings[inputs]
+        x = self._lookup(inputs)
         if inputs.ndim == 1:
             if weights is not None and self.combiner == "sum":
                 x = x * weights.to(x.dtype)[:, None]
@@ -94,3 +95,14 @@ class EmbedReduce(nn.Module):
                 x, torch.sqrt(torch.square(weights).sum(dim=-1))[..., None]
             )
         return x
+
+    def _lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of the table by id, as the reference's `jnp.take` fetches
+        them: a negative id counts from the end (-1 is the last row), and
+        an id outside [-vocab, vocab) gives a row of NaN, on the CPU and
+        on CUDA alike (no index error, no device-side assert)."""
+        n = self.input_dim
+        ids = torch.where(ids < 0, ids + n, ids)
+        outside = (ids < 0) | (ids >= n)
+        rows = F.embedding(torch.where(outside, 0, ids), self.embeddings)
+        return torch.where(outside[..., None], torch.nan, rows)

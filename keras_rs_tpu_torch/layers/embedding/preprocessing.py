@@ -2,8 +2,9 @@
 
 Counterpart of keras_rs_tpu/layers/embedding/preprocessing.py: the same
 vectorized numpy reference implementation, bit-identical output, but
-importing this package's jax-free stacking. (The JAX package's native
-C++ engine is not wired in yet.)
+importing this package's jax-free stacking. `preprocess_stack` runs it or
+the C++ engine (native.py, the JAX package's native/coo_preprocess.cc);
+device_preprocessing.py computes the same arrays on the device.
 
 Layout for a stack with D shards, bucket capacity C, unique capacity U,
 F features and local batch Bl (S_l = F * Bl local segments):
@@ -34,7 +35,8 @@ from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
 
 @dataclasses.dataclass
 class CooBatch:
-    """Preprocessed inputs for one stack (host numpy arrays)."""
+    """Preprocessed inputs for one stack: host numpy arrays, or device
+    tensors of the same shapes and dtypes (preprocess_stack_device)."""
 
     send_slots: np.ndarray
     send_segs: np.ndarray
@@ -130,6 +132,8 @@ def preprocess_stack(
     stack: TableStack,
     inputs: Mapping[str, np.ndarray | Sequence],
     weights: Mapping[str, np.ndarray] | None = None,
+    *,
+    backend: str = "auto",
 ) -> tuple[CooBatch, InputStats]:
     """Builds the CooBatch for one stack from per-feature id matrices.
 
@@ -137,7 +141,46 @@ def preprocess_stack(
     [0, vocab) are ignored. `weights[feature_name]`: float array of the
     same shape; zeros mark padding. Ids over capacity are dropped with a
     warning.
+
+    `backend`: "numpy" runs the implementation below, "native" the C++
+    engine (raises if it cannot be built), "auto" the C++ engine where
+    it builds and numpy otherwise, as in the JAX package. The backends
+    agree bit for bit.
     """
+    if backend not in ("auto", "numpy", "native"):
+        raise ValueError(f"Unknown backend {backend!r}.")
+    from keras_rs_tpu_torch.layers.embedding import native
+
+    if backend == "native" or (backend == "auto" and native.available()):
+        coo, stats = native.preprocess_stack_native(stack, inputs, weights)
+    else:
+        coo, stats = _preprocess_stack_numpy(stack, inputs, weights)
+    if stats.dropped_ids:
+        U = stack.max_unique_ids_per_shard
+        unique_overflow = max(0, stats.max_unique_per_shard - (U - 1))
+        warnings.warn(
+            f"Stack {stack.name!r}: "
+            f"{stats.dropped_ids - unique_overflow} ids over bucket "
+            f"capacity {stack.max_ids_per_partition} (max observed "
+            f"{stats.max_ids_per_bucket}; raise max_ids_per_partition) and "
+            f"{unique_overflow} unique rows over capacity {U - 1} (max "
+            f"observed {stats.max_unique_per_shard}; raise "
+            "max_unique_ids_per_partition).",
+            stacklevel=2,
+        )
+    coo.fwd_slots, coo.fwd_gains = construction_fwd_arrays(
+        stack, inputs, weights, coo.divisors
+    )
+    return coo, stats
+
+
+def _preprocess_stack_numpy(
+    stack: TableStack,
+    inputs: Mapping[str, np.ndarray | Sequence],
+    weights: Mapping[str, np.ndarray] | None,
+) -> tuple[CooBatch, InputStats]:
+    """The numpy backend of preprocess_stack (no construction-order
+    arrays, no warning)."""
     D = stack.num_shards
     C = stack.max_ids_per_partition
     U = stack.max_unique_ids_per_shard
@@ -266,18 +309,6 @@ def preprocess_stack(
         max_unique_per_shard=max_unique,
         dropped_ids=dropped + unique_overflow,
     )
-    if stats.dropped_ids:
-        msg = (
-            f"Stack {stack.name!r}: {dropped} ids over bucket capacity "
-            f"{C} (max observed {max_ids}; raise max_ids_per_partition)"
-            f" and {unique_overflow} unique rows over capacity {U - 1} "
-            f"(max observed {max_unique}; raise "
-            "max_unique_ids_per_partition)."
-        )
-        warnings.warn(msg, stacklevel=2)
-    fwd_slots, fwd_gains = construction_fwd_arrays(
-        stack, inputs, weights, divisors
-    )
     return (
         CooBatch(
             send_slots=send_slots,
@@ -286,8 +317,6 @@ def preprocess_stack(
             unique_slots=unique_slots,
             entry_unique=entry_unique,
             divisors=divisors,
-            fwd_slots=fwd_slots,
-            fwd_gains=fwd_gains,
         ),
         stats,
     )

@@ -27,7 +27,7 @@ from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
 from keras_rs_tpu_torch.layers.feature_interaction.feature_cross import (
     FeatureCross,
 )
-from keras_rs_tpu_torch.utils.device import resolve_device
+from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 
 class DLRMConfig:
@@ -94,6 +94,37 @@ class DLRMConfig:
         )
 
 
+def large_feature_configs(cfg: DLRMConfig) -> dict[str, FeatureConfig]:
+    """The feature configs of the large (stacked) features, "cat_i" for
+    each vocabulary >= cfg.embedding_threshold, as DLRMDCNv2 builds its
+    DistributedEmbedding from them."""
+    out = {}
+    for i, vocab in enumerate(cfg.vocab_sizes):
+        if vocab < cfg.embedding_threshold:
+            continue
+        table = TableConfig(
+            name=f"table_{i}",
+            vocabulary_size=vocab,
+            embedding_dim=cfg.embedding_dim,
+            optimizer=opt_lib.deserialize({
+                "class_name": cfg.embedding_optimizer,
+                "config": {"learning_rate": cfg.learning_rate},
+            }),
+            combiner="sum",
+            placement=cfg.table_placement,
+            dtype=cfg.table_dtype,
+            max_ids_per_partition=cfg.max_ids_per_partition,
+            max_unique_ids_per_partition=cfg.max_unique_ids_per_partition,
+        )
+        out[f"cat_{i}"] = FeatureConfig(
+            name=f"cat_{i}",
+            table=table,
+            input_shape=(cfg.global_batch_size, cfg.multi_hot_sizes[i]),
+            output_shape=(cfg.global_batch_size, cfg.embedding_dim),
+        )
+    return out
+
+
 class DLRMDCNv2(nn.Module):
     def __init__(
         self,
@@ -117,30 +148,7 @@ class DLRMDCNv2(nn.Module):
             if v < cfg.embedding_threshold
         ]
 
-        feature_configs = {}
-        for i in self.large_idx:
-            table = TableConfig(
-                name=f"table_{i}",
-                vocabulary_size=cfg.vocab_sizes[i],
-                embedding_dim=cfg.embedding_dim,
-                optimizer=opt_lib.deserialize({
-                    "class_name": cfg.embedding_optimizer,
-                    "config": {"learning_rate": cfg.learning_rate},
-                }),
-                combiner="sum",
-                placement=cfg.table_placement,
-                dtype=cfg.table_dtype,
-                max_ids_per_partition=cfg.max_ids_per_partition,
-                max_unique_ids_per_partition=(
-                    cfg.max_unique_ids_per_partition
-                ),
-            )
-            feature_configs[f"cat_{i}"] = FeatureConfig(
-                name=f"cat_{i}",
-                table=table,
-                input_shape=(cfg.global_batch_size, cfg.multi_hot_sizes[i]),
-                output_shape=(cfg.global_batch_size, cfg.embedding_dim),
-            )
+        feature_configs = large_feature_configs(cfg)
         self.embedding_layer = (
             DistributedEmbedding(
                 feature_configs, generator=generator, device=device
@@ -187,18 +195,43 @@ class DLRMDCNv2(nn.Module):
         )
         self.device = device
 
+    def _split(self, batch: dict) -> tuple[dict, dict]:
+        """(the batch without the large features, the large features)."""
+        large = {f"cat_{i}": batch[f"cat_{i}"] for i in self.large_idx}
+        return {k: v for k, v in batch.items() if k not in large}, large
+
+    def preprocess_host(self, batch: dict) -> dict:
+        """Host part of `preprocess` (numpy arrays only, safe on a loader
+        thread): COO-preprocess the large features."""
+        out, large = self._split(batch)
+        if self.embedding_layer is not None:
+            out["large_pre"] = self.embedding_layer.preprocess_host(large)
+        return out
+
+    def to_device(self, host_batch: dict) -> dict:
+        """A `preprocess_host` result, or a raw numpy batch, on the
+        model's device (through pinned memory)."""
+        return {
+            k: (self.embedding_layer.to_device(v) if k == "large_pre"
+                else to_device(np.asarray(v), self.device))
+            for k, v in host_batch.items()
+        }
+
     def preprocess(self, batch: dict) -> dict:
         """Host-side step: COO-preprocess the large features and move the
         batch to the model's device. `batch` holds numpy arrays: "dense"
         [B, 13] f32, "cat_i" [B, L_i] ints and optionally "label" [B]."""
-        out = {}
-        for k, v in batch.items():
-            if k.startswith("cat_") and int(k[4:]) in self.large_idx:
-                continue
-            out[k] = torch.from_numpy(np.asarray(v)).to(self.device)
+        return self.to_device(self.preprocess_host(batch))
+
+    def preprocess_on_device(self, batch: dict) -> dict:
+        """The same from a batch already on the device (`to_device` of the
+        raw numpy batch): the COO transform runs on the device, so it can
+        run inside the training step, as in
+        `bce_loss(m, m.preprocess_on_device(b))`."""
+        out, large = self._split(batch)
         if self.embedding_layer is not None:
-            out["large_pre"] = self.embedding_layer.preprocess(
-                {f"cat_{i}": batch[f"cat_{i}"] for i in self.large_idx}
+            out["large_pre"] = self.embedding_layer.preprocess_on_device(
+                large
             )
         return out
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,16 @@ def resolve_device(device: Any = None) -> torch.device:
             "default. Pass device='cpu' to run on the CPU."
         )
     return torch.device("cuda", 0)
+
+
+def to_device(array: Any, device: Any) -> torch.Tensor:
+    """A host array as a tensor on `device`. To a CUDA device it goes
+    through pinned memory without waiting for the copy (the caching host
+    allocator keeps the pinned block until the copy is done); on the CPU
+    the tensor shares the array's memory. Call it from the thread that
+    owns the device work, not from a loader thread."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

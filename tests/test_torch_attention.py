@@ -92,6 +92,25 @@ def test_auto_takes_the_einsum_path_on_the_cpu(monkeypatch):
     assert not calls
 
 
+@pytest.mark.parametrize("head_dim, T, expect", [
+    (160, 128, False), (128, 128, True), (50, 1024, True),
+    (128, tattn.FLASH_MIN_T - 1, False),
+])
+def test_auto_gate_refuses_head_dims_the_kernels_lack(head_dim, T, expect):
+    """On a CUDA tensor "auto" takes the kernels only for head_dim <=
+    MAX_HEAD_DIM (above it, the einsum path); use_flash=True does not
+    consult the gate. The gate reads only the tensor's device and shape,
+    so a stand-in tensor tests it without a card."""
+    import types
+
+    mha = tattn.MultiHeadSelfAttention(head_dim, 1, use_flash="auto",
+                                       device="cpu")
+    x = types.SimpleNamespace(is_cuda=True, shape=(2, T, head_dim))
+    assert mha._flash_enabled(x) is expect
+    mha.use_flash = True
+    assert mha._flash_enabled(x)
+
+
 @pytest.mark.parametrize("use_flash", [False, True])
 def test_transformer_block_matches_jax(use_flash):
     x, mask = _x_and_mask(4)

@@ -159,3 +159,27 @@ def test_wrapper_rejects_wide_heads_and_strided_inputs(cuda):
     x = torch.zeros((1, 8, 2, 32), device=cuda)[:, :, :1]
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(x, x, x, bias, 1.0, True)
+
+
+@pytest.mark.cuda
+def test_auto_takes_the_einsum_path_above_the_widest_head(cuda):
+    """A layer whose head dim (160) is wider than the kernels take runs
+    under use_flash="auto" on the einsum path, launches no kernel and
+    matches use_flash=False; use_flash=True still raises."""
+    from keras_rs_tpu_torch.layers.attention import MultiHeadSelfAttention
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mha = MultiHeadSelfAttention(160, 1, generator=g, device=cuda)
+    x = torch.randn((2, 128, 160), generator=g, device=cuda)
+    mask = torch.ones((2, 128), device=cuda)
+    mask[1, :40] = 0
+    before = fa.flash_attention_fwd.launches
+    got = mha(x, padding_mask=mask)
+    assert fa.flash_attention_fwd.launches == before
+    mha.use_flash = False
+    want = mha(x, padding_mask=mask)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    mha.use_flash = True
+    with pytest.raises(ValueError, match="head_dim"):
+        mha(x, padding_mask=mask)

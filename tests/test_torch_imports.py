@@ -47,6 +47,13 @@ def test_port_imports_without_jax():
     assert "keras_rs_tpu_torch.models.dlrm" in modules
     assert "keras_rs_tpu_torch.ops.flash_attention" in modules
     assert "keras_rs_tpu_torch.models.sasrec" in modules
+    for name in ("layers.embedding.device_preprocessing",
+                 "layers.embedding.native", "data.criteo", "data.tfrecord",
+                 "data.native_io", "data.loader", "data.synthetic",
+                 "metrics.classification", "utils.timing",
+                 "utils.native_build", "examples.ml_perf.configs",
+                 "examples.ml_perf.main"):
+        assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(
         [sys.executable, "-c",

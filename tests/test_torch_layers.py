@@ -46,6 +46,36 @@ def test_embed_reduce_matches_jax(combiner, weighted, shape):
     np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("shape", [(6, 3), (6,)], ids=["2d", "1d"])
+def test_embed_reduce_out_of_range_ids_match_jax(combiner, shape):
+    """jnp.take's rows: an id >= vocab (or < -vocab) gives a NaN row, a
+    negative id counts from the end (-1 is the last row)."""
+    rng = np.random.default_rng(1)
+    table = rng.standard_normal((20, 8)).astype(np.float32)
+    ids = rng.integers(0, 20, size=shape)
+    ids.flat[0] = 20
+    ids.flat[1] = -1
+    ids.flat[2] = 10**6
+    ids.flat[3] = -21
+    ids.flat[4] = -20
+    ref = jax_er.EmbedReduce(20, 8, table=jnp.asarray(table),
+                             combiner=combiner)
+    ours = embed_reduce.EmbedReduce(20, 8, combiner=combiner, device="cpu")
+    with torch.no_grad():
+        ours.embeddings.copy_(torch.from_numpy(table))
+    want = np.asarray(ref(ids))
+    got = ours(torch.from_numpy(ids)).detach().numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
+    # The rows of valid ids still get their gradient; the NaN rows none.
+    loss = ours(torch.from_numpy(ids[1:])).nansum()
+    loss.backward()
+    assert bool(torch.isfinite(ours.embeddings.grad).all())
+    assert float(ours.embeddings.grad[19].abs().sum()) > 0  # id -1
+
+
 def test_mlp_and_feature_cross_match_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((8, 24)).astype(np.float32)
