@@ -27,6 +27,15 @@ from --seed:
     BruteForceRetrieval. Markov sessions (branching 12, noise 0.2); a
     quarter of each batch cut to a random history of >= 16 items and
     padded with id 0. Kernels B5-B7 (csrc/flash_attention.cu).
+  * two-tower retrieval (models/two_tower.py) on the 1M x 128 corpus of
+    the repo's retrieval measurement (BASELINE.md:442): TwoTower(1M, 1M,
+    128, tower_units=(256, 128)), f32, batch 4,096 of Zipf(1.1) ids,
+    DenseAdagrad 0.2, in_batch_softmax_loss with logQ; served by exact
+    chunked top-10, brute force at 10M x 128 and the k-means IVF; and
+    listwise ranking (examples/listwise_ranking.py's path at 200k users,
+    100k items, dim 128, lists of 100, batch 1,024) and BasicRanking at
+    examples/basic_ranking.py's widths. No kernel: the reference's
+    retrieval and ranking code reaches no Pallas kernel.
 
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
@@ -72,8 +81,9 @@ Phases (any failure raises, so the exit code is not 0):
                    top-10 ids in [0, 3706], parameters unchanged, B5 only;
  14. profile       only with --profile: torch.profiler over 3 more steps
                    of the packed DLRM, the capacity DLRM, SASRec and
-                   (in phase 16) the ml_perf device-mode step, device
-                   time per step by part;
+                   (in phase 16) the ml_perf device-mode step, (in
+                   phases 19-20) the two-tower step, the 10M brute-force
+                   and IVF batches, device time per step by part;
  15. coo           one full-width batch of the packed slice (2,818,048
                    ids) through the device COO transform (in
                    set_sync_debug_mode("error")), the numpy path and the
@@ -89,7 +99,30 @@ Phases (any failure raises, so the exit code is not 0):
                    from the same weights, and the host syncs of one
                    device-mode step;
  17. auc           main("smoke_test", num_steps=300,
-                   device_preprocessing=True): AUC > 0.60.
+                   device_preprocessing=True): AUC > 0.60;
+ 18. retrieval     a small TwoTower with tower MLPs, 3 DenseAdagrad steps
+     small         on the card and on the CPU (losses and parameters
+                   within 1e-5); a cosine compute_score subclass over
+                   300,000 candidates takes the direct path under "auto"
+                   and raises with an explicit chunk_size;
+ 19. retrieval     8 steps on one fixed batch (loss falls), 3 fresh; the
+     train         tutorial loss (RemoveAccidentalHits,
+                   HardNegativeMining(255), SamplingProbabilityCorrection)
+                   3 steps, finite; step ms, peak memory, idle share;
+ 20. retrieval     make_retrieval(k=10) over the 1M candidates: 3 batches
+     serve         of 256, chunked exact and recall_target=0.95 ids equal
+                   a direct top-k; brute force at 10M x 128 (5.1 GB), ms
+                   per batch; KMeansRetrieval (default clusters, 16
+                   probes) over a 1M x 128 Gaussian mixture of 1,000
+                   centres in f32 and int8 + reorder: build s, ms per
+                   batch, peak memory, recall@10 > 0.8; full probing at
+                   100k equals brute force;
+ 21. ranking       the 5 losses and 6 metrics on [1024, 100] lists, card
+                   against CPU within 1e-5 relative; the listwise path
+                   with ListMLE and PairwiseLogistic, 8 steps each (loss
+                   falls), NDCG@10, MAP, MRR on 3 held-out batches in
+                   [0, 1]; BasicRanking 8 steps of mse_loss (loss falls).
+                   No kernel launches in phases 18-21.
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
@@ -1700,6 +1733,626 @@ def phase_auc() -> None:
         fail(f"auc {r['auc']} <= {AUC_GATE}")
 
 
+# Two-tower retrieval: the 1M x 128 corpus of the repo's own retrieval
+# measurement (BASELINE.md:442: 1M x 128 candidates, batch 256, k 10),
+# towers (256, 128), f32, batch 4,096, Zipf(1.1) ids, Adagrad at
+# examples/basic_retrieval.py's 0.2.
+TT_QUERIES = 1_000_000
+TT_ITEMS = 1_000_000
+TT_DIM = 128
+TT_UNITS = (256, 128)
+TT_BATCH = 4096
+TT_LR = 0.2
+TT_ZIPF = 1.1
+TT_HARD_NEGATIVES = 255
+TT_SECOND_LOSS_STEPS = 3
+SERVE_BATCH = 256
+SERVE_K = 10
+COSINE_N = 300_000  # above BruteForceRetrieval.DIRECT_MAX_CANDIDATES
+BRUTE_N = 10_000_000  # 5.1 GB of f32 candidates
+BRUTE_CHECK_ROWS = 8  # queries also held to a direct top-k at 10M
+IVF_N = 1_000_000
+IVF_CENTRES = 1000  # Gaussian-mixture centres of the IVF corpus
+IVF_SPREAD = 0.5  # per-dimension noise around a centre of N(0, 1) dims
+IVF_PROBES = 16
+IVF_RECALL_GATE = 0.8  # tests/test_ann.py:49
+IVF_EXACT_N = 100_000  # full-probe exactness (tests/test_ann.py:52)
+IVF_EXACT_QUERIES = 32
+# Listwise ranking: examples/listwise_ranking.py's path at 200k users,
+# 100k items, dim 128, towers (256, 128), lists of 100, batch 1,024.
+RANK_USERS = 200_000
+RANK_ITEMS = 100_000
+RANK_LIST = 100
+RANK_BATCH = 1024
+RANK_LR = 0.05
+RANK_STEPS = 8
+RANK_EVAL_BATCHES = 3
+RANK_TOL = 1e-5  # card against CPU, relative (losses and metrics)
+# BasicRanking at examples/basic_ranking.py's widths (MovieLens 100k
+# users and items, dim 32, MLP (256, 64, 1), Adam 3e-3, batch 512).
+BR_USERS = 943
+BR_ITEMS = 1682
+BR_BATCH = 512
+BR_LR = 3e-3
+
+
+TWO_TOWER_PROFILE_PARTS = [
+    ("forward", "forward", "total"),
+    ("backward", "backward", "total"),
+    ("  table gradients (EmbedReduce backward)", "EmbeddingBackward0",
+     "total"),
+    ("dense Adagrad", "optimizer", "total"),
+    ("matmuls", "aten::mm", "self"),
+]
+SERVE_PROFILE_PARTS = [
+    ("matmuls", "aten::mm", "self"),
+    ("stable sorts (top-k)", "aten::sort", "total"),
+    ("probed-cluster gathers", "aten::index", "total"),
+    ("in-cluster scores", "aten::bmm", "self"),
+    ("int8 to f32 casts", "aten::_to_copy", "total"),
+]
+
+
+def idle_share(label: str, step, batch, parts, profile: bool) -> None:
+    """The device's idle share of `step(batch)` (1 - kernel time / wall
+    time over 3 calls, torch.profiler); with `profile`, the breakdown by
+    part and the operator table too."""
+    if profile:
+        phase_profile(label, step, batch, parts)
+    _, wall_ms, kernel_ms = profile_steps(step, batch)
+    log(f"[idle] {label}: {kernel_ms!r} ms of kernels in {wall_ms!r} ms of "
+        f"wall time per call: device idle {1 - kernel_ms / wall_ms:.1%}")
+
+
+def labelled_step(model, loss_fn, optimizer):
+    """A train step with its forward, backward and optimizer labelled for
+    the profiler (the Trainer's step, in three ranges)."""
+    from torch.profiler import record_function
+
+    from keras_rs_tpu_torch.training.trainer import batch_to_device
+
+    device = next(model.parameters()).device
+
+    def step(batch):
+        optimizer.zero_grad()
+        with record_function("forward"):
+            loss = loss_fn(model, batch_to_device(batch, device))
+        with record_function("backward"):
+            loss.backward()
+        with record_function("optimizer"):
+            optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def zipf_ids(rng, n: int, size: int, perm) -> np.ndarray:
+    """`size` ids of a Zipf(TT_ZIPF) law over n items: rank r (from 1)
+    has probability proportional to r^-1.1; `perm` maps ranks to ids."""
+    p = np.arange(1, n + 1, dtype=np.float64) ** -TT_ZIPF
+    return perm[rng.choice(n, size=size, p=p / p.sum())].astype(np.int64)
+
+
+def two_tower_batch(rng, perms, batch: int) -> dict:
+    """Zipf query and candidate ids, and each candidate's sampling
+    probability: its count in the batch over the batch size."""
+    q = zipf_ids(rng, len(perms[0]), batch, perms[0])
+    c = zipf_ids(rng, len(perms[1]), batch, perms[1])
+    _, inverse, counts = np.unique(c, return_inverse=True,
+                                   return_counts=True)
+    return {"query_id": q, "candidate_id": c,
+            "sampling_probability": (counts[inverse] / batch).astype(
+                np.float32)}
+
+
+def softmax_loss(model, batch):
+    from keras_rs_tpu_torch.models.two_tower import in_batch_softmax_loss
+
+    return in_batch_softmax_loss(model, batch["query_id"],
+                                 batch["candidate_id"],
+                                 batch["sampling_probability"])
+
+
+def tutorial_loss(model, batch):
+    """keras-rs's retrieval tutorial composition: logQ correction,
+    accidental-hit removal, the 255 hardest negatives, softmax CE."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval import (
+        hard_negative_mining,
+        remove_accidental_hits,
+        sampling_probability_correction,
+    )
+
+    scores = model.in_batch_scores(batch["query_id"], batch["candidate_id"])
+    labels = torch.eye(scores.shape[0], device=scores.device)
+    scores = sampling_probability_correction.SamplingProbabilityCorrection()(
+        scores, batch["sampling_probability"])
+    scores = remove_accidental_hits.RemoveAccidentalHits()(
+        scores, labels, batch["candidate_id"])
+    scores, labels = hard_negative_mining.HardNegativeMining(
+        TT_HARD_NEGATIVES)(scores, labels)
+    return -(labels * torch.log_softmax(scores, dim=-1)).sum(-1).mean()
+
+
+def timed_steps(trainer, batches) -> tuple[list, list]:
+    """(losses, CUDA-event ms) of one trainer step per batch."""
+    import torch
+
+    losses, ms = [], []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = trainer.step(b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return losses, ms
+
+
+def check_falls(label: str, losses) -> None:
+    if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        fail(f"{label}: losses {losses} are not finite or do not fall")
+
+
+def relative_gap(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def phase_retrieval_small(dev, seed: int) -> None:
+    """Phase 18: a small TwoTower with tower MLPs, 3 DenseAdagrad steps on
+    the card and on the CPU from the same weights (losses and parameters
+    within 1e-5); a cosine-scoring BruteForceRetrieval over COSINE_N
+    candidates takes the direct path under "auto" and raises with an
+    explicit chunk_size."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+    from keras_rs_tpu_torch.models.two_tower import TwoTower
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+    from keras_rs_tpu_torch.training.trainer import Trainer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: the retrieval scores must be f32 "
+             "products")
+    rng = np.random.default_rng(seed)
+    perms = (rng.permutation(500), rng.permutation(400))
+    batches = [two_tower_batch(rng, perms, 128) for _ in range(3)]
+    models = {d: TwoTower(500, 400, 32, tower_units=(64, 32),
+                          generator=torch.Generator(d).manual_seed(seed),
+                          device=d)
+              for d in ("cpu", dev)}
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    losses = {}
+    for d, m in models.items():
+        trainer = Trainer(m, DenseAdagrad(m.parameters(), TT_LR),
+                          softmax_loss)
+        losses[d] = [float(trainer.step(b)) for b in batches]
+    cpu_params = dict(models["cpu"].named_parameters())
+    worst = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                for n, p in models[dev].named_parameters())
+    log(f"[retrieval small] losses card {losses[dev]} cpu {losses['cpu']}; "
+        f"parameters within {worst!r} after 3 steps")
+    if relative_gap(losses[dev], losses["cpu"]) > 1e-5 or worst > 1e-5:
+        fail("retrieval small: card and CPU disagree")
+
+    class Cosine(BruteForceRetrieval):
+        def compute_score(self, q, c):
+            return torch.matmul(q / q.norm(dim=-1, keepdim=True),
+                                (c / c.norm(dim=-1, keepdim=True)).T)
+
+    g = torch.Generator(dev).manual_seed(seed)
+    cands = torch.randn((COSINE_N, 64), generator=g, device=dev) * torch.rand(
+        (COSINE_N, 1), generator=g, device=dev) * 4
+    queries = torch.randn((SERVE_BATCH, 64), generator=g, device=dev)
+    s, i = Cosine(cands, k=SERVE_K)(queries)  # "auto"
+    ds, di = Cosine(cands, k=SERVE_K, chunk_size=None)(queries)
+    _, dot_i = BruteForceRetrieval(cands, k=SERVE_K)(queries)  # chunked
+    if not (torch.equal(i, di) and torch.equal(s, ds)
+            and float(s.max()) <= 1.0 + 1e-5):
+        fail("retrieval small: the cosine subclass left the direct path")
+    try:
+        Cosine(cands, k=SERVE_K, chunk_size=65536)(queries)
+    except ValueError as e:
+        if "dot-product" not in str(e):
+            raise
+    else:
+        fail("retrieval small: explicit chunk_size with a custom score did "
+             "not raise")
+    log(f"[retrieval small] cosine subclass over {COSINE_N} candidates: "
+        f"direct-path top-{SERVE_K} under 'auto' (max score "
+        f"{float(s.max())!r}; the dot-product chunked path differs in "
+        f"{int((dot_i != i).any(dim=1).sum())} of {SERVE_BATCH} rows), "
+        "ValueError with an explicit chunk_size")
+
+
+def run_retrieval(dev, seed: int, profile: bool) -> None:
+    """Phases 19-20: the two-tower slice trained and served, brute force
+    at BRUTE_N, and the k-means IVF in f32 and int8 + reorder; the
+    device's idle share of a training step and of a serving batch
+    (with `profile`, their breakdowns too)."""
+    import torch
+
+    from keras_rs_tpu_torch.models.two_tower import TwoTower
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+    from keras_rs_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed)
+    perms = (rng.permutation(TT_QUERIES), rng.permutation(TT_ITEMS))
+    model = TwoTower(TT_QUERIES, TT_ITEMS, TT_DIM, tower_units=TT_UNITS,
+                     generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    trainer = Trainer(model, DenseAdagrad(model.parameters(), TT_LR),
+                      softmax_loss)
+    fixed = two_tower_batch(rng, perms, TT_BATCH)
+    fresh = [two_tower_batch(rng, perms, TT_BATCH)
+             for _ in range(FRESH_STEPS)]
+    log(f"[retrieval train] batch {TT_BATCH}: "
+        f"{len(np.unique(fixed['candidate_id']))} distinct candidates, "
+        f"most frequent x{int(TT_BATCH * fixed['sampling_probability'].max())}"
+        f" (Zipf {TT_ZIPF} over {TT_ITEMS})")
+    losses, ms = timed_steps(trainer, [fixed] * FIXED_STEPS + fresh)
+    check_falls("retrieval train", losses[:FIXED_STEPS])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[retrieval train] in_batch_softmax_loss with logQ: losses "
+        f"{losses}; step ms {ms}; median {statistics.median(ms)!r} ms "
+        f"({TT_BATCH / statistics.median(ms) * 1e3:.0f} examples/s); peak "
+        f"device memory {peak:.2f} GB")
+    tutorial = Trainer(model, DenseAdagrad(model.parameters(), TT_LR),
+                       tutorial_loss)
+    t_losses, t_ms = timed_steps(tutorial, [fixed] * TT_SECOND_LOSS_STEPS)
+    if not all(math.isfinite(x) for x in t_losses):
+        fail(f"retrieval train: tutorial loss {t_losses}")
+    log(f"[retrieval train] RemoveAccidentalHits + HardNegativeMining("
+        f"{TT_HARD_NEGATIVES}) + SamplingProbabilityCorrection: losses "
+        f"{t_losses}; step ms {t_ms}")
+    idle_share("two-tower train step", labelled_step(
+        model, softmax_loss, trainer.optimizer), fixed,
+        TWO_TOWER_PROFILE_PARTS, profile)
+    del trainer, tutorial
+    serve_two_tower(model, rng, perms)
+    del model
+    torch.cuda.empty_cache()
+    serve_brute_force(dev, seed, profile)
+    serve_ivf(dev, seed, profile)
+
+
+def serve_two_tower(model, rng, perms) -> None:
+    """Phase 20a: make_retrieval over all TT_ITEMS candidates; 3 batches
+    of SERVE_BATCH queries on the exact chunked path and with
+    recall_target 0.95, both equal to a direct top-k on the card."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+    from keras_rs_tpu_torch.ops.topk import top_k
+
+    dev = model.candidate_embedding.embeddings.device
+    t = time.perf_counter()
+    retrieval = model.make_retrieval(k=SERVE_K)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t
+    approx = BruteForceRetrieval(retrieval.candidate_embeddings, k=SERVE_K,
+                                 recall_target=0.95)
+    serve_ms, direct_ms = [], []
+    with torch.no_grad():
+        for _ in range(SCORE_BATCHES):
+            ids = torch.from_numpy(zipf_ids(rng, TT_QUERIES, SERVE_BATCH,
+                                            perms[0])).to(dev)
+            q = model.query_tower(ids)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            s, i = retrieval(q)
+            ev[1].record()
+            ds, di = top_k(q @ retrieval.candidate_embeddings.T, SERVE_K)
+            ev[2].record()
+            _, ai = approx(q)
+            torch.cuda.synchronize()
+            serve_ms.append(ev[0].elapsed_time(ev[1]))
+            direct_ms.append(ev[1].elapsed_time(ev[2]))
+            if not (torch.equal(i, di) and torch.equal(ai, di)):
+                fail("retrieval serve: chunked ids differ from the direct "
+                     "top-k")
+    log(f"[retrieval serve] {TT_ITEMS} candidates embedded in {embed_s:.3f} "
+        f"s; top-{SERVE_K} of {SERVE_BATCH} queries, chunked exact path "
+        f"{serve_ms} ms, direct [B, N] path {direct_ms} ms; ids equal "
+        "(recall_target=0.95 too)")
+
+
+def serve_brute_force(dev, seed: int, profile: bool) -> None:
+    """Phase 20b: the chunked exact path over BRUTE_N x TT_DIM f32
+    candidates, 3 batches; BRUTE_CHECK_ROWS queries also against a direct
+    top-k."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+    from keras_rs_tpu_torch.ops.topk import top_k
+
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(dev).manual_seed(seed)
+    cands = torch.randn((BRUTE_N, TT_DIM), generator=g, device=dev)
+    layer = BruteForceRetrieval(cands, k=SERVE_K)
+    ms = []
+    for _ in range(SCORE_BATCHES):
+        q = torch.randn((SERVE_BATCH, TT_DIM), generator=g, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        s, i = layer(q)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    _, di = top_k(q[:BRUTE_CHECK_ROWS] @ cands.T, SERVE_K)
+    if not torch.equal(i[:BRUTE_CHECK_ROWS], di):
+        fail("brute force: chunked ids differ from the direct top-k")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[retrieval brute] {BRUTE_N} x {TT_DIM} f32 candidates "
+        f"({cands.numel() * 4 / 1e9:.2f} GB), "
+        f"{-(-BRUTE_N // 65536)} chunks: {ms} ms per batch of "
+        f"{SERVE_BATCH}; {BRUTE_CHECK_ROWS} rows equal a direct top-k; peak "
+        f"device memory {peak:.2f} GB")
+    idle_share(f"brute force at {BRUTE_N}", layer, q, SERVE_PROFILE_PARTS,
+               profile)
+    del cands, layer
+    torch.cuda.empty_cache()
+
+
+def mixture(g, n: int, centres):
+    """n points of the Gaussian mixture: a uniform centre plus
+    IVF_SPREAD-scaled N(0, 1) noise."""
+    import torch
+
+    pick = torch.randint(centres.shape[0], (n,), generator=g,
+                         device=centres.device)
+    return centres[pick] + IVF_SPREAD * torch.randn(
+        (n, centres.shape[1]), generator=g, device=centres.device)
+
+
+def serve_ivf(dev, seed: int, profile: bool) -> None:
+    """Phase 20c: KMeansRetrieval over IVF_N mixture points (default
+    num_clusters, IVF_PROBES probes), f32 and int8 + reorder: build time,
+    ms and peak memory per batch, recall@10 against the exact top-10 (>
+    IVF_RECALL_GATE); then full probing at IVF_EXACT_N equals brute
+    force."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval.kmeans_retrieval import (
+        KMeansRetrieval,
+    )
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+
+    g = torch.Generator(dev).manual_seed(seed)
+    centres = torch.randn((IVF_CENTRES, TT_DIM), generator=g, device=dev)
+    corpus = mixture(g, IVF_N, centres)
+    queries = [mixture(g, SERVE_BATCH, centres)
+               for _ in range(SCORE_BATCHES)]
+    exact = BruteForceRetrieval(corpus, k=SERVE_K)
+    want = [exact(q)[1] for q in queries]
+    for quantize in (None, "int8"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        layer = KMeansRetrieval(corpus, k=SERVE_K, num_probes=IVF_PROBES,
+                                quantize=quantize, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, recall = [], []
+        for q, w in zip(queries, want):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, ids = layer(q)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            hits = (ids[:, :, None] == w[:, None, :]).any(dim=2)
+            recall.append(float(hits.float().mean()))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        K, cap = layer.cluster_valid.shape
+        label = quantize or "f32"
+        log(f"[ivf {label}] {IVF_N} x {TT_DIM} mixture of {IVF_CENTRES} "
+            f"centres: {K} clusters (capacity {cap}, mean "
+            f"{IVF_N / K:.0f}), built in {build_s:.2f} s; {IVF_PROBES} "
+            f"probes: {ms} ms per batch of {SERVE_BATCH}; recall@{SERVE_K} "
+            f"{recall}; serving peak {peak:.2f} GB over the index")
+        if min(recall) <= IVF_RECALL_GATE:
+            fail(f"ivf {label}: recall {recall} <= {IVF_RECALL_GATE}")
+        idle_share(f"ivf {label} batch", layer, queries[0],
+                   SERVE_PROFILE_PARTS, profile)
+        del layer
+        torch.cuda.empty_cache()
+
+    small = corpus[:IVF_EXACT_N]
+    q = queries[0][:IVF_EXACT_QUERIES]
+    clusters = int(np.sqrt(IVF_EXACT_N))
+    layer = KMeansRetrieval(small, k=SERVE_K, num_probes=clusters,
+                            seed=seed, device=dev)
+    s, ids = layer(q)
+    ws, wi = BruteForceRetrieval(small, k=SERVE_K)(q)
+    same_order = bool(torch.equal(ids, wi))
+    if not torch.equal(ids.sort(dim=1).values, wi.sort(dim=1).values):
+        fail("ivf: full probing differs from brute force")
+    log(f"[ivf exact] {IVF_EXACT_N} candidates, {clusters} of {clusters} "
+        f"clusters probed: the ids of {IVF_EXACT_QUERIES} queries equal "
+        f"brute force's (in the same order: {same_order}; scores within "
+        f"{float((s - ws).abs().max())!r})")
+    del layer, corpus
+    torch.cuda.empty_cache()
+
+
+def ranking_inputs(rng, b: int, n: int) -> dict:
+    """Graded labels 0-4 with ~10% -1 (invalid), a ~90% mask, per-list
+    and per-item weights, scores with ties (one decimal) and tie-free
+    scores."""
+    labels = rng.integers(0, 5, size=(b, n)).astype(np.float32)
+    labels[rng.random((b, n)) < 0.1] = -1.0
+    return {
+        "labels": labels,
+        "mask": rng.random((b, n)) > 0.1,
+        "list_weights": rng.random(b).astype(np.float32),
+        "item_weights": rng.random((b, n)).astype(np.float32),
+        "tied": np.round(rng.standard_normal((b, n)), 1).astype(np.float32),
+        "distinct": (rng.permutation(b * n).reshape(b, n) / (b * n)).astype(
+            np.float32),
+    }
+
+
+def phase_ranking_modules(dev, seed: int) -> None:
+    """Phase 21a: the 5 losses and 6 metrics on [RANK_BATCH, RANK_LIST]
+    lists on the card against the same module on the CPU (dict labels
+    with masks, -1 labels, sample weights), within RANK_TOL relative."""
+    import torch
+
+    from keras_rs_tpu_torch.losses import list_mle_loss, pairwise_losses
+    from keras_rs_tpu_torch.metrics import ranking_metrics
+
+    x = ranking_inputs(np.random.default_rng(seed), RANK_BATCH, RANK_LIST)
+    loss_cls = [pairwise_losses.PairwiseHingeLoss,
+                pairwise_losses.PairwiseLogisticLoss,
+                pairwise_losses.PairwiseSoftZeroOneLoss,
+                pairwise_losses.PairwiseMeanSquaredError,
+                list_mle_loss.ListMLELoss]
+    gaps = {}
+    for cls in loss_cls:
+        out = {}
+        for d in ("cpu", dev):
+            t = {k: torch.from_numpy(v).to(d) for k, v in x.items()}
+            w = t["list_weights"] if cls is list_mle_loss.ListMLELoss \
+                else t["item_weights"]
+            out[d] = float(cls()({"labels": t["labels"], "mask": t["mask"]},
+                                 t["tied"], w))
+        gaps[cls.__name__] = relative_gap(out[dev], out["cpu"])
+    metric_cls = [ranking_metrics.DCG, ranking_metrics.NDCG,
+                  ranking_metrics.MeanAveragePrecision,
+                  ranking_metrics.MeanReciprocalRank,
+                  ranking_metrics.PrecisionAtK, ranking_metrics.RecallAtK]
+    for cls in metric_cls:
+        for shuffle in (False, True):
+            out = {}
+            for d in ("cpu", dev):
+                t = {k: torch.from_numpy(v).to(d) for k, v in x.items()}
+                m = cls(k=10, shuffle_ties=shuffle, seed=seed, device=d)
+                if shuffle:  # tie-free scores, nothing masked: no draw
+                    m.update_state(t["labels"].abs(), t["distinct"])
+                else:
+                    m.update_state({"labels": t["labels"],
+                                    "mask": t["mask"]}, t["tied"],
+                                   t["list_weights"])
+                out[d] = float(m.result())
+            gaps[f"{cls.__name__}(shuffle_ties={shuffle})"] = relative_gap(
+                out[dev], out["cpu"])
+    log(f"[ranking modules] card vs CPU on [{RANK_BATCH}, {RANK_LIST}] "
+        f"lists, relative gaps {gaps}")
+    if max(gaps.values()) > RANK_TOL:
+        fail(f"ranking modules: card and CPU disagree beyond {RANK_TOL}")
+
+
+def ranking_lists(rng, factors, batch: int) -> dict:
+    """examples/listwise_ranking.py's lists at RANK_* widths: ratings from
+    fixed latent factors plus noise, clipped to [0, 5]."""
+    u_f, i_f = factors
+    users = rng.integers(0, RANK_USERS, size=batch)
+    items = rng.integers(0, RANK_ITEMS, size=(batch, RANK_LIST))
+    labels = np.einsum("ld,lkd->lk", u_f[users], i_f[items]) + 0.25 * \
+        rng.normal(size=items.shape)
+    return {"user": users, "items": items,
+            "labels": np.clip(2.5 + 2 * labels, 0, 5).astype(np.float32)}
+
+
+def item_scores(model, users, items):
+    """Per-item scores of [B, L] lists (examples/listwise_ranking.py)."""
+    b, n = items.shape
+    q = model.query_tower(users)[:, None, :]
+    c = model.candidate_tower(items.reshape(-1)).reshape(b, n, -1)
+    return (q * c).sum(dim=-1)
+
+
+def run_ranking(dev, seed: int) -> None:
+    """Phase 21: the ranking modules card vs CPU; the listwise path
+    (TwoTower over lists, ListMLE and PairwiseLogistic, RANK_STEPS steps
+    each, then NDCG@10, MAP and MRR over held-out batches); BasicRanking
+    RANK_STEPS steps of mse_loss."""
+    import torch
+
+    from keras_rs_tpu_torch.data.synthetic import movielens_like
+    from keras_rs_tpu_torch.losses import list_mle_loss, pairwise_losses
+    from keras_rs_tpu_torch.metrics import ranking_metrics
+    from keras_rs_tpu_torch.models.ranking_model import BasicRanking, mse_loss
+    from keras_rs_tpu_torch.models.two_tower import TwoTower
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        DenseAdam,
+    )
+    from keras_rs_tpu_torch.training.trainer import Trainer
+
+    phase_ranking_modules(dev, seed)
+    rng = np.random.default_rng(seed)
+    factors = (rng.normal(size=(RANK_USERS, 4)) / 2.0,
+               rng.normal(size=(RANK_ITEMS, 4)) / 2.0)
+    fixed = ranking_lists(rng, factors, RANK_BATCH)
+    held_out = [ranking_lists(rng, factors, RANK_BATCH)
+                for _ in range(RANK_EVAL_BATCHES)]
+    for loss in (list_mle_loss.ListMLELoss(),
+                 pairwise_losses.PairwiseLogisticLoss()):
+        torch.cuda.reset_peak_memory_stats()
+        model = TwoTower(RANK_USERS, RANK_ITEMS, TT_DIM, tower_units=TT_UNITS,
+                         generator=torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+
+        def loss_fn(m, b, loss=loss):
+            return loss(b["labels"], item_scores(m, b["user"], b["items"]))
+
+        trainer = Trainer(model, DenseAdagrad(model.parameters(), RANK_LR),
+                          loss_fn)
+        losses, ms = timed_steps(trainer, [fixed] * RANK_STEPS)
+        check_falls(f"listwise {loss.name}", losses)
+        metrics = {"NDCG@10": ranking_metrics.NDCG(k=10, device=dev),
+                   "MAP": ranking_metrics.MeanAveragePrecision(device=dev),
+                   "MRR": ranking_metrics.MeanReciprocalRank(device=dev)}
+        with torch.no_grad():
+            for b in held_out:
+                t = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                scores = item_scores(model, t["user"], t["items"])
+                # MAP and MRR over binary relevance: each list's top-rated
+                # item(s), as the example binarizes.
+                best = (t["labels"] >= t["labels"].amax(dim=1, keepdim=True)
+                        - 1e-6).float()
+                metrics["NDCG@10"].update_state(t["labels"], scores)
+                metrics["MAP"].update_state(best, scores)
+                metrics["MRR"].update_state(best, scores)
+        results = {k: float(m.result()) for k, m in metrics.items()}
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+                   for v in results.values()):
+            fail(f"listwise {loss.name}: metrics {results}")
+        log(f"[listwise {loss.name}] {RANK_BATCH} lists of {RANK_LIST}: "
+            f"losses {losses}; step ms {ms} (median "
+            f"{statistics.median(ms)!r}); held-out {results}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    data = movielens_like(num_users=BR_USERS, num_items=BR_ITEMS,
+                          num_examples=BR_BATCH, seed=seed)
+    model = BasicRanking(BR_USERS, BR_ITEMS,
+                         generator=torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    trainer = Trainer(model, DenseAdam(model.parameters(), BR_LR), mse_loss)
+    losses, ms = timed_steps(trainer, [data] * RANK_STEPS)
+    check_falls("basic ranking", losses)
+    log(f"[basic ranking] {BR_USERS} users, {BR_ITEMS} items, dim 32, MLP "
+        f"(256, 64, 1), batch {BR_BATCH}: mse losses {losses}; step ms {ms}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1739,6 +2392,15 @@ def main() -> int:
     phase_auc()
     log(f"[time] COO, ml_perf and AUC phases done at "
         f"{time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    reset_launch_counts()
+    phase_retrieval_small(dev, args.seed)
+    run_retrieval(dev, args.seed, args.profile)
+    run_ranking(dev, args.seed)
+    if any(launch_counts().values()):
+        fail(f"retrieval and ranking launched kernels: {launch_counts()}")
+    log(f"[time] retrieval and ranking phases done at "
+        f"{time.perf_counter() - t0:.1f} s ({card}; no kernel launched)")
 
     log(card)
     print(json.dumps({"kernels": kernels}))

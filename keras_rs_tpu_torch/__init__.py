@@ -10,6 +10,8 @@ scoring forward (models/dlrm.py), with the fused Adagrad row-update kernel
 (ops/row_ops.py, csrc/row_ops.cu); SASRec trained and served
 (models/sasrec.py, training/trainer.py, layers/retrieval), with the fused
 attention forward, dQ and dK/dV kernels (ops/flash_attention.py,
-csrc/flash_attention.cu). Modules build on cuda:0 unless given `device=`
-(utils/device.py).
+csrc/flash_attention.cu); two-tower retrieval and listwise ranking
+(models/two_tower.py, models/ranking_model.py, layers/retrieval, losses,
+metrics/ranking_metrics.py), which reach no kernel. Modules build on
+cuda:0 unless given `device=` (utils/device.py).
 """

@@ -19,6 +19,10 @@ The caller hands over numpy arrays (this module never imports JAX):
     layouts match: the same shapes, which is every stack but the JAX
     package's bit-packed bf16 dim-128 stacks (those take `tables`).
 
+`load_params` also carries the TwoTower and BasicRanking models, whose
+parameter names are the reference's attribute paths. A k-means IVF index
+(`KMeansRetrieval`) comes across through `load_kmeans_index`.
+
 bf16 arrays arrive as ml_dtypes.bfloat16 numpy arrays, which
 `torch.from_numpy` rejects; `as_tensor` reads them through a uint16 view.
 """
@@ -119,3 +123,13 @@ def load_params(
             _copy(state["step"], value["step"], f"{stack_name}.step")
             for k, slot in state.get("slots", {}).items():
                 _copy(slot, value["slots"][k], f"{stack_name}.slots.{k}")
+
+
+def load_kmeans_index(layer: Any, index: Mapping[str, Any]) -> None:
+    """Installs a `KMeansRetrieval` index exported as numpy arrays
+    (`centroids`, `cluster_candidates`, `cluster_ids`, `cluster_valid`,
+    and for quantize="int8" `cluster_scales`, `cluster_pos`,
+    `flat_candidates`) in the port's layer, on the layer's device; an
+    array given as None is left out."""
+    layer.set_index(**{k: as_tensor(v) for k, v in index.items()
+                       if v is not None})

@@ -4,11 +4,16 @@ keras_rs_tpu/layers/retrieval/retrieval.py).
 Scoring is one (B, D) x (D, N) product followed by a top-k in the JAX
 package's tie order (ops/topk.py). Above DIRECT_MAX_CANDIDATES, or with an
 explicit chunk size, the chunked path streams the candidates instead of
-forming the [B, N] scores. The approximate mode (`recall_target`) and the
-mesh-sharded variant are not ported.
+forming the [B, N] scores; it scores by dot product, so a subclass that
+overrides `compute_score` stays on the direct path under "auto" and raises
+with an explicit chunk size. `recall_target` is accepted and the chunked
+path selects exactly (ops/topk.py). The mesh-sharded variant is not
+ported.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
@@ -61,6 +66,13 @@ class Retrieval(nn.Module):
                           candidate_ids: torch.Tensor | None = None) -> None:
         raise NotImplementedError
 
+    def get_config(self) -> dict[str, Any]:
+        return {
+            "k": self.k,
+            "return_scores": self.return_scores,
+            "name": self.name,
+        }
+
 
 class BruteForceRetrieval(Retrieval):
     """Exact top-k retrieval by scoring all candidates (non-trainable
@@ -76,10 +88,13 @@ class BruteForceRetrieval(Retrieval):
         k: int = 10,
         return_scores: bool = True,
         chunk_size: int | str | None = "auto",
+        recall_target: float | None = None,
         name: str | None = None,
     ) -> None:
         super().__init__(k=k, return_scores=return_scores, name=name)
         self.chunk_size = chunk_size
+        #: Passed to the chunked path, which meets it by exact selection.
+        self.recall_target = recall_target
         self.candidate_embeddings = None
         self.candidate_ids = None
         if candidate_embeddings is None:
@@ -112,14 +127,25 @@ class BruteForceRetrieval(Retrieval):
                 "No candidates. Call `update_candidates` first."
             )
         n = self.candidate_embeddings.shape[0]
-        use_chunked = self.chunk_size not in (None, 0) and (
-            self.chunk_size != "auto" or n > self.DIRECT_MAX_CANDIDATES
+        custom_score = (
+            type(self).compute_score is not Retrieval.compute_score
         )
+        use_chunked = self.chunk_size not in (None, 0) and (
+            self.chunk_size != "auto"
+            or (n > self.DIRECT_MAX_CANDIDATES and not custom_score)
+        )
+        if use_chunked and custom_score:
+            raise ValueError(
+                "Chunked retrieval assumes dot-product scoring; "
+                f"{type(self).__name__} overrides compute_score. Pass "
+                "chunk_size=None (or 'auto') to use the direct path."
+            )
         if use_chunked:
             chunk = 65536 if self.chunk_size == "auto" else int(
                 self.chunk_size)
             top_scores, top_idx = chunked_topk_mips(
-                inputs, self.candidate_embeddings, self.k, chunk
+                inputs, self.candidate_embeddings, self.k, chunk,
+                recall_target=self.recall_target,
             )
         else:
             top_scores, top_idx = top_k(

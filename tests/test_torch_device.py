@@ -11,7 +11,12 @@ from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
     DistributedEmbedding,
 )
 from keras_rs_tpu_torch.layers.feature_interaction import feature_cross
-from keras_rs_tpu_torch.models import dlrm, sasrec
+from keras_rs_tpu_torch.models import (
+    dlrm,
+    ranking_model,
+    sasrec,
+    two_tower,
+)
 from keras_rs_tpu_torch.utils.device import resolve_device
 
 
@@ -41,6 +46,10 @@ CONSTRUCTORS = {
                                          max_sequence_length=6, **kw),
     "TransformerBlock": lambda **kw: attention.TransformerBlock(8, 2, 8,
                                                                 **kw),
+    "TwoTower": lambda **kw: two_tower.TwoTower(10, 10, 4, tower_units=(4,),
+                                                **kw),
+    "BasicRanking": lambda **kw: ranking_model.BasicRanking(10, 10, 4,
+                                                            (4, 1), **kw),
 }
 
 

@@ -52,7 +52,15 @@ def test_port_imports_without_jax():
                  "data.native_io", "data.loader", "data.synthetic",
                  "metrics.classification", "utils.timing",
                  "utils.native_build", "examples.ml_perf.configs",
-                 "examples.ml_perf.main"):
+                 "examples.ml_perf.main", "ops.topk", "ops.pairwise",
+                 "ops.ranking", "layers.retrieval.retrieval",
+                 "layers.retrieval.hard_negative_mining",
+                 "layers.retrieval.remove_accidental_hits",
+                 "layers.retrieval.sampling_probability_correction",
+                 "layers.retrieval.kmeans_retrieval", "losses.base",
+                 "losses.pairwise_losses", "losses.list_mle_loss",
+                 "metrics.ranking_metric", "metrics.ranking_metrics",
+                 "models.two_tower", "models.ranking_model"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(

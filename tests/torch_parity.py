@@ -194,3 +194,49 @@ def jax_sasrec_params(model) -> dict:
     for i, block in enumerate(model.blocks):
         params.update(jax_block_params(block, f"blocks.{i}."))
     return params
+
+
+def jax_mlp_params(mlp, prefix: str) -> dict:
+    """A JAX MLP's arrays by the port's names ("<prefix>layers.i.kernel")."""
+    params = {}
+    for i, layer in enumerate(mlp.layers):
+        params[f"{prefix}layers.{i}.kernel"] = np.asarray(layer.kernel)
+        params[f"{prefix}layers.{i}.bias"] = np.asarray(layer.bias)
+    return params
+
+
+def jax_two_tower_params(model) -> dict:
+    """A JAX TwoTower's arrays by the port's parameter names."""
+    params = {
+        "query_embedding.embeddings": np.asarray(
+            model.query_embedding.embeddings),
+        "candidate_embedding.embeddings": np.asarray(
+            model.candidate_embedding.embeddings),
+    }
+    if model.query_mlp is not None:
+        params.update(jax_mlp_params(model.query_mlp, "query_mlp."))
+        params.update(jax_mlp_params(model.candidate_mlp, "candidate_mlp."))
+    return params
+
+
+def jax_basic_ranking_params(model) -> dict:
+    """A JAX BasicRanking's arrays by the port's parameter names."""
+    return {
+        "user_embedding.embeddings": np.asarray(
+            model.user_embedding.embeddings),
+        "item_embedding.embeddings": np.asarray(
+            model.item_embedding.embeddings),
+        **jax_mlp_params(model.mlp, "mlp."),
+    }
+
+
+def jax_kmeans_index(layer) -> dict:
+    """A JAX KMeansRetrieval's index as numpy arrays (None where the
+    layer has none), the input of convert.load_kmeans_index."""
+    return {
+        name: None if getattr(layer, name) is None
+        else np.asarray(getattr(layer, name))
+        for name in ("centroids", "cluster_candidates", "cluster_ids",
+                     "cluster_valid", "cluster_scales", "cluster_pos",
+                     "flat_candidates")
+    }
