@@ -36,6 +36,15 @@ from --seed:
     100k items, dim 128, lists of 100, batch 1,024) and BasicRanking at
     examples/basic_ranking.py's widths. No kernel: the reference's
     retrieval and ranking code reaches no Pallas kernel.
+  * serving (keras_rs_tpu_torch/serving.py): the trained packed DLRM
+    frozen (DistributedEmbedding.freeze) in f32 and in int8 in the
+    "rows", "packed" and "fused" layouts, serving Ragged request
+    batches eagerly and through serving.aot_compile (CUDA graphs), and
+    its slot-free serving_copy(); the capacity-mode model on the uncut
+    vocabulary frozen to int8 beside its training state, then served
+    alone; torch.export artifacts of an int8 DLRM and a retrieval
+    service. No kernel: the reference's serving path reaches no Pallas
+    kernel.
 
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
@@ -123,6 +132,43 @@ Phases (any failure raises, so the exit code is not 0):
                    falls), NDCG@10, MAP, MRR on 3 held-out batches in
                    [0, 1]; BasicRanking 8 steps of mse_loss (loss falls).
                    No kernel launches in phases 18-21.
+ 22. serving       small DLRMs (f32 + Adagrad; capacity mode) card and
+     small         CPU from one state: freeze() and the int8, int8_packed
+                   and int8_fused freezes, tables, q, scale and packed
+                   words bit-exact card vs CPU, activations within 1e-6
+                   of their largest; Ragged, padded and sparse requests
+                   equal; serving_copy equals the trained layer (the
+                   construction-order and the sorted forward), holds no
+                   slot and shares no storage; 3 steps on Ragged batches
+                   narrower than the valence (sorted forward) card vs CPU
+                   within phases 3 and 8's bounds;
+ 23. dlrm serve    (after phase 5, on the trained packed model) freeze in
+                   f32, int8, int8_packed, int8_fused; 3 request batches
+                   of 16,384 and 3 of 512 (large features Ragged, lengths
+                   uniform in [1, multi-hot size], padded to the
+                   valence), eager and through aot_compile: finite
+                   logits, frozen f32 within 5e-3 of the model's scoring
+                   logits, int8 layouts equal bit for bit and within the
+                   int8 bound (absmax/254 per id) of f32, the graph equal
+                   to eager, the eager path free of host syncs, no kernel
+                   launch; ms per batch (CUDA events), kernel time by
+                   part and idle share of one batch (torch.profiler; the
+                   operator tables with --profile), bytes gathered,
+                   frozen bytes, peak memory; serving_copy (state bytes
+                   against the training state, ms per batch through the
+                   construction-order and the sorted forward);
+ 24. capacity      (after phase 7) the bf16 model's scoring logits on 3
+     serve         Ragged batches of 16,384, freeze(quantize="int8") of
+                   the 204,102,450 table rows beside the training state
+                   (peak under the card's memory), the state freed, the
+                   3 batches served from the int8 tables: finite, within
+                   the int8 bound of the bf16 model's activations; ms
+                   per batch, serving peak memory;
+ 25. export        export_fn / import_fn of an int8-frozen small DLRM and
+                   of a retrieval service (MLP query tower, top-10
+                   BruteForceRetrieval over 100,000 x 128): the imported
+                   output equals the eager one on the card; artifact
+                   bytes. No kernel launches in phases 23-25.
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
@@ -502,12 +548,34 @@ def phase_scatter_kernel(name: str, shapes, unique_slots, sink: int,
             "library_ms": library_ms}
 
 
+SMALL_BATCH = 64  # the small card-vs-CPU models
+
+
+def small_config(**overrides):
+    """The small DLRM of the card-vs-CPU phases: two stacked features
+    (vocab 2000 and 1500, valence 3 and 2), two small ones, f32 dense
+    layers."""
+    from keras_rs_tpu_torch.models.dlrm import DLRMConfig
+
+    B = SMALL_BATCH
+    return DLRMConfig(
+        vocab_sizes=[2000, 1500, 50, 30], multi_hot_sizes=[3, 2, 1, 2],
+        bottom_mlp=(64, 128), top_mlp=(64, 32, 1), num_dcn_layers=2,
+        dcn_projection_dim=32, embedding_threshold=1000,
+        max_ids_per_partition=B * 5, max_unique_ids_per_partition=B * 5,
+        learning_rate=0.05, global_batch_size=B, table_placement="sharded",
+        compute_dtype=None, dense_output_dtype="float32", **overrides,
+    )
+
+
 def phase_small_reference(label: str, bound: str, expect: dict,
-                          **overrides) -> None:
+                          narrow: bool = False, **overrides) -> None:
     """The port on the card against the port on the CPU (whose plain
     paths the CPU tests hold to the JAX package): a small model with f32
     dense layers, identical parameters and state, 3 steps; the card's
-    kernel launches must be `expect`.
+    kernel launches must be `expect`. With `narrow`, the stacked features
+    come as Ragged rows shorter than their valence, so the steps take the
+    lookup's sorted forward.
 
     `bound` "f32": losses and tables within 1e-5 (sums in another
     order). "bf16 tables": the card and the CPU round the bf16 rows
@@ -519,26 +587,23 @@ def phase_small_reference(label: str, bound: str, expect: dict,
     import torch
 
     from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
-    from keras_rs_tpu_torch.models.dlrm import (
-        DLRMConfig,
-        DLRMDCNv2,
-        bce_loss,
-    )
-    from keras_rs_tpu_torch.ops import row_ops
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2, bce_loss
     from keras_rs_tpu_torch.training.train_state import (
         DenseAdagrad,
         make_train_step,
     )
 
-    B = 64
-    cfg = DLRMConfig(
-        vocab_sizes=[2000, 1500, 50, 30], multi_hot_sizes=[3, 2, 1, 2],
-        bottom_mlp=(64, 128), top_mlp=(64, 32, 1), num_dcn_layers=2,
-        dcn_projection_dim=32, embedding_threshold=1000,
-        max_ids_per_partition=B * 5, max_unique_ids_per_partition=B * 5,
-        learning_rate=0.05, global_batch_size=B, table_placement="sharded",
-        compute_dtype=None, dense_output_dtype="float32", **overrides,
-    )
+    B = SMALL_BATCH
+    cfg = small_config(**overrides)
+
+    def batch(s):
+        raw = criteo_like_batch(B, vocab_sizes=cfg.vocab_sizes,
+                                multi_hot_sizes=cfg.multi_hot_sizes, seed=s)
+        if narrow:
+            raw = ragged_requests(raw, np.random.default_rng(s), [0, 1],
+                                  narrow=True)
+        return raw
+
     models = {
         dev: DLRMDCNv2(
             cfg, generator=torch.Generator(device=dev).manual_seed(0),
@@ -557,12 +622,8 @@ def phase_small_reference(label: str, bound: str, expect: dict,
         for dev, m in models.items():
             step = make_train_step(m, bce_loss,
                                    DenseAdagrad(m.parameters(), 0.05))
-            losses[dev] = [
-                float(step(m.preprocess(criteo_like_batch(
-                    B, vocab_sizes=cfg.vocab_sizes,
-                    multi_hot_sizes=cfg.multi_hot_sizes, seed=s))))
-                for s in (0, 1, 0)
-            ]
+            losses[dev] = [float(step(m.preprocess(batch(s))))
+                           for s in (0, 1, 0)]
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -671,8 +732,10 @@ def profile_steps(step, batch, steps: int = 3):
     return avgs, wall_ms, kernel_ms
 
 
-def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
-    """Device time per training step by part, from torch.profiler."""
+def phase_profile(label: str, step, batch, parts, steps: int = 3,
+                  table: bool = True) -> None:
+    """Device time per training step by part, from torch.profiler (and
+    the operator table, with `table`)."""
     import torch
 
     avgs, wall_ms, kernel_ms = profile_steps(step, batch, steps)
@@ -688,8 +751,10 @@ def phase_profile(label: str, step, batch, parts, steps: int = 3) -> None:
                  else e.device_time_total for e in rows)
         log(f"[profile] {label} {part}: {us / 1e3 / steps!r} ms per step "
             f"({row}, {time_of})")
-    log(avgs.table(sort_by="device_time_total", row_limit=30,
-                   max_name_column_width=60))
+    log(f"[profile] {label}: device idle {1 - kernel_ms / wall_ms:.1%}")
+    if table:
+        log(avgs.table(sort_by="device_time_total", row_limit=30,
+                       max_name_column_width=60))
 
 
 def state_checksum(state: dict) -> int:
@@ -729,10 +794,12 @@ def launch_counts() -> dict[str, int]:
     return counts
 
 
-def dlrm_batch(cfg, s: int) -> dict:
+def dlrm_batch(cfg, s: int, batch: int | None = None) -> dict:
+    """A raw batch of `cfg`'s features (of `batch` rows, default the
+    configured global batch) from seed `s`."""
     from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
 
-    return criteo_like_batch(cfg.global_batch_size,
+    return criteo_like_batch(batch or cfg.global_batch_size,
                              vocab_sizes=cfg.vocab_sizes,
                              multi_hot_sizes=cfg.multi_hot_sizes, seed=s)
 
@@ -903,6 +970,7 @@ def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
         DLRM_PROFILE_PARTS if profile else None)
     log(f"[dlrm host] preprocessing s per batch {preprocess_s}; median "
         f"{statistics.median(preprocess_s)!r} s")
+    phase_dlrm_serve(model, cfg, seed, profile)
     slots = coo["unique_slots"].cpu()
     del model, fixed, coo, preprocess
     torch.cuda.empty_cache()
@@ -945,6 +1013,7 @@ def run_capacity(seed: int, profile: bool) -> dict:
              f"{PEAK_LIMIT_GB}")
     log(f"[capacity host] preprocessing s per batch {preprocess_s}; median "
         f"{statistics.median(preprocess_s)!r} s")
+    phase_capacity_serve(model, cfg, seed)
     del model, fixed, coo, preprocess
     torch.cuda.empty_cache()
     return {
@@ -2353,6 +2422,542 @@ def run_ranking(dev, seed: int) -> None:
         f"(256, 64, 1), batch {BR_BATCH}: mse losses {losses}; step ms {ms}")
 
 
+# --- Serving: freeze, int8, CUDA graphs, export (phases 22-25) -----------
+
+SERVE_SMALL_BATCH = 512  # the small request batch of phase 23
+SERVE_REPS = 5  # timed runs of each request batch (CUDA events)
+#: freeze() layouts: f32, then int8 in the "rows", "packed" and "fused"
+#: layouts of ops/quant.py.
+QUANTIZE = (None, "int8", "int8_packed", "int8_fused")
+EXPORT_CANDIDATES = 100_000  # retrieval service of phase 25
+#: Frozen f32 logits against the trained model's: the bf16 dense stack's
+#: bound (ROADMAP C4); the embedding activations are the same sums.
+FROZEN_LOGIT_TOL = 5e-3
+
+
+def ragged_requests(raw: dict, rng, large_idx, narrow: bool = False) -> dict:
+    """`raw` with each large feature cut to a Ragged batch: row b keeps
+    its first n_b ids, n_b uniform in [1, m] (in [1, m - 1] where m > 1
+    and `narrow`, so that every such feature is narrower than its
+    valence and the stacked lookup takes its sorted forward)."""
+    from keras_rs_tpu_torch.data.ragged import Ragged
+
+    out = dict(raw)
+    for i in large_idx:
+        ids = raw[f"cat_{i}"]
+        B, m = ids.shape
+        hi = m - 1 if narrow and m > 1 else m
+        n = rng.integers(1, hi + 1, size=B)
+        keep = np.arange(m)[None, :] < n[:, None]
+        out[f"cat_{i}"] = Ragged(ids[keep], n.astype(np.int32))
+    return out
+
+
+def frozen_request(model, raw: dict, dev) -> tuple[dict, dict, dict]:
+    """(the batch without its large features, their padded ids, their 0/1
+    weights) as tensors on `dev`: each Ragged feature padded to its
+    valence, a static shape for a captured graph."""
+    import torch
+
+    from keras_rs_tpu_torch.data.ragged import Ragged
+
+    batch, ids, weights = {}, {}, {}
+    for k, v in raw.items():
+        if k == "label":
+            continue
+        if isinstance(v, Ragged):
+            m = model.config.multi_hot_sizes[int(k.split("_")[1])]
+            a, w = v.to_padded(max_length=m)
+            ids[k] = torch.from_numpy(a).to(dev)
+            weights[k] = torch.from_numpy(w).to(dev)
+        else:
+            batch[k] = torch.from_numpy(np.asarray(v)).to(dev)
+    return batch, ids, weights
+
+
+def frozen_scorer(model, frozen):
+    """serve(batch, large ids, large weights) -> logits: the frozen large
+    features feed the model's dense stack through "large_acts" (the
+    frozen lookup labelled for the profiler)."""
+    import torch
+
+    def serve(batch, ids, weights):
+        with torch.profiler.record_function("frozen embedding"):
+            acts = frozen(ids, weights)
+        return model({**batch, "large_acts": acts})
+
+    return serve
+
+
+# Parts of a serving batch for the profile (see DLRM_PROFILE_PARTS).
+SERVE_PROFILE_PARTS = [
+    ("frozen embedding (large features)", "frozen embedding", "total"),
+    ("  row gathers", "aten::embedding", "total"),
+    ("  int8 row and scale gathers", "aten::index", "total"),
+    ("  where (index wrap, NaN mask, plane select)", "aten::where",
+     "self"),
+    ("  multiplies (scale, weights)", "aten::mul", "self"),
+    ("  sums over the ids", "aten::sum", "self"),
+    ("  byte extraction (shift, mask)", "aten::bitwise_right_shift",
+     "self"),
+    ("dense matmuls", "aten::mm", "self"),
+    ("dtype casts", "aten::_to_copy", "total"),
+]
+
+
+def module_bytes(module) -> int:
+    """Bytes of a module's distinct parameters and buffers."""
+    seen = {id(t): t for t in [*module.parameters(), *module.buffers()]}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def int8_bound(frozen_rows, ids: dict, weights: dict) -> dict:
+    """Per feature, the largest |int8 - f32| activation error the
+    quantization allows: sum over the row's ids of |weight| * scale / 2
+    (scale = the row's absmax / 127), from an "int8" (rows layout)
+    freeze; [B] per feature."""
+    out = {}
+    for name, er in frozen_rows._reducers.items():
+        s = er.scale[ids[name].clamp(0, er.input_dim - 1)][..., 0]
+        out[name] = 0.5 * (s * weights[name].abs()).sum(-1)
+    return out
+
+
+def check_within_int8_bound(label: str, got: dict, want: dict,
+                            bound: dict) -> float:
+    """Fails unless every activation of `got` is within its int8 bound
+    (plus 1e-6 relative for the f32 sums) of `want`; returns the largest
+    error over bound."""
+    import torch
+
+    worst = 0.0
+    for k, b in bound.items():
+        err = (got[k].float() - want[k].float()).abs()
+        limit = b[:, None] * (1 + 1e-5) + 1e-6 * want[k].float().abs() + 1e-7
+        if bool((err > limit).any()):
+            fail(f"{label}: feature {k} int8 error {float(err.max())!r} over "
+                 "its bound")
+        worst = max(worst, float((err / limit).max()))
+    return worst
+
+
+def gathered_bytes(n_ids: int, quantize) -> int:
+    """Bytes the frozen lookup gathers for n_ids ids of dim-128 rows: the
+    row (f32, or int8 and its f32 scale), a 4-row int32 word row and the
+    scale ("packed"), or an 8-row [384]-word group row ("fused")."""
+    per_id = {None: 128 * 4, "int8": 128 + 4, "int8_packed": 128 * 4 + 4,
+              "int8_fused": 384 * 4}[quantize]
+    return n_ids * per_id
+
+
+def phase_serving_small(seed: int) -> None:
+    """Phase 22: small DLRMs (f32 + Adagrad, packed state; capacity mode,
+    bf16 + row-wise Adagrad) on the card and on the CPU from the same
+    state: every freeze layout's int8 q, scale and packed words bit-exact
+    card vs CPU, activations within 1e-6 relative; on the card, Ragged
+    and sparse requests equal their padded form, and serving_copy equals
+    the trained layer's no-grad forward (construction-order and sorted),
+    holds no slot and shares no storage with it; then 3 training steps on
+    Ragged batches narrower than the valence (sorted forward), card
+    against CPU."""
+    import torch
+
+    from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+
+    dev = torch.device("cuda", 0)
+    B = SMALL_BATCH
+    for label, overrides in (("f32", {}), ("capacity", dict(
+            table_dtype="bfloat16", embedding_optimizer="rowwise_adagrad"))):
+        cfg = small_config(**overrides)
+        models = {d: DLRMDCNv2(cfg, generator=torch.Generator(
+            device=d).manual_seed(seed), device=d) for d in ("cpu", "cuda")}
+        models["cuda"].load_state_dict(models["cpu"].state_dict())
+        raw = criteo_like_batch(B, vocab_sizes=cfg.vocab_sizes,
+                                multi_hot_sizes=cfg.multi_hot_sizes,
+                                seed=seed + 7)
+        rng = np.random.default_rng(seed)
+        req = ragged_requests(raw, rng, models["cpu"].large_idx)
+        large = {k: v for k, v in req.items() if k in ("cat_0", "cat_1")}
+        worst = 0.0
+        for q in QUANTIZE:
+            fz = {d: m.embedding_layer.freeze(quantize=q)
+                  for d, m in models.items()}
+            for a, b in zip(fz["cuda"].table_reducers,
+                            fz["cpu"].table_reducers):
+                for (name, t), (_, c) in zip(
+                        [*a.named_parameters(), *a.named_buffers()],
+                        [*b.named_parameters(), *b.named_buffers()]):
+                    if not torch.equal(t.detach().cpu(), c.detach()):
+                        fail(f"serving small {label}: freeze {q} {name} "
+                             "differs between card and CPU")
+            with torch.no_grad():
+                got = fz["cuda"](large)
+                want = fz["cpu"](large)
+                worst = max(worst, max(
+                    float((got[k].cpu() - want[k]).abs().max())
+                    / float(want[k].abs().max()) for k in want))
+                # The padded and sparse forms of the same request.
+                padded = {k: v.to_padded() for k, v in large.items()}
+                ids = {k: torch.from_numpy(a).to(dev)
+                       for k, (a, _) in padded.items()}
+                w = {k: torch.from_numpy(b).to(dev)
+                     for k, (_, b) in padded.items()}
+                sparse = {k: torch.sparse_coo_tensor(
+                    (w[k] > 0).nonzero().T, ids[k][w[k] > 0],
+                    tuple(ids[k].shape), check_invariants=True)
+                    for k in ids}
+                for form, out in (("padded", fz["cuda"](ids, w)),
+                                  ("sparse", fz["cuda"](sparse))):
+                    if any(not torch.equal(out[k], got[k]) for k in got):
+                        fail(f"serving small {label}: freeze {q}: the "
+                             f"{form} request differs from the Ragged one")
+            del fz
+        if worst > 1e-6:
+            fail(f"serving small {label}: card vs CPU activations differ by "
+                 f"{worst!r} of their largest magnitude")
+        emb = models["cuda"].embedding_layer
+        copy = emb.serving_copy()
+        narrow = ragged_requests(raw, rng, models["cpu"].large_idx,
+                                 narrow=True)
+        with torch.no_grad():
+            for form, r in (("full", req), ("narrow", narrow)):
+                pre = emb.preprocess({k: r[k] for k in ("cat_0", "cat_1")})
+                a, b = copy(pre), emb(pre)
+                gap = max(float((a[k] - b[k]).abs().max()) for k in a)
+                if gap > 1e-6 * max(float(b[k].abs().max()) for k in b):
+                    fail(f"serving small {label}: serving_copy differs from "
+                         f"the trained layer by {gap!r} ({form} request)")
+        own = {t.untyped_storage().data_ptr() for t in emb.buffers()}
+        if any(t.untyped_storage().data_ptr() in own
+               for t in copy.buffers()) or any(
+                   "_slot_" in n for n, _ in copy.named_buffers()):
+            fail(f"serving small {label}: serving_copy shares storage or "
+                 "holds slots")
+        log(f"[serving small {label}] 4 freeze layouts: tables and int8 "
+            f"words equal card vs CPU, activations within {worst!r}; "
+            "Ragged = padded = sparse requests; serving_copy "
+            f"{module_bytes(copy)} B vs {module_bytes(emb)} B trained, "
+            "equal outputs (construction and sorted forward)")
+        del models, copy, emb
+    phase_small_reference("f32 narrow ragged", "f32",
+                          {"apply_scatter_row_blocks": 3}, narrow=True)
+    phase_small_reference("capacity narrow ragged", "bf16 tables",
+                          {"scatter_rows": 3}, narrow=True,
+                          table_dtype="bfloat16",
+                          embedding_optimizer="rowwise_adagrad")
+
+
+def time_requests(fn, requests) -> list[float]:
+    """CUDA-event ms of fn(*request) for each request (mean of
+    SERVE_REPS runs after one warm-up)."""
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for r in requests:
+            fn(*r)
+            out.append(cuda_time_ms(lambda: fn(*r), SERVE_REPS))
+    return out
+
+
+def no_grad_call(fn, args):
+    import torch
+
+    with torch.no_grad():
+        return fn(*args)
+
+
+def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
+    """Phase 23: the trained packed DLRM (4M cap) frozen in f32 and in the
+    three int8 layouts, serving 3 request batches of BATCH and 3 of
+    SERVE_SMALL_BATCH (large features Ragged, lengths uniform in [1,
+    multi-hot size]) eagerly and through serving.aot_compile (CUDA
+    graphs); then serving_copy() through the sorted forward."""
+    import torch
+
+    from keras_rs_tpu_torch import serving
+
+    dev = torch.device("cuda", 0)
+    emb = model.embedding_layer
+    rng = np.random.default_rng(seed + 500)
+    before = launch_counts()
+    sizes = (cfg.global_batch_size, SERVE_SMALL_BATCH)
+    raws = {size: [ragged_requests(dlrm_batch(cfg, seed + 200 + s, size),
+                                   rng, model.large_idx)
+                   for s in range(SCORE_BATCHES)] for size in sizes}
+    reqs = {size: [frozen_request(model, r, dev) for r in rs]
+            for size, rs in raws.items()}
+    n_ids = {size: sum(v.numel() for v in rs[0][1].values())
+             for size, rs in reqs.items()}
+    with torch.no_grad():
+        trained = [model(model.preprocess(r)) for r in raws[sizes[0]]]
+    state_bytes = sum(t.numel() * t.element_size()
+                      for n, t in emb.named_buffers()
+                      if n.startswith("stack"))
+    card = nvidia_smi_line()
+    acts, logits, bound = {}, {}, None
+    for q in QUANTIZE:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        frozen = emb.freeze(quantize=q)
+        torch.cuda.synchronize()
+        freeze_s = time.perf_counter() - t
+        serve = frozen_scorer(model, frozen)
+        with torch.no_grad():
+            acts[q] = [frozen(ids, w) for _, ids, w in reqs[sizes[0]]]
+            logits[q] = {size: [serve(*r) for r in rs]
+                         for size, rs in reqs.items()}
+            # The eager request path reads no value back to the host.
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                serve(*reqs[sizes[1]][0])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if q == "int8":
+            bound = [int8_bound(frozen, ids, w)
+                     for _, ids, w in reqs[sizes[0]]]
+        times = {}
+        for size, rs in reqs.items():
+            for out in logits[q][size]:
+                if not bool(torch.isfinite(out).all()):
+                    fail(f"dlrm serve {q}: non-finite logits")
+            compiled = serving.aot_compile(serve, *rs[0])
+            for r, want in zip(rs, logits[q][size]):
+                if not torch.equal(compiled(*r), want):
+                    gap = float((compiled(*r) - want).abs().max())
+                    fail(f"dlrm serve {q}: aot_compile differs from eager "
+                         f"at batch {size} by {gap!r}")
+            times[size] = (time_requests(serve, rs),
+                           time_requests(compiled, rs))
+            del compiled
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for size, rs in reqs.items():
+            phase_profile(f"dlrm serve {q or 'f32'} batch {size}",
+                          lambda r: no_grad_call(serve, r), rs[0],
+                          SERVE_PROFILE_PARTS, table=profile)
+        log(f"[dlrm serve {q or 'f32'}] ({card}) frozen "
+            f"{module_bytes(frozen)} "
+            f"B, built in {freeze_s:.3f} s; peak device memory {peak:.2f} GB "
+            f"(training state {state_bytes / 1e9:.2f} GB resident)")
+        for size in sizes:
+            eager, graph = times[size]
+            nbytes = gathered_bytes(n_ids[size], q)
+            log(f"[dlrm serve {q or 'f32'}] batch {size}: ms per batch eager "
+                f"{eager} (median {statistics.median(eager)!r}), CUDA graph "
+                f"{graph} (median {statistics.median(graph)!r}); gathers "
+                f"{nbytes} B for {n_ids[size]} ids = "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+        del frozen, serve
+        torch.cuda.empty_cache()
+    # Frozen f32 against the trained model; int8 layouts against each
+    # other and within the int8 bound of f32.
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(logits[None][sizes[0]], trained))
+    if gap > FROZEN_LOGIT_TOL:
+        fail(f"dlrm serve: frozen f32 logits differ from the model's by "
+             f"{gap!r}")
+    for q in ("int8_packed", "int8_fused"):
+        for size in sizes:
+            if any(not torch.equal(a, b) for a, b in zip(
+                    logits[q][size], logits["int8"][size])):
+                fail(f"dlrm serve: {q} logits differ from int8 rows")
+        if any(not torch.equal(a[k], b[k]) for a, b in zip(
+                acts[q], acts["int8"]) for k in a):
+            fail(f"dlrm serve: {q} activations differ from int8 rows")
+    ratio = max(check_within_int8_bound("dlrm serve", a8, a32, b)
+                for a8, a32, b in zip(acts["int8"], acts[None], bound))
+    logit_gap = max(float((a - b).abs().max()) for size in sizes
+                    for a, b in zip(logits["int8"][size], logits[None][size]))
+    log(f"[dlrm serve] frozen f32 vs trained model logits: max |diff| "
+        f"{gap!r} (bound {FROZEN_LOGIT_TOL}); int8 rows = packed = fused "
+        f"bit for bit; int8 activations within {ratio:.4f} of their bound "
+        f"(absmax/254 per id), int8 logits vs f32 max |diff| {logit_gap!r}")
+    del acts, logits, bound
+
+    # serving_copy: the slot-free stacked twin, host COO + lookup.
+    torch.cuda.reset_peak_memory_stats()
+    copy = emb.serving_copy()
+    copy_bytes = sum(t.numel() * t.element_size()
+                     for n, t in copy.named_buffers() if n.startswith("stack"))
+    own = {t.untyped_storage().data_ptr() for t in emb.buffers()}
+    if any(t.untyped_storage().data_ptr() in own for t in copy.buffers()):
+        fail("dlrm serve: serving_copy shares storage with the model")
+    large = [f"cat_{i}" for i in model.large_idx]
+    copy_ms = {}
+    with torch.no_grad():
+        # Full-width ids take the construction-order forward, Ragged rows
+        # narrower than every valence the sorted one.
+        for form, narrow in (("construction", False), ("sorted", True)):
+            rs = [dlrm_batch(cfg, seed + 250 + s)
+                  for s in range(SCORE_BATCHES)]
+            if narrow:
+                rs = [ragged_requests(r, rng, model.large_idx, narrow=True)
+                      for r in rs]
+            ms = []
+            for r in rs:
+                pre = copy.preprocess({k: r[k] for k in large})
+                if ("fwd_slots" in pre["sharded"][copy.stacks[0].name]) != (
+                        not narrow):
+                    fail(f"dlrm serve: serving_copy took the wrong forward "
+                         f"({form})")
+                batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                         for k, v in r.items() if k not in large
+                         and k != "label"}
+                a, b = copy(pre), emb(pre)
+                rel = max(float((a[k] - b[k]).abs().max())
+                          / max(float(b[k].abs().max()), 1e-30) for k in a)
+                if rel > 1e-5 or (not narrow and rel != 0.0):
+                    fail(f"dlrm serve: serving_copy differs from the model "
+                         f"by {rel!r} relative ({form})")
+                ms.append(cuda_time_ms(
+                    lambda: model({**batch, "large_acts": copy(pre)}),
+                    SERVE_REPS))
+            copy_ms[form] = ms
+    log(f"[dlrm serve copy] ({card}) serving_copy state {copy_bytes} B "
+        f"({copy_bytes / 1e9:.2f} GB) vs packed training state "
+        f"{state_bytes} B ({state_bytes / 1e9:.2f} GB); ms per batch of "
+        f"{cfg.global_batch_size} after host COO: construction-order "
+        f"forward {copy_ms['construction']}, sorted forward "
+        f"{copy_ms['sorted']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; equal to the "
+        "trained layer")
+    del copy
+    torch.cuda.empty_cache()
+    if launch_counts() != before:
+        fail("dlrm serve: a kernel launched while serving")
+
+
+def phase_capacity_serve(model, cfg, seed: int) -> None:
+    """Phase 24: the trained capacity-mode DLRM on the uncut vocabulary:
+    its scoring logits on 3 Ragged request batches, freeze(quantize=
+    "int8") chunk by chunk beside the training state (peak gated below
+    the card's memory), the training state freed, then the 3 batches
+    served from the int8 tables: finite, activations within the int8
+    bound of the bf16 model's."""
+    import gc
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    emb = model.embedding_layer
+    rng = np.random.default_rng(seed + 600)
+    before = launch_counts()
+    large = [f"cat_{i}" for i in model.large_idx]
+    raws = [ragged_requests(dlrm_batch(cfg, seed + 400 + s), rng,
+                            model.large_idx) for s in range(SCORE_BATCHES)]
+    reqs = [frozen_request(model, r, dev) for r in raws]
+    want_acts, want_logits = [], []
+    with torch.no_grad():
+        for r in raws:
+            pre = model.preprocess(r)
+            want_acts.append(emb(pre["large_pre"]))
+            want_logits.append(model(pre))
+    del pre
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    frozen = emb.freeze(quantize="int8")
+    torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= total:
+        fail(f"capacity serve: freeze peak {peak} B over the card's {total}")
+    log(f"[capacity serve] ({nvidia_smi_line()}) freeze(quantize='int8') of "
+        f"{sum(er.input_dim for er in frozen.table_reducers)} rows in "
+        f"{freeze_s:.2f} s: {module_bytes(frozen)} B "
+        f"({module_bytes(frozen) / 1e9:.2f} GB) of int8 tables and scales; peak device memory {peak / 1e9:.2f} "
+        f"GB of {total / 1e9:.2f} GB, the bf16 training state resident")
+    bound = [int8_bound(frozen, ids, w) for _, ids, w in reqs]
+    model.embedding_layer = None
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve = frozen_scorer(model, frozen)
+    with torch.no_grad():
+        acts = [frozen(ids, w) for _, ids, w in reqs]
+        logits = [serve(*r) for r in reqs]
+    for out in logits:
+        if not bool(torch.isfinite(out).all()):
+            fail("capacity serve: non-finite logits")
+    ratio = max(check_within_int8_bound("capacity serve", a, b, bd)
+                for a, b, bd in zip(acts, want_acts, bound))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(logits, want_logits))
+    ms = time_requests(serve, reqs)
+    log(f"[capacity serve] training state freed; {SCORE_BATCHES} batches of "
+        f"{cfg.global_batch_size}: ms per batch {ms} (median "
+        f"{statistics.median(ms)!r}); serving peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; int8 activations "
+        f"within {ratio:.4f} of their bound (absmax/254 per id) of the bf16 "
+        f"model's; logits vs the bf16 model's max |diff| {gap!r}")
+    if launch_counts() != before:
+        fail("capacity serve: a kernel launched while serving")
+    del frozen, serve, acts, want_acts
+    torch.cuda.empty_cache()
+
+
+def phase_export(seed: int) -> None:
+    """Phase 25: export_fn / import_fn on the card of an int8-frozen small
+    DLRM and of a retrieval service (an MLP query tower and
+    BruteForceRetrieval over EXPORT_CANDIDATES x 128): the imported
+    artifact's output equals the eager one; artifact bytes."""
+    import torch
+
+    from keras_rs_tpu_torch import serving
+    from keras_rs_tpu_torch.data.synthetic import criteo_like_batch
+    from keras_rs_tpu_torch.layers.dense import MLP
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = small_config()
+    model = DLRMDCNv2(cfg, generator=g, device=dev)
+    frozen = model.embedding_layer.freeze(quantize="int8")
+    model.embedding_layer = None  # served from `frozen`: not exported
+    req = frozen_request(model, ragged_requests(
+        criteo_like_batch(SMALL_BATCH, vocab_sizes=cfg.vocab_sizes,
+                          multi_hot_sizes=cfg.multi_hot_sizes, seed=seed),
+        np.random.default_rng(seed), model.large_idx), dev)
+    serve = frozen_scorer(model, frozen)
+    t = time.perf_counter()
+    blob = serving.export_fn(serve, *req)
+    export_s = time.perf_counter() - t
+    with torch.no_grad():
+        want = serve(*req)
+    if not torch.equal(serving.import_fn(blob)(*req), want):
+        fail("export: the imported DLRM differs from the eager one")
+    tower = MLP(64, [256, 128], generator=g, device=dev)
+    cands = torch.randn((EXPORT_CANDIDATES, 128), generator=g, device=dev)
+    service = serving.make_retrieval_service(
+        tower, BruteForceRetrieval(cands, k=SERVE_K))
+    q = torch.randn((SERVE_BATCH, 64), generator=g, device=dev)
+    t = time.perf_counter()
+    rblob = serving.export_fn(service, q)
+    rexport_s = time.perf_counter() - t
+    imported = serving.import_fn(rblob)
+    with torch.no_grad():
+        ws, wi = service(q)
+    gs, gi = imported(q)
+    if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
+        fail("export: the imported retrieval service differs")
+    eager_ms = time_requests(service, [(q,)])
+    imported_ms = time_requests(imported, [(q,)])
+    log(f"[export] int8 small DLRM: {len(blob)} B artifact in {export_s:.2f} "
+        f"s, equal on the card; retrieval service (MLP 64-256-128, top-"
+        f"{SERVE_K} over {EXPORT_CANDIDATES} x 128): {len(rblob)} B in "
+        f"{rexport_s:.2f} s, equal; batch of {SERVE_BATCH}: eager "
+        f"{eager_ms} ms, imported {imported_ms} ms")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2401,6 +3006,9 @@ def main() -> int:
         fail(f"retrieval and ranking launched kernels: {launch_counts()}")
     log(f"[time] retrieval and ranking phases done at "
         f"{time.perf_counter() - t0:.1f} s ({card}; no kernel launched)")
+    phase_serving_small(args.seed)
+    phase_export(args.seed)
+    log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
 
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,10 @@ scoring forward (models/dlrm.py), with the fused Adagrad row-update kernel
 attention forward, dQ and dK/dV kernels (ops/flash_attention.py,
 csrc/flash_attention.cu); two-tower retrieval and listwise ranking
 (models/two_tower.py, models/ranking_model.py, layers/retrieval, losses,
-metrics/ranking_metrics.py), which reach no kernel. Modules build on
-cuda:0 unless given `device=` (utils/device.py).
+metrics/ranking_metrics.py), which reach no kernel; serving
+(serving.py: CUDA-graph capture and torch.export artifacts of frozen
+f32 or int8 tables, DistributedEmbedding.freeze / serving_copy), with
+Ragged and sparse inputs (data/ragged.py, data/sparse_utils.py), which
+reaches no kernel either. Modules build on cuda:0 unless given `device=`
+(utils/device.py).
 """

@@ -21,7 +21,10 @@ The caller hands over numpy arrays (this module never imports JAX):
 
 `load_params` also carries the TwoTower and BasicRanking models, whose
 parameter names are the reference's attribute paths. A k-means IVF index
-(`KMeansRetrieval`) comes across through `load_kmeans_index`.
+(`KMeansRetrieval`) comes across through `load_kmeans_index`, and the
+arrays of a frozen or int8 serving layer (`FrozenEmbedding`,
+`QuantizedEmbedReduce`: embeddings, q, scale, qp) through
+`load_serving_arrays`.
 
 bf16 arrays arrive as ml_dtypes.bfloat16 numpy arrays, which
 `torch.from_numpy` rejects; `as_tensor` reads them through a uint16 view.
@@ -133,3 +136,33 @@ def load_kmeans_index(layer: Any, index: Mapping[str, Any]) -> None:
     array given as None is left out."""
     layer.set_index(**{k: as_tensor(v) for k, v in index.items()
                        if v is not None})
+
+
+@torch.no_grad()
+def load_serving_arrays(module: nn.Module, arrays: Mapping[str, Any]) -> None:
+    """Copies the JAX package's serving arrays into the port's modules, bit
+    for bit: for a `QuantizedEmbedReduce` or `EmbedReduce`, {field: array}
+    with the fields its layout holds ("q", "scale", "qp"; "embeddings");
+    for a `FrozenEmbedding`, {feature name: {field: array}} as the JAX
+    FrozenEmbedding's per-feature reducers hold them (features that share
+    a table share the port's module, and their arrays are equal)."""
+    from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
+        FrozenEmbedding,
+    )
+
+    if isinstance(module, FrozenEmbedding):
+        unknown = set(arrays) - set(module._reducers)
+        if unknown:
+            raise ValueError(f"Unknown features: {sorted(unknown)}.")
+        for feature, fields in arrays.items():
+            load_serving_arrays(module._reducers[feature], fields)
+        return
+    held = dict(module.named_parameters(recurse=False))
+    held.update(module.named_buffers(recurse=False))
+    for field, value in arrays.items():
+        if field not in held:
+            raise ValueError(
+                f"{type(module).__name__} holds no tensor {field!r} (it "
+                f"holds {sorted(held)})."
+            )
+        _copy(held[field], value, field)

@@ -14,8 +14,9 @@ On one device the large tables always go to the stacked engine
 (`table_placement="sharded"`; the JAX package's "auto" keeps them as
 dense tables on a one-device mesh and runs no COO path at all), and both
 modes take the worst-case capacities main.py:87-108 gives the device
-mode: the port has neither capacity growth nor the sorted forward, which
-smaller capacities would need (ROADMAP A10). Profiling, checkpoints,
+mode, where the JAX entry point's host mode takes the config's 8192 /
+4096 and grows them as batches overflow: the port has no capacity
+growth (ROADMAP A10), so smaller capacities would drop ids. Profiling, checkpoints,
 pipelined embedding, the multi-device exchange dtype and more than one
 process are not ported: main raises NotImplementedError for each.
 

@@ -6,7 +6,9 @@ engine of lookup.py, "default_device" tables to EmbedReduce), table
 sharing by TableConfig identity, auto table stacking, COO preprocessing
 on the host (`preprocess`, or `preprocess_host` + `to_device` where a
 loader thread does the host part) or on the device
-(`preprocess_on_device`), and table import/export.
+(`preprocess_on_device`), Ragged and sparse inputs, table import/export,
+and the serving forms: `freeze()` (a slot-free `FrozenEmbedding`, f32 or
+int8 in three layouts) and `serving_copy()` (a slot-free stacked twin).
 
 Usage:
     layer = DistributedEmbedding(feature_configs, generator=g, device=dev)
@@ -17,6 +19,12 @@ Usage:
     activations = layer(pre)         # backward updates the stacked
                                      # tables in place (Overwrite contract)
 
+Feature inputs are id arrays shaped as the feature declares, `Ragged`
+batches (data/ragged.py) or sparse id matrices (data/sparse_utils.py),
+densified to padded ids and 0/1 weights as in the JAX package: a Ragged
+batch pads to its longest row, so a batch narrower than a feature's
+valence takes the lookup's sorted forward (lookup.py).
+
 Each stack's state is registered as buffers: `stack{i}_table` (the
 packed [R, stride, dim] f32 state, or the split layout's [R, dim] table
 in its storage dtype, f32 or bf16), `stack{i}_slot_{name}` for each
@@ -26,12 +34,12 @@ lookup takes them. Tables are exported and imported as logical
 [vocab, dim] tensors in the storage dtype.
 
 Not ported yet: multi-device sharding, stats tracking and capacity
-growth (`record_stats` / `update_stats`), freeze / serving_copy, ragged
-and sparse inputs, serialization.
+growth (`record_stats` / `update_stats`), serialization.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -47,7 +55,12 @@ from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
     DeviceStats,
     preprocess_stack_device,
 )
-from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
+from keras_rs_tpu_torch.layers.embedding.embed_reduce import (
+    EmbedReduce,
+    QuantizedEmbedReduce,
+    densify_inputs,
+)
+from keras_rs_tpu_torch.layers.embedding.optimizers import SGD
 from keras_rs_tpu_torch.layers.embedding.lookup import (
     init_stack_state,
     split_activations,
@@ -63,7 +76,9 @@ from keras_rs_tpu_torch.layers.embedding.stacking import (
     gather_table,
     init_stack_table,
     scatter_table,
+    table_rows,
 )
+from keras_rs_tpu_torch.ops import quant
 from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
@@ -71,32 +86,32 @@ PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
 
 def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
     """The D = 1 lookup's arrays of a CooBatch (host numpy arrays, or
-    device tensors from preprocess_stack_device), flattened, on `device`.
+    device tensors from preprocess_stack_device), flattened, on `device`:
+    the construction-order forward's fwd_slots / fwd_gains where the
+    batch has them, else the sorted forward's recv_slots.
 
     Gather indices become int64 once per batch (on the device, so the
     host moves int32); `unique_slots` stays int32 for the row kernel.
     Host arrays go through pinned memory without waiting for the copy.
     """
-    if coo.fwd_slots is None:
-        raise ValueError(
-            "No construction-order arrays: a feature's ids differ from "
-            "its configured (batch, valence), or max_ids_per_partition is "
-            "below the stack's entry count."
-        )
 
     def put(a: np.ndarray | torch.Tensor) -> torch.Tensor:
         if isinstance(a, np.ndarray):
             a = to_device(a, device)
         return a.reshape(-1).to(device)
 
-    return {
-        "fwd_slots": put(coo.fwd_slots).long(),
-        "fwd_gains": put(coo.fwd_gains),
+    out = {
         "recv_segs": put(coo.send_segs).long(),
         "recv_gains": put(coo.send_gains),
         "entry_unique": put(coo.entry_unique).long(),
         "unique_slots": put(coo.unique_slots),
     }
+    if coo.fwd_slots is None:
+        out["recv_slots"] = put(coo.send_slots).long()
+    else:
+        out["fwd_slots"] = put(coo.fwd_slots).long()
+        out["fwd_gains"] = put(coo.fwd_gains)
+    return out
 
 
 class DistributedEmbedding(nn.Module):
@@ -195,26 +210,27 @@ class DistributedEmbedding(nn.Module):
 
     def _bind(self, inputs: Any, weights: Any, host: bool) -> tuple:
         """(ids, weights) by feature name, each shaped as its feature
-        declares (weights None where not given): numpy arrays (`host`) or
-        the device tensors given."""
+        declares, leading axes flattened (weights None where not given):
+        Ragged and sparse inputs densified, then numpy arrays (`host`) or
+        tensors on the layer's device."""
         in_leaves = self._match_features(inputs)
         w_leaves = (
             self._match_features(weights, allow_partial=True)
             if weights is not None
             else {fc.name: None for fc in self._feature_leaves}
         )
+        put = _to_host if host else (lambda a: _to(a, self.device))
         for fc in self._feature_leaves:
+            ids, w = densify_inputs(in_leaves[fc.name], w_leaves[fc.name],
+                                    fc.name)
+            # A densified Ragged batch keeps its own width: narrower than
+            # the valence, it takes the sorted forward.
             target = (
                 (fc.batch_size, -1) if fc.reduced else (fc.batch_size,)
             )
-            ids, w = in_leaves[fc.name], w_leaves[fc.name]
-            in_leaves[fc.name] = (np.asarray(ids) if host else ids).reshape(
-                target
-            )
+            in_leaves[fc.name] = put(ids).reshape(target)
             if w is not None:
-                w_leaves[fc.name] = (
-                    np.asarray(w, np.float32) if host else w
-                ).reshape(target)
+                w_leaves[fc.name] = put(w).reshape(target)
         return in_leaves, w_leaves
 
     def _per_stack(self, in_leaves: dict, w_leaves: dict):
@@ -353,3 +369,194 @@ class DistributedEmbedding(nn.Module):
         for name, layer in self.dense_tables.items():
             if name in tables:
                 layer.embeddings.copy_(as_tensor(tables[name]))
+
+    # ------------------------------------------------------------------
+    def freeze(self, quantize: str | None = None) -> "FrozenEmbedding":
+        """Inference-only snapshot: each table once, without optimizer
+        slots, looked up with plain gathers and combiner reductions (no
+        COO preprocessing), on the layer's device.
+
+        `quantize="int8"` stores each table int8 with per-row scales
+        (ops/quant.py): 4x less memory than f32 at <= absmax/254 per
+        element. "int8_packed" and "int8_fused" keep the same values in
+        the JAX package's packed layouts. An int8 freeze quantizes table
+        by table in row chunks straight from the stacked state, so it
+        needs the int8 tables and one chunk beside the training state.
+        """
+        return FrozenEmbedding(self, quantize=quantize)
+
+    @torch.no_grad()
+    def serving_copy(self) -> "DistributedEmbedding":
+        """A slot-free twin for inference through the normal `preprocess`
+        + forward path: the same stack grouping and row layout, the
+        slot-free SGD optimizer, and each stack's table rows (the packed
+        state's table plane) copied into new storage, so the copy keeps
+        only table bytes and shares no stacked storage with this layer;
+        its step counters are copies too. `default_device` tables share
+        this layer's EmbedReduce modules. Training the copy would train
+        plain SGD from the copied tables.
+        """
+        sgd_tables: dict[str, TableConfig] = {}
+
+        def to_sgd(t: TableConfig) -> TableConfig:
+            if t.name not in sgd_tables:
+                sgd_tables[t.name] = dataclasses.replace(t, optimizer="sgd")
+            return sgd_tables[t.name]
+
+        new = DistributedEmbedding.__new__(DistributedEmbedding)
+        nn.Module.__init__(new)
+        new._keys = list(self._keys)
+        new._feature_leaves = [
+            dataclasses.replace(fc, table=to_sgd(fc.table))
+            for fc in self._feature_leaves
+        ]
+        new.device = self.device
+        # The old grouping, pinned: regrouping by the new optimizer could
+        # merge stacks and change their row layouts.
+        new.stacks = tuple(
+            dataclasses.replace(s, optimizer=SGD(), packed_state=False)
+            for s in self.stacks
+        )
+        for i, stack in enumerate(self.stacks):
+            state = self.stack_state(i)
+            table = state["table"]
+            table = table[:, 0] if stack.packed_state else table
+            new.register_buffer(
+                f"stack{i}_table",
+                table.clone(memory_format=torch.contiguous_format))
+            new.register_buffer(f"stack{i}_step", state["step"].clone())
+        new.dense_tables = nn.ModuleDict(dict(self.dense_tables))
+        new._dense_feature_to_table = dict(self._dense_feature_to_table)
+        return new
+
+
+def _to_host(a: Any) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _to(a: Any, device: torch.device) -> torch.Tensor:
+    """A tensor on `device` (a tensor already there is not copied)."""
+    if isinstance(a, np.ndarray):
+        return to_device(a, device)
+    return torch.as_tensor(a, device=device)
+
+
+QUANTIZE_LAYOUTS = {None: None, "int8": "rows", "int8_packed": "packed",
+                    "int8_fused": "fused"}
+
+
+class FrozenEmbedding(nn.Module):
+    """Slot-free inference view of a `DistributedEmbedding`
+    (`DistributedEmbedding.freeze()`).
+
+    Takes the same raw feature structures as the training layer (id
+    arrays or tensors, Ragged, sparse) and returns the same activations,
+    keyed like its feature configs, computed with one `EmbedReduce` (f32)
+    or `QuantizedEmbedReduce` (int8) per table: features that share a
+    table share its module and its tensors. The batch axis is free: a
+    feature declared (B, L) also takes (b, L') for any b (and any L'),
+    so requests of any batch size are served; other axes are as
+    declared. Every module step is a device op on tensors, with no host
+    read, so the forward can be captured in a CUDA graph
+    (serving.aot_compile) once its inputs are tensors on the device.
+    """
+
+    def __init__(self, layer: DistributedEmbedding,
+                 quantize: str | None = None) -> None:
+        super().__init__()
+        if quantize not in QUANTIZE_LAYOUTS:
+            raise ValueError(
+                f"Unsupported `quantize`: {quantize!r} (use None, "
+                "'int8', 'int8_packed', or 'int8_fused')."
+            )
+        layout = QUANTIZE_LAYOUTS[quantize]
+        self._keys = list(layer._keys)
+        self._feature_leaves = list(layer._feature_leaves)
+        self.device = layer.device
+        tables = {fc.table.name: fc.table for fc in self._feature_leaves}
+        reducers = {}
+        if layout is None:
+            values = layer.get_embedding_tables()
+            for name, t in tables.items():
+                reducers[name] = EmbedReduce(
+                    t.vocabulary_size, t.embedding_dim, table=values[name],
+                    combiner=t.combiner, name=name,
+                )
+        else:
+            rows_of = _table_rows_sources(layer)
+            for name, t in tables.items():
+                # Only dim-128 tables fuse; the others keep "rows", as in
+                # the JAX package.
+                fits = layout != "fused" or t.embedding_dim == 128
+                reducers[name] = _quantized_reducer(
+                    rows_of[name], t, layout if fits else "rows",
+                    self.device)
+        #: One module per table, in `table_names` order (a ModuleList:
+        #: table names need not be valid attribute names), and the same
+        #: modules by feature name.
+        self.table_names = list(reducers)
+        self.table_reducers = nn.ModuleList(reducers.values())
+        self._reducers = {
+            fc.name: reducers[fc.table.name] for fc in self._feature_leaves
+        }
+
+    @property
+    def tables(self) -> dict[str, torch.Tensor]:
+        """Logical [vocab, dim] f32 table per table name (export view;
+        dequantized for int8)."""
+        return {name: er.embeddings
+                for name, er in zip(self.table_names, self.table_reducers)}
+
+    def forward(self, inputs: Any, weights: Any = None) -> dict:
+        in_leaves = DistributedEmbedding._match_features(self, inputs)
+        w_leaves = (
+            DistributedEmbedding._match_features(self, weights,
+                                                 allow_partial=True)
+            if weights is not None
+            else {fc.name: None for fc in self._feature_leaves}
+        )
+        outs = []
+        for fc in self._feature_leaves:
+            ids, w = densify_inputs(in_leaves[fc.name], w_leaves[fc.name],
+                                    fc.name)
+            ids = _to(ids, self.device)
+            b = ids.shape[0]
+            rows = b * (fc.batch_size // fc.input_shape[0])
+            target = (rows, ids.shape[-1]) if fc.reduced else (rows,)
+            act = self._reducers[fc.name](
+                ids.reshape(target),
+                None if w is None else _to(w, self.device).reshape(target),
+            )
+            outs.append(act.reshape(
+                (b,) + tuple(fc.output_shape[1:-1]) + (act.shape[-1],)))
+        return dict(zip(self._keys, outs))
+
+
+def _table_rows_sources(layer: DistributedEmbedding) -> dict:
+    """{table name: rows_of(lo, hi)}, rows [lo, hi) of each table of the
+    layer (stacked or dense) in its storage dtype, read without a copy of
+    the whole table."""
+    out = {}
+    for i, stack in enumerate(layer.stacks):
+        state_table = layer.stack_state(i)["table"]
+        for ts in stack.tables:
+            out[ts.name] = (
+                lambda lo, hi, stack=stack, n=ts.name, t=state_table:
+                table_rows(stack, t, n, lo, hi)
+            )
+    for name, er in layer.dense_tables.items():
+        out[name] = lambda lo, hi, e=er: e.embeddings.detach()[lo:hi]
+    return out
+
+
+@torch.no_grad()
+def _quantized_reducer(rows_of, table: TableConfig, layout: str,
+                       device: torch.device) -> QuantizedEmbedReduce:
+    """One table quantized chunk by chunk into int8 and scales on
+    `device`, wrapped in its layout."""
+    V, dim = table.vocabulary_size, table.embedding_dim
+    q = torch.empty((V, dim), dtype=torch.int8, device=device)
+    scale = torch.empty((V, 1), dtype=torch.float32, device=device)
+    quant.quantize_rows_int8_into(rows_of, V, q, scale)
+    return QuantizedEmbedReduce(q, scale, combiner=table.combiner,
+                                name=table.name, layout=layout)

@@ -5,7 +5,12 @@ both state layouts (init_stack_state).
 
   forward  (construction order, lookup.py:275-302): gather each entry's
     table row (bf16 rows cast to f32), then per feature a dense
-    [B, L, dim] * gain sum over L.
+    [B, L, dim] * gain sum over L. Where the construction-order arrays
+    are absent (a feature's ids narrower or wider than its declared
+    valence, e.g. a densified Ragged batch, or a bucket capacity below
+    the entry count) the sorted forward runs instead (lookup.py:213-249
+    at D = 1): gather the rows of the bucketed entries, scale them by
+    their gains and segment-sum them into the B * F segments.
   backward (lookup.py:330-523): gather the cotangent by each entry's
     segment and scale by its gain, segment-sum into the U unique rows,
     then update the live unique rows (the first n_valid of U, counted on
@@ -88,13 +93,19 @@ def init_stack_state(
     return {"table": packed, "step": step}
 
 
+def _rows(stack: TableStack, table: torch.Tensor,
+          slots: torch.Tensor) -> torch.Tensor:
+    """[N, dim] table rows of `slots`, in the storage dtype."""
+    return table[slots, 0] if stack.packed_state else table[slots]
+
+
 def _forward(stack: TableStack, table: torch.Tensor,
              coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    if "fwd_slots" not in coo:
+        return _forward_sorted(stack, table, coo)
     B = stack.batch_size
     dim = stack.stack_dim
-    slots = coo["fwd_slots"]
-    # [N, dim] table rows, in the storage dtype (cast per feature).
-    rows = table[slots, 0] if stack.packed_state else table[slots]
+    rows = _rows(stack, table, coo["fwd_slots"])
     gains = coo["fwd_gains"]
     parts: list = [None] * stack.num_features
     off = 0
@@ -106,6 +117,19 @@ def _forward(stack: TableStack, table: torch.Tensor,
         ).sum(dim=1)
         off += n
     return torch.stack(parts, dim=1).reshape(B * stack.num_features, dim)
+
+
+def _forward_sorted(stack: TableStack, table: torch.Tensor,
+                    coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The bucketed entries' rows times their (divisor-folded) gains,
+    segment-summed into the B * F sample-major segments. Padding entries
+    read the zero sink row with gain 0."""
+    contrib = (_rows(stack, table, coo["recv_slots"]).float()
+               * coo["recv_gains"][:, None])
+    return torch.zeros(
+        (stack.batch_size * stack.num_features, stack.stack_dim),
+        dtype=torch.float32, device=contrib.device,
+    ).index_add_(0, coo["recv_segs"], contrib)
 
 
 def _backward_update(stack: TableStack, state: dict[str, torch.Tensor],
@@ -219,17 +243,13 @@ def stack_lookup(
     """Differentiable lookup for one stack at D = 1.
 
     `coo` holds the device arrays of `DistributedEmbedding.preprocess`:
-    fwd_slots (int64), fwd_gains, recv_segs (int64), recv_gains,
-    entry_unique (int64) and unique_slots (int32), all flattened.
+    fwd_slots (int64) and fwd_gains for the construction-order forward,
+    or recv_slots (int64) for the sorted one, and recv_segs (int64),
+    recv_gains, entry_unique (int64) and unique_slots (int32), all
+    flattened.
     Returns activations [B * F, dim] (sample-major). When grad mode is on,
     the backward pass applies the stack's optimizer to `state` in place.
     """
-    if not stack.construction_fwd:
-        raise NotImplementedError(
-            f"Stack {stack.name!r}: the port runs the construction-order "
-            "forward only (one shard and max_ids_per_partition >= "
-            f"{stack.construction_entries})."
-        )
     anchor = torch.zeros(
         (), device=state["table"].device,
         requires_grad=torch.is_grad_enabled(),

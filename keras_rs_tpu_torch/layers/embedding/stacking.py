@@ -330,10 +330,12 @@ def init_stack_table(
     return out
 
 
-def gather_table(
-    stack: TableStack, state_table: torch.Tensor, table_name: str
+def table_rows(
+    stack: TableStack, state_table: torch.Tensor, table_name: str,
+    lo: int = 0, hi: int | None = None,
 ) -> torch.Tensor:
-    """Unstacks one table back to [vocab, dim].
+    """Rows [lo, hi) of one table (default: all), a [hi - lo, dim] copy
+    in the storage dtype.
 
     `state_table` is [global_rows, dim] (split) or the packed 3-D
     [global_rows, state_stride, dim] state, whose table rows are the
@@ -341,8 +343,15 @@ def gather_table(
     """
     t = stack.table_spec(table_name)
     arr = state_table[:, 0] if state_table.ndim == 3 else state_table
-    idx = _global_rows_of(stack, t, state_table.device)
+    idx = _global_rows_of(stack, t, state_table.device, lo, hi)
     return arr[idx, : t.embedding_dim]
+
+
+def gather_table(
+    stack: TableStack, state_table: torch.Tensor, table_name: str
+) -> torch.Tensor:
+    """Unstacks one table back to [vocab, dim] (a copy)."""
+    return table_rows(stack, state_table, table_name)
 
 
 def scatter_table(

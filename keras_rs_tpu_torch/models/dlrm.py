@@ -3,7 +3,10 @@
 Bottom MLP over dense features -> concat with large-vocabulary (stacked
 DistributedEmbedding) and small-vocabulary (EmbedReduce) embedding
 activations -> DCNv2 low-rank FeatureCross layers -> top MLP -> logit.
-Features with vocabulary >= embedding_threshold are "large".
+Features with vocabulary >= embedding_threshold are "large". A batch may
+carry their activations precomputed under "large_acts" (keyed "cat_i"),
+which bypasses the embedding layer: a FrozenEmbedding of the large
+features (DistributedEmbedding.freeze) then feeds the dense stack.
 """
 
 from __future__ import annotations
@@ -236,13 +239,16 @@ class DLRMDCNv2(nn.Module):
         return out
 
     def forward(self, batch: dict) -> torch.Tensor:
-        """Returns logits (pre-sigmoid) [B] for a preprocessed batch."""
+        """Returns logits (pre-sigmoid) [B] for a preprocessed batch, or
+        for one whose "large_acts" holds the large features' activations
+        (then the embedding layer is not used)."""
         parts = [self.bottom_mlp(batch["dense"])]
-        acts = (
-            self.embedding_layer(batch["large_pre"])
-            if self.embedding_layer is not None
-            else {}
-        )
+        if "large_acts" in batch:
+            acts = batch["large_acts"]
+        elif self.embedding_layer is not None:
+            acts = self.embedding_layer(batch["large_pre"])
+        else:
+            acts = {}
         for i in range(len(self.config.vocab_sizes)):
             name = f"cat_{i}"
             if i in self.large_idx:

@@ -60,7 +60,10 @@ def test_port_imports_without_jax():
                  "layers.retrieval.kmeans_retrieval", "losses.base",
                  "losses.pairwise_losses", "losses.list_mle_loss",
                  "metrics.ranking_metric", "metrics.ranking_metrics",
-                 "models.two_tower", "models.ranking_model"):
+                 "models.two_tower", "models.ranking_model",
+                 "data.ragged", "data.sparse_utils",
+                 "data.feature_engineering", "serving",
+                 "examples.serving_deployment"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(
