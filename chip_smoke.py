@@ -46,6 +46,17 @@ from --seed:
     service. No kernel: the reference's serving path reaches no Pallas
     kernel.
 
+  * GRU4Rec sequential retrieval (models/gru4rec.py) at the JAX module's
+    default width (dim 128) over MovieLens-1M's 3,706 items, histories
+    of 10, batch 4,096, Adam 0.01, through the full Trainer (prefetch,
+    validation, checkpoints, metrics log, evaluate), resumed from its
+    checkpoint and served by top-10 retrieval; the full-rank
+    FeatureCross and DotInteraction at DLRM widths; a learning-rate
+    schedule on the packed DLRM (B1 reads it from the device); the
+    ml_perf entry point's checkpoint resume and profiling. No new
+    kernel: the reference's GRU (lax.scan over jnp), Trainer,
+    checkpoints, FeatureCross and DotInteraction reach no Pallas kernel.
+
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
                    each, started together; nvcc time and ptxas registers;
@@ -169,6 +180,46 @@ Phases (any failure raises, so the exit code is not 0):
                    BruteForceRetrieval over 100,000 x 128): the imported
                    output equals the eager one on the card; artifact
                    bytes. No kernel launches in phases 23-25.
+ 26. gru4rec       a small GRU4Rec (200 items, dim 32), 3 Adam steps on
+     small         the card and on the CPU from one state (losses and
+                   parameters within 1e-5); a GRU whose mask has holes,
+                   card vs CPU within 1e-6;
+ 27. gru4rec       GRU4Rec(3706, 128) over histories of 10 (a quarter
+                   left-padded), Markov sessions (branching 12, noise
+                   0.2), Adam 0.01, batch 4,096, through Trainer.fit
+                   (prefetch 2, validation 1 - recall@10, checkpoints,
+                   metrics log; 4 epochs of 8 steps, epoch loss falls);
+                   3 more steps in memory against a fresh model restored
+                   from `last` (losses within 1e-6 relative); step ms,
+                   host syncs and idle share of one step; the port's GRU
+                   against torch.nn.GRU (cuDNN) as a yardstick;
+                   held-out recall@10 above 5x popularity's;
+                   Trainer.evaluate (recall@10, NDCG@10 in [0, 1]);
+                   make_retrieval(k=10) over 3,707 rows, batches of
+                   1,024; checkpoint bytes, save and restore s. No
+                   kernel launches in phases 26-27.
+ 28. layers        full-rank and low-rank (512) FeatureCross at width
+                   3,456 (diag_scale 0.5, relu, L2 on the kernels and
+                   bias) and DotInteraction over 27 x 128 (four flag
+                   combinations), forward and backward card vs CPU
+                   within 1e-5 of the largest value, times at 16,384
+                   rows; a learning-rate schedule on the packed DLRM
+                   slice, 3 steps in sync-debug "error" (B1 once per
+                   step and stack, each call held to its plain version
+                   on the same blocks and gradients at phase 2's bound,
+                   with the rate the schedule gives at the step); the
+                   port's dcn (3 runs per
+                   architecture) and sequential_retrieval examples;
+ 29. checkpoint    the ml_perf entry point: main("smoke_test", 6 steps,
+                   checkpoint_every 2), then to 8 steps (the rerun logs
+                   "resumed from checkpoint step 6"; its loss within
+                   1e-3 of one process over the same 8 batches, its
+                   step counters 8), then 24 steps with
+                   do_profile (a non-empty trace); one row kernel per
+                   step and stack. Then phase 28's packed 4M-cap state
+                   through save_checkpoint / restore_checkpoint where the
+                   disk holds it (bytes, s, the device memory restore
+                   adds, the state back bit for bit).
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
@@ -189,6 +240,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import logging
 import math
@@ -1548,19 +1600,38 @@ MODE_LOSS_BOUND = 1e-3
 AUC_GATE = 0.60
 
 
-def sync_count(fn) -> tuple[object, int]:
-    """fn()'s result and the number of host syncs it made, read in
-    set_sync_debug_mode("warn")."""
+def sync_sites(fn) -> list[str]:
+    """The host syncs of fn() (set_sync_debug_mode("warn")), each as the
+    innermost frame of this repository on its Python stack."""
+    import traceback
+
     import torch
 
-    with warnings.catch_warnings(record=True) as caught:
+    sites, active = [], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not active or "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename.startswith(str(ROOT))]
+        where = frames[-1] if frames else None
+        sites.append(f"{Path(where.filename).relative_to(ROOT)}:"
+                     f"{where.lineno} ({where.line})" if where
+                     else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
+        # Only fn's syncs: the first switch to "warn" in a process can
+        # itself warn.
         torch.cuda.set_sync_debug_mode("warn")
+        active.append(True)
         try:
-            out = fn()
+            fn()
         finally:
+            active.clear()
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return sites
 
 
 def phase_coo(seed: int) -> None:
@@ -1747,7 +1818,10 @@ def run_mlperf(seed: int, profile: bool) -> None:
                 copy_s.append(time.perf_counter() - t)
                 return step(on_card)
 
-            first, syncs = sync_count(lambda: whole_step(batches[0]))
+            out = []
+            syncs = len(sync_sites(
+                lambda: out.append(whole_step(batches[0]))))
+            first = out[0]
             log(f"[mlperf syncs] one device-mode step (the copy of the "
                 f"raw batch, the transform, forward, backward, both "
                 f"optimizers): {syncs} host syncs")
@@ -2958,6 +3032,716 @@ def phase_export(seed: int) -> None:
         f"{eager_ms} ms, imported {imported_ms} ms")
 
 
+# --- Phases 26-29: GRU4Rec on the full Trainer, layers, checkpoints ----------
+
+# GRU4Rec at the JAX module's default width (models/gru4rec.py:26) over
+# MovieLens-1M's 3,706 items (the SASRec slice's), histories of 10 items
+# (the reference example's context), Markov sessions as
+# examples/sequential_retrieval.py draws them; batch 4,096, the in-batch
+# softmax width of the two-tower slice; Adam 0.01.
+GRU_ITEMS = 3706
+GRU_DIM = 128
+GRU_T = 10
+GRU_BATCH = 4096
+GRU_LR = 0.01
+GRU_EPOCHS = 4
+GRU_STEPS_PER_EPOCH = 8
+GRU_RESUME_STEPS = 3
+GRU_SERVE_BATCH = 1024
+GRU_HELD_BATCHES = 3  # held-out batches of GRU_SERVE_BATCH histories
+GRU_PAD_SHARE = 0.25  # share of histories cut short and left-padded
+#: The trained model's held-out recall@10 must exceed the popularity
+#: baseline's by this factor: a data split or query tower that leaves
+#: the model at popularity level fails phase 27.
+GRU_RECALL_OVER_POPULARITY = 5.0
+GRU_RESUME_TOL = 1e-6  # relative: the card's embedding backward sums
+#                        duplicated ids in an order of its own
+# Phase 28: DLRM-DCNv2's cross width (bottom MLP 128 + 26 x 128) and the
+# original DLRM interaction over 27 features of 128 at the MLPerf batch.
+CROSS_DIM = 128 + 26 * 128
+CROSS_PROJECTION = 512
+DOT_FEATURES = 27
+DOT_DIM = 128
+LAYER_CPU_ROWS = 1024  # rows of the card-vs-CPU comparison
+LAYER_TOL = 1e-5  # relative to each array's largest magnitude
+SCHEDULE_STEPS = 3
+DCN_RUNS = 3
+SMOKE_DIR = ROOT / "build" / "chip_smoke"
+#: Phase 29's ml_perf runs: to step 6 with checkpoints, then resumed to 8.
+RESUME_AT = 6
+RESUME_TO = 8
+GRU4REC_PROFILE_PARTS = [
+    ("forward", "forward", "total"),
+    ("backward", "backward", "total"),
+    ("dense Adam", "optimizer", "total"),
+    ("matmuls", "aten::mm", "self"),
+    ("embedding backward", "EmbeddingBackward0", "total"),
+]
+
+
+@contextlib.contextmanager
+def b1_held_to_plain():
+    """While open, every B1 call of the embedding backward also runs the
+    plain version (apply_scatter_row_blocks_reference, uncounted, with the
+    same optimizer, schedule included) on a copy of the blocks it
+    updates, and compares the live blocks after the kernel with it at
+    phase 2's bound. Yields a list with one dict of 0-dim device tensors
+    per call (step, lr, err, bad), read once the steps are done: the
+    check makes no host read inside the step."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding import lookup
+    from keras_rs_tpu_torch.ops import row_ops
+
+    launch = lookup.apply_scatter_row_blocks
+    calls: list[dict] = []
+
+    def held(packed, idx, grads, scalars, optimizer, n_valid):
+        n = idx.shape[0]
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)  # the check's own work
+        rows = packed[idx.long()]  # [N, k, dim] before the update
+        want = row_ops.apply_scatter_row_blocks_reference(
+            rows, torch.arange(n, dtype=torch.int32, device=idx.device),
+            grads, scalars, optimizer, n_valid)
+        torch.cuda.set_sync_debug_mode(mode)
+        out = launch(packed, idx, grads, scalars, optimizer, n_valid)
+        torch.cuda.set_sync_debug_mode(0)
+        live = (torch.arange(n, device=idx.device)
+                < n_valid.reshape(()))[:, None, None]
+        diff = (packed[idx.long()] - want).abs()
+        calls.append({
+            "step": scalars[0].clone(),
+            "lr": optimizer.lr(scalars[0]),
+            "err": torch.where(live, diff, 0.0).amax(),
+            # Phase 2's bound: 4 f32 ulp relative, 1e-12 absolute.
+            "bad": (live & (diff > 1e-12 + 4 * 2.0**-23 * want.abs())).any(),
+        })
+        del rows, want, diff
+        torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    lookup.apply_scatter_row_blocks = held
+    try:
+        yield calls
+    finally:
+        lookup.apply_scatter_row_blocks = launch
+
+
+def lr_schedule(step):
+    """The embedding rate of phase 28: the slice's 0.0034, halved every
+    two steps, computed from the stack's step counter on the device."""
+    return 0.0034 * 0.5 ** (step / 2.0)
+
+
+def gru_sessions(seed: int, n: int, num_items: int | None = None) -> dict:
+    """n Markov sessions of GRU_T + 1 items (branching 12, noise 0.2) over
+    `num_items` (default GRU_ITEMS): the first GRU_T are the history, the
+    last the target; GRU_PAD_SHARE of
+    the histories keep only their last 1 to GRU_T - 1 items behind id 0."""
+    from keras_rs_tpu_torch.data import synthetic
+
+    seq = synthetic.markov_sessions(num_items=num_items or GRU_ITEMS,
+                                    num_sessions=n,
+                                    length=GRU_T + 1, branching=12,
+                                    noise=0.2, seed=seed)
+    hist = seq[:, :GRU_T].copy()
+    rng = np.random.default_rng(seed + 1)
+    short = rng.random(n) < GRU_PAD_SHARE
+    keep = rng.integers(1, GRU_T, size=n)
+    hist[short[:, None] & (np.arange(GRU_T)[None, :]
+                           < (GRU_T - keep)[:, None])] = 0
+    return {"item_history": hist, "target_item": seq[:, GRU_T].copy(),
+            "sessions": seq}
+
+
+def split_sessions(data: dict, n: int) -> tuple[dict, dict]:
+    """(the first n sessions, the rest)."""
+    return ({k: v[:n] for k, v in data.items()},
+            {k: v[n:] for k, v in data.items()})
+
+
+def gru_batches(data: dict, batch: int) -> list[dict]:
+    n = len(data["target_item"])
+    return [{"item_history": data["item_history"][i:i + batch],
+             "target_item": data["target_item"][i:i + batch]}
+            for i in range(0, n - batch + 1, batch)]
+
+
+def close_to(label: str, got, want, tol: float) -> float:
+    """max |got - want| / max |want|, failing the run above `tol`."""
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    if not err <= tol:
+        fail(f"{label}: card and CPU differ by {err!r} of the largest "
+             f"value (bound {tol})")
+    return err
+
+
+def phase_gru4rec_small(dev, seed: int) -> None:
+    """Phase 26: a small GRU4Rec (200 items, dim 32), 3 Adam steps on the
+    card and on the CPU from one state (losses and parameters within
+    1e-5); a GRU over inputs whose mask has holes, card against CPU
+    within 1e-6."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.recurrent import GRU
+    from keras_rs_tpu_torch.models.gru4rec import GRU4Rec, gru4rec_loss
+    from keras_rs_tpu_torch.training.train_state import DenseAdam
+    from keras_rs_tpu_torch.training.trainer import Trainer
+
+    models = {d: GRU4Rec(200, embedding_dim=32, device=d,
+                         generator=torch.Generator(d).manual_seed(seed))
+              for d in ("cpu", dev)}
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    batches = gru_batches(gru_sessions(seed, 3 * 64, num_items=200), 64)
+    losses = {}
+    for d, m in models.items():
+        trainer = Trainer(m, DenseAdam(m.parameters(), GRU_LR), gru4rec_loss)
+        losses[d] = [float(trainer.step(b)) for b in batches]
+    cpu_params = dict(models["cpu"].named_parameters())
+    worst = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                for n, p in models[dev].named_parameters())
+    log(f"[gru4rec small] losses card {losses[dev]} cpu {losses['cpu']}; "
+        f"parameters within {worst!r} after 3 steps")
+    if relative_gap(losses[dev], losses["cpu"]) > 1e-5 or worst > 1e-5:
+        fail("gru4rec small: card and CPU disagree")
+    grus = {d: GRU(16, 24, device=d,
+                   generator=torch.Generator(d).manual_seed(seed))
+            for d in ("cpu", dev)}
+    grus[dev].load_state_dict(grus["cpu"].state_dict())
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(64, 12, 16, generator=g)
+    mask = (torch.rand(64, 12, generator=g) > 0.4).float()
+    with torch.no_grad():
+        h_cpu = grus["cpu"](x, mask)
+        h_dev = grus[dev](x.to(dev), mask.to(dev)).cpu()
+    err = float((h_cpu - h_dev).abs().max())
+    log(f"[gru4rec small] GRU with holes in {int((mask == 0).sum())} of "
+        f"{mask.numel()} steps: card vs CPU max |diff| {err!r}")
+    if not err <= 1e-6:
+        fail("gru4rec small: the holed-mask GRU differs card vs CPU")
+
+
+def phase_gru4rec(dev, seed: int, profile: bool) -> None:
+    """Phase 27: GRU4Rec(3706, 128) trained through Trainer.fit (prefetch
+    2, validation 1 - recall@10 on held-out sessions, checkpoints,
+    metrics log), then resumed from `last` into a fresh model against
+    the run that goes on in memory, evaluated (Trainer.evaluate, recall@10
+    and NDCG@10 over every candidate) and served (make_retrieval(k=10)
+    over the 3,707-row table, batches of 1,024)."""
+    import json
+    import os
+    import shutil
+
+    import torch
+
+    from keras_rs_tpu_torch.layers.recurrent import GRU
+    from keras_rs_tpu_torch.metrics.ranking_metrics import NDCG, RecallAtK
+    from keras_rs_tpu_torch.models.gru4rec import GRU4Rec, gru4rec_loss
+    from keras_rs_tpu_torch.training import checkpoint
+    from keras_rs_tpu_torch.training.train_state import DenseAdam
+    from keras_rs_tpu_torch.training.trainer import Trainer, batch_to_device
+
+    work = SMOKE_DIR / "gru4rec"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    n_train = GRU_BATCH * GRU_STEPS_PER_EPOCH
+    n_held = GRU_SERVE_BATCH * GRU_HELD_BATCHES
+    n_resume = GRU_BATCH * GRU_RESUME_STEPS
+    t = time.perf_counter()
+    # One draw: the seed also fixes the Markov graph, which the held-out
+    # and resume sessions must share with the training ones.
+    every = gru_sessions(seed, n_train + n_resume + n_held)
+    train, rest = split_sessions(every, n_train)
+    resume, held = split_sessions(rest, n_resume)
+    resume = gru_batches(resume, GRU_BATCH)
+    log(f"[gru4rec data] {n_train + n_resume + n_held} "
+        f"sessions in {time.perf_counter() - t:.2f} s; "
+        f"{int((train['item_history'] == 0).any(1).sum())} of {n_train} "
+        "training histories left-padded")
+
+    model = GRU4Rec(GRU_ITEMS, GRU_DIM, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    trainer = Trainer(model, DenseAdam(model.parameters(), GRU_LR),
+                      gru4rec_loss)
+    held_hist = torch.from_numpy(held["item_history"]).to(dev)
+    held_target = torch.from_numpy(held["target_item"]).to(dev)
+
+    def recall_at_10(m) -> torch.Tensor:
+        with torch.no_grad():
+            top = m.make_retrieval(k=10)(m.query_tower(held_hist))
+        return (top == held_target[:, None]).any(1).float().mean()
+
+    def validation(m) -> float:
+        return float(1.0 - recall_at_10(m))
+
+    def epochs():
+        order = np.random.default_rng(seed).permutation(n_train)
+        for i in range(0, n_train, GRU_BATCH):
+            j = order[i:i + GRU_BATCH]
+            yield {"item_history": train["item_history"][j],
+                   "target_item": train["target_item"][j]}
+
+    t = time.perf_counter()
+    hist = trainer.fit(epochs, epochs=GRU_EPOCHS, log_every=0, prefetch=2,
+                       validation_fn=validation,
+                       checkpoint_dir=str(work / "ck"),
+                       metrics_log=str(work / "metrics.jsonl"))
+    fit_s = time.perf_counter() - t
+    records = [json.loads(x) for x in
+               (work / "metrics.jsonl").read_text().splitlines()]
+    log(f"[gru4rec train] fit: {GRU_EPOCHS} epochs of {GRU_STEPS_PER_EPOCH} "
+        f"steps in {fit_s:.2f} s; epoch losses {hist['loss']}; 1 - "
+        f"recall@10 {hist['val']}; metrics log {records}")
+    check_falls("gru4rec train", hist["loss"])
+    if len(records) != GRU_EPOCHS or sorted(os.listdir(work / "ck")) != [
+            "best", "last"]:
+        fail("gru4rec train: the metrics log or the checkpoints are missing")
+
+    # Resume: the in-memory run goes on; a fresh model restored from
+    # `last` takes the same batches.
+    losses, ms = timed_steps(trainer, resume)
+    fresh = GRU4Rec(GRU_ITEMS, GRU_DIM, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed + 1))
+    resumed = Trainer(fresh, DenseAdam(fresh.parameters(), GRU_LR),
+                      gru4rec_loss)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.restore_checkpoint(str(work / "ck" / "last"), resumed.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    r_losses, _ = timed_steps(resumed, resume)
+    gap = relative_gap(r_losses, losses)
+    t = time.perf_counter()
+    checkpoint.save_checkpoint(str(work / "save_timed"), trainer.state)
+    save_s = time.perf_counter() - t
+    ck_bytes = os.path.getsize(work / "ck" / "last")
+    log(f"[gru4rec resume] in memory {losses}; restored from last "
+        f"{r_losses}; relative gap {gap!r} (bound {GRU_RESUME_TOL}); "
+        f"checkpoint {ck_bytes} bytes, save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s")
+    if not gap <= GRU_RESUME_TOL or resumed.optimizer.count != (
+            trainer.optimizer.count):
+        fail("gru4rec resume: the restored run does not continue the "
+             "in-memory one")
+    del resumed, fresh
+    log(f"[gru4rec train] step ms (CUDA events, batch {GRU_BATCH}) {ms}; "
+        f"median {statistics.median(ms)!r} ms "
+        f"({GRU_BATCH / statistics.median(ms) * 1e3:.0f} sequences/s)")
+
+    batch = batch_to_device(resume[0], dev)
+    sites = sync_sites(lambda: trainer.step(batch))
+    n_syncs = len(sites)
+    _, wall_ms, kernel_ms = profile_steps(trainer.step, batch)
+    log(f"[gru4rec train] one step: {n_syncs} host syncs (at {sites}); "
+        f"{kernel_ms!r} ms of kernels in {wall_ms!r} ms of wall time: "
+        f"device idle {1 - kernel_ms / wall_ms:.1%}")
+    if profile:
+        phase_profile("gru4rec train step", labelled_step(
+            model, gru4rec_loss, trainer.optimizer), batch,
+            GRU4REC_PROFILE_PARTS)
+
+    # Yardstick: the port's GRU against cuDNN's torch.nn.GRU (gate order
+    # (r, z, n), no mask), forward + backward on the same [4096, 10, 128].
+    x = model.query_embedding(batch["item_history"]).detach().requires_grad_()
+    cudnn = torch.nn.GRU(GRU_DIM, GRU_DIM, batch_first=True, device=dev)
+    ours = GRU(GRU_DIM, GRU_DIM, device=dev)
+
+    def port_gru():
+        ours(x).sum().backward()
+
+    def cudnn_gru():
+        cudnn(x)[1].sum().backward()
+
+    for fn in (port_gru, cudnn_gru):
+        fn()
+    log(f"[gru4rec yardstick] GRU forward + backward at [{GRU_BATCH}, "
+        f"{GRU_T}, {GRU_DIM}]: port {cuda_time_ms(port_gru, 10)!r} ms, "
+        f"torch.nn.GRU (cuDNN) {cuda_time_ms(cudnn_gru, 10)!r} ms")
+
+    # Recall@10 on held-out sessions against popularity.
+    dst = train["sessions"][:, 1:].reshape(-1)
+    pop = np.argsort(np.bincount(dst, minlength=GRU_ITEMS + 1))[-10:]
+    pop_recall = float(np.isin(held["target_item"], pop).mean())
+    recall = float(recall_at_10(model))
+    log(f"[gru4rec quality] held-out recall@10 {recall!r} against the "
+        f"popularity baseline {pop_recall!r}")
+    if not recall > GRU_RECALL_OVER_POPULARITY * pop_recall:
+        fail(f"gru4rec quality: held-out recall@10 {recall} is not "
+             f"{GRU_RECALL_OVER_POPULARITY}x the popularity baseline "
+             f"{pop_recall}")
+
+    def eval_fn(m, b):
+        q = m.query_tower(b["item_history"])
+        scores = q @ m.candidate_embedding.embeddings.T
+        labels = torch.nn.functional.one_hot(b["target_item"].long(),
+                                             GRU_ITEMS + 1).float()
+        return labels, scores
+
+    held_batches = gru_batches(held, GRU_SERVE_BATCH)
+    t = time.perf_counter()
+    res = trainer.evaluate(held_batches, {
+        "recall@10": RecallAtK(10, shuffle_ties=False, device=dev),
+        "ndcg@10": NDCG(10, shuffle_ties=False, device=dev)}, eval_fn)
+    eval_s = time.perf_counter() - t
+    log(f"[gru4rec evaluate] {len(held_batches)} batches of "
+        f"{GRU_SERVE_BATCH}: {res} in {eval_s:.3f} s")
+    if not (0.0 <= res["recall@10"] <= 1.0 and 0.0 <= res["ndcg@10"] <= 1.0
+            and math.isfinite(res["loss"])):
+        fail(f"gru4rec evaluate: metrics {res}")
+    if abs(res["recall@10"] - recall) > 1e-5:
+        fail(f"gru4rec evaluate: recall@10 {res['recall@10']} against "
+             f"{recall} from make_retrieval")
+
+    retrieval = model.make_retrieval(k=10)
+    serve_ms = []
+    with torch.no_grad():
+        for b in held_batches:
+            h = torch.from_numpy(b["item_history"]).to(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            top = retrieval(model.query_tower(h))
+            ev[1].record()
+            torch.cuda.synchronize()
+            serve_ms.append(ev[0].elapsed_time(ev[1]))
+            if tuple(top.shape) != (GRU_SERVE_BATCH, 10) or not bool(
+                    ((top >= 0) & (top <= GRU_ITEMS)).all()):
+                fail("gru4rec serve: top-10 ids out of range")
+    log(f"[gru4rec serve] make_retrieval(k=10) over {GRU_ITEMS + 1} rows: "
+        f"ms per batch of {GRU_SERVE_BATCH} {serve_ms}")
+    del trainer, model
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_layers(dev, seed: int) -> object:
+    """Phase 28: the full-rank and low-rank FeatureCross at the DLRM-DCNv2
+    cross width (diag_scale, relu pre-activation, L2 regularizers) and
+    DotInteraction over 27 x 128 at batch 16,384 in its four flag
+    combinations, forward and backward card against CPU; a learning-rate
+    schedule on the packed DLRM slice, 3 steps with B1 once per step and
+    stack and no host sync (sync-debug "error"); the port's dcn and
+    sequential_retrieval examples on the card. Returns the schedule's
+    DLRM for phase 29."""
+    import torch
+
+    from keras_rs_tpu_torch.core import regularizers as reg_lib
+    from keras_rs_tpu_torch.examples import dcn, sequential_retrieval
+    from keras_rs_tpu_torch.layers.feature_interaction.dot_interaction import (
+        DotInteraction,
+    )
+    from keras_rs_tpu_torch.layers.feature_interaction.feature_cross import (
+        FeatureCross,
+    )
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    reset_launch_counts()
+    for label, kw in (("full rank", {}),
+                      ("low rank", {"projection_dim": CROSS_PROJECTION})):
+        layers = {d: FeatureCross(
+            CROSS_DIM, diag_scale=0.5, pre_activation=torch.relu,
+            kernel_regularizer=reg_lib.L2(1e-4),
+            bias_regularizer=reg_lib.L2(1e-4), device=d,
+            generator=torch.Generator(d).manual_seed(seed), **kw)
+            for d in ("cpu", dev)}
+        layers[dev].load_state_dict(layers["cpu"].state_dict())
+        x0 = torch.randn(LAYER_CPU_ROWS, CROSS_DIM, generator=g)
+        x = torch.randn(LAYER_CPU_ROWS, CROSS_DIM, generator=g)
+        outs, grads = {}, {}
+        for d, layer in layers.items():
+            a = x0.to(d, copy=True).requires_grad_()
+            out = layer(a, x.to(d))
+            loss = (out * out).mean() + reg_lib.regularization_loss(layer)
+            loss.backward()
+            outs[d] = out
+            grads[d] = [a.grad] + [p.grad for p in layer.parameters()]
+        errs = [close_to(f"FeatureCross {label}", outs[dev], outs["cpu"],
+                         LAYER_TOL)]
+        errs += [close_to(f"FeatureCross {label} gradient", gd, gc,
+                          LAYER_TOL)
+                 for gd, gc in zip(grads[dev], grads["cpu"])]
+        big = torch.randn(BATCH, CROSS_DIM, device=dev, requires_grad=True)
+        layer = layers[dev]
+
+        def cross_step():
+            layer(big).sum().backward()
+
+        cross_step()
+        log(f"[layers] FeatureCross {label} {CROSS_DIM} (diag 0.5, relu, L2 "
+            f"on {sorted(layer._regularizers)}): card vs CPU at "
+            f"{LAYER_CPU_ROWS} rows within {max(errs)!r} of the largest "
+            f"value; forward + backward at {BATCH} rows "
+            f"{cuda_time_ms(cross_step, 10)!r} ms")
+        del layers, big, outs, grads
+    for self_interaction in (False, True):
+        for skip_gather in (False, True):
+            layer = DotInteraction(self_interaction, skip_gather)
+            feats = [torch.randn(BATCH, DOT_DIM, generator=g)
+                     for _ in range(DOT_FEATURES)]
+            res = {}
+            for d in ("cpu", dev):
+                f = [t.to(d, copy=True).requires_grad_() for t in feats]
+                out = layer(f)
+                (out * out).sum().backward()
+                res[d] = [out] + [t.grad for t in f]
+            errs = [close_to("DotInteraction", a, b, LAYER_TOL)
+                    for a, b in zip(res[dev], res["cpu"])]
+            f = [t.to(dev, copy=True).requires_grad_() for t in feats]
+
+            def dot_step():
+                layer(f).sum().backward()
+
+            dot_step()
+            log(f"[layers] DotInteraction self_interaction="
+                f"{self_interaction} skip_gather={skip_gather}: "
+                f"[{BATCH}, {layer.output_dim(DOT_FEATURES)}], card vs CPU "
+                f"within {max(errs)!r}; forward + backward "
+                f"{cuda_time_ms(dot_step, 10)!r} ms")
+            del res, f
+    if any(launch_counts().values()):
+        fail(f"layers launched kernels: {launch_counts()}")
+
+    cfg = slice_config(learning_rate=lr_schedule)
+    model = build_dlrm("schedule", cfg, seed)
+    n_stacks = len(model.embedding_layer.stacks)
+    step = make_train_step(model, bce_loss,
+                           DenseAdagrad(model.parameters(), 0.0034))
+    pres = [model.preprocess(dlrm_batch(cfg, seed + s))
+            for s in range(SCHEDULE_STEPS)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with b1_held_to_plain() as calls:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = [step(pre) for pre in pres]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    losses = [float(x) for x in losses]
+    counts = launch_counts()
+    want = {k: SCHEDULE_STEPS * n_stacks if k == "apply_scatter_row_blocks"
+            else 0 for k in counts}
+    steps = [float(model.embedding_layer.stack_state(i)["step"])
+             for i in range(n_stacks)]
+    seen = [float(c["step"]) for c in calls]
+    rates = [float(c["lr"]) for c in calls]
+    errs = [float(c["err"]) for c in calls]
+    log(f"[layers] schedule 0.0034 * 0.5^(step / 2) on the packed DLRM: "
+        f"losses {losses}; launches {counts}; step counters {steps}; no "
+        f"host sync (sync-debug 'error'); B1 at steps {seen}, rates "
+        f"{rates}, max |kernel - plain| over the live blocks {errs}")
+    if counts != want or not all(map(math.isfinite, losses)):
+        fail(f"schedule: launches {counts}, expected {want}; losses "
+             f"{losses}")
+    expect = [float(s) for s in range(SCHEDULE_STEPS) for _ in
+              range(n_stacks)]
+    if seen != expect or any(bool(c["bad"]) for c in calls):
+        fail(f"schedule: B1 at steps {seen} (expected {expect}) against "
+             f"its plain version: max |diff| {errs}")
+    for s_, r in zip(seen, rates):
+        # The rate in f32: three roundings from the f64 value at most.
+        if abs(r - lr_schedule(s_)) > 4 * 2.0**-23 * lr_schedule(s_):
+            fail(f"schedule: rate {r} at step {s_}, expected "
+                 f"{lr_schedule(s_)}")
+
+    # The examples' per-epoch log lines stay out of the output.
+    trainer_log = logging.getLogger("keras_rs_tpu_torch")
+    level = trainer_log.level
+    trainer_log.setLevel(logging.WARNING)
+    t = time.perf_counter()
+    res = dcn.main(DCN_RUNS, dev)
+    log(f"[layers] examples/dcn.py on the card ({DCN_RUNS} runs per "
+        f"architecture) in {time.perf_counter() - t:.1f} s: {res}")
+    if not all(math.isfinite(res[k][0]) for k in
+               ("cross_full", "cross_lowrank", "deep_only")):
+        fail(f"dcn example: {res}")
+    t = time.perf_counter()
+    res = sequential_retrieval.main(dev)
+    trainer_log.setLevel(level)
+    log(f"[layers] examples/sequential_retrieval.py on the card in "
+        f"{time.perf_counter() - t:.1f} s: {res}")
+    if not res["recall"] > res["popularity"]:
+        fail(f"sequential_retrieval example: {res}")
+    return model, step
+
+
+def phase_checkpoint(dev, model, step, seed: int) -> None:
+    """Phase 29: the ml_perf entry point run to step 6 and then to step 8
+    with one checkpoint_dir (the second logs "resumed from checkpoint
+    step 6" and trains 2 more steps, held to one process that trains the
+    same 8 batches), then with --profile (a non-empty trace of steps
+    10-20); then the
+    packed 4M-cap state of phase 28's model through save_checkpoint /
+    restore_checkpoint, where the disk holds it: bytes, seconds, the
+    restore's added device memory, and the state back bit for bit after
+    one more step changed it."""
+    import os
+    import shutil
+
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.training import checkpoint
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    work = SMOKE_DIR / "checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    messages: list[str] = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Collect()
+    logging.getLogger("ml_perf").addHandler(handler)
+    smoke = configs.smoke_test()
+    n_stacks = len(mlperf.build_model(smoke, dev).embedding_layer.stacks)
+    reset_launch_counts()
+    logs, runs = [], []
+    try:
+        for num_steps in (RESUME_AT, RESUME_TO):
+            del messages[:]
+            runs.append(mlperf.main(
+                "smoke_test", device=dev, num_steps=num_steps,
+                checkpoint_dir=str(work / "ck"), checkpoint_every=2,
+                num_loader_threads=1))
+            logs.append(list(messages))
+        prof = mlperf.main("smoke_test", device=dev, num_steps=24,
+                           do_profile=True, profile_dir=str(work / "prof"))
+    finally:
+        logging.getLogger("ml_perf").removeHandler(handler)
+    if any("resumed" in m for m in logs[0]) or not any(
+            f"resumed from checkpoint step {RESUME_AT}" in m
+            for m in logs[1]):
+        fail(f"ml_perf checkpoint: the rerun did not resume from step "
+             f"{RESUME_AT}")
+    # The rerun restored step 6 and, drawing the dummy batches from the
+    # start again as the JAX entry point does, trained on batches 0 and
+    # 1. Its reference is one process that trains batches 0-5 and then
+    # 0-1 again (the CPU test test_resumed_run_continues_the_losses).
+    batches = list(CriteoDataset(
+        None, global_batch_size=smoke.global_batch_size,
+        vocab_sizes=smoke.vocab_sizes,
+        multi_hot_sizes=smoke.multi_hot_sizes).dummy_batches(RESUME_AT))
+    ref = mlperf.build_model(smoke, dev)
+    ref_step = make_train_step(ref, mlperf.make_loss_fn(False),
+                               DenseAdagrad(ref.parameters(),
+                                            smoke.learning_rate))
+    ref_losses = [float(ref_step(ref.preprocess(b)))
+                  for b in batches + batches[:RESUME_TO - RESUME_AT]]
+    back = mlperf.build_model(smoke, dev)
+    checkpoint.CheckpointManager(str(work / "ck")).restore(RESUME_TO, {
+        "model": back,
+        "optimizer": DenseAdagrad(back.parameters(), smoke.learning_rate)})
+    counters = [float(back.embedding_layer.stack_state(i)["step"])
+                for i in range(n_stacks)]
+    ref_state = ref.state_dict()
+    gaps = {name: float((t.float() - ref_state[name].float()).abs().max())
+            for name, t in back.state_dict().items() if t.numel()}
+    worst = max(gaps, key=gaps.get)
+    del ref, ref_step, back, ref_state
+    traces = os.listdir(work / "prof")
+    sizes = [os.path.getsize(work / "prof" / t) for t in traces]
+    counts = launch_counts()
+    row = sum(counts[k] for k in ROW_KERNELS)
+    # main's runs (8 steps to the resumed end, then 24) and the
+    # reference's 8.
+    want_row = (RESUME_TO + 24 + RESUME_TO) * n_stacks
+    log(f"[checkpoint] ml_perf smoke_test: {RESUME_AT} steps with "
+        f"checkpoints, then a rerun to {RESUME_TO} that logged 'resumed "
+        f"from checkpoint step {RESUME_AT}' and left "
+        f"{sorted(os.listdir(work / 'ck'))}; its loss "
+        f"{runs[1]['loss']!r} against {ref_losses[-1]!r} of one process "
+        f"over the same batches (bound {MODE_LOSS_BOUND} absolute); its "
+        f"step-{RESUME_TO} state's step counters {counters}, largest gap "
+        f"to that process's state {gaps[worst]!r} ({worst}); --profile "
+        f"over 24 steps wrote {traces} of {sizes} bytes (loss "
+        f"{prof['loss']!r}); launches {counts}")
+    if (not math.isfinite(runs[1]["loss"])
+            or abs(runs[1]["loss"] - ref_losses[-1]) > MODE_LOSS_BOUND
+            or counters != [float(RESUME_TO)] * n_stacks):
+        fail("ml_perf checkpoint: the resumed run does not continue the "
+             "training of one process")
+    if len(traces) != 1 or not sizes[0] > 0:
+        fail("ml_perf profile: no trace")
+    if row != want_row or any(counts[k] for k in FLASH_KERNELS):
+        fail(f"ml_perf checkpoint phase: launches {counts}, expected one "
+             f"row kernel per step and stack ({want_row})")
+
+    emb = model.embedding_layer
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in model.state_dict().values())
+    free = shutil.disk_usage(work).free
+    if free < 1.2 * state_bytes:
+        log(f"[checkpoint] packed 4M-cap state of {state_bytes / 1e9:.2f} "
+            f"GB left out: the disk holds {free / 1e9:.2f} GB free")
+        shutil.rmtree(work, ignore_errors=True)
+        return
+    sums = [state_checksum(emb.stack_state(i))
+            for i in range(len(emb.stacks))]
+    path = str(work / "packed")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save_checkpoint(path, model)
+    save_s = time.perf_counter() - t
+    nbytes = os.path.getsize(path)
+    step(model.preprocess(dlrm_batch(slice_config(), seed + 50)))
+    if [state_checksum(emb.stack_state(i))
+            for i in range(len(emb.stacks))] == sums:
+        fail("packed checkpoint: the extra step left the state as it was")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    checkpoint.restore_checkpoint(path, model)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    added_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    back = [state_checksum(emb.stack_state(i))
+            for i in range(len(emb.stacks))]
+    log(f"[checkpoint] packed 4M-cap state: {nbytes} bytes on disk "
+        f"({state_bytes / 1e9:.2f} GB of tensors), save {save_s:.1f} s "
+        f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.1f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s); restore added "
+        f"{added_gb:.3f} GB of device memory; state checksums back "
+        f"{back == sums}")
+    shutil.rmtree(work, ignore_errors=True)
+    if back != sums:
+        fail("packed checkpoint: the restored state differs")
+    if added_gb > 1.0:
+        fail(f"packed checkpoint: restore added {added_gb:.2f} GB on the "
+             "device")
+
+
+def run_a13(dev, seed: int, profile: bool) -> None:
+    """Phases 26-29. No kernel launches in 26-27; in 28 B1 once per step
+    and stack of the schedule's DLRM (and none for the layers); in 29 one
+    row kernel per ml_perf step and stack."""
+    import torch
+
+    reset_launch_counts()
+    phase_gru4rec_small(dev, seed)
+    phase_gru4rec(dev, seed, profile)
+    if any(launch_counts().values()):
+        fail(f"gru4rec phases launched kernels: {launch_counts()}")
+    model, step = phase_layers(dev, seed)
+    phase_checkpoint(dev, model, step, seed)
+    del model, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3009,6 +3793,9 @@ def main() -> int:
     phase_serving_small(args.seed)
     phase_export(args.seed)
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
+    run_a13(dev, args.seed, args.profile)
+    log(f"[time] GRU4Rec, layer and checkpoint phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log(card)
     print(json.dumps({"kernels": kernels}))

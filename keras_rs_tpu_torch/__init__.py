@@ -16,6 +16,12 @@ metrics/ranking_metrics.py), which reach no kernel; serving
 (serving.py: CUDA-graph capture and torch.export artifacts of frozen
 f32 or int8 tables, DistributedEmbedding.freeze / serving_copy), with
 Ragged and sparse inputs (data/ragged.py, data/sparse_utils.py), which
-reaches no kernel either. Modules build on cuda:0 unless given `device=`
-(utils/device.py).
+reaches no kernel either; GRU4Rec (models/gru4rec.py, layers/recurrent.py)
+trained through the full Trainer (training/trainer.py: prefetch,
+validation, checkpoints of training/checkpoint.py, metrics log,
+profiling, evaluate), the full-rank FeatureCross, DotInteraction,
+regularizers (core/regularizers.py), the registry of core/serialization.py
+and learning-rate schedules for the embedding optimizers, which reach no
+kernel beyond B1 (a schedule's rate is read from the device). Modules
+build on cuda:0 unless given `device=` (utils/device.py).
 """

@@ -19,8 +19,12 @@ The caller hands over numpy arrays (this module never imports JAX):
     layouts match: the same shapes, which is every stack but the JAX
     package's bit-packed bf16 dim-128 stacks (those take `tables`).
 
-`load_params` also carries the TwoTower and BasicRanking models, whose
-parameter names are the reference's attribute paths. A k-means IVF index
+`load_params` also carries the TwoTower, BasicRanking and GRU4Rec
+models, the GRU, full-rank and low-rank FeatureCross layers and Dense /
+MLP stacks (with or without regularizers or a bias), whose parameter
+names are the reference's attribute paths ("gru.recurrent_kernel",
+"kernel", "layers.0.bias"); the GRU keeps the JAX [in, 3H] layout and
+(z, r, h) gate order, so nothing is reordered. A k-means IVF index
 (`KMeansRetrieval`) comes across through `load_kmeans_index`, and the
 arrays of a frozen or int8 serving layer (`FrozenEmbedding`,
 `QuantizedEmbedReduce`: embeddings, q, scale, qp) through

@@ -77,7 +77,7 @@ __global__ void apply_scatter_row_blocks_kernel(
     float* __restrict__ packed, const int32_t* __restrict__ idx,
     const float* __restrict__ grads, const float* __restrict__ scalars,
     const int32_t* __restrict__ n_valid, int64_t num_rows, int64_t n,
-    int dim, Op op) {
+    int dim, Op op, int lr_index) {
   constexpr int K = Op::kRows;
   const int64_t i =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -90,6 +90,8 @@ __global__ void apply_scatter_row_blocks_kernel(
   float* blk = packed + r * K * dim;
   const float* g = grads + i * dim;
   const float step = scalars[0];
+  // A learning-rate schedule evaluated on the device: read it here.
+  if (lr_index >= 0) op.lr = scalars[lr_index];
   for (int c = lane * 4; c < dim; c += 128) {
     const float4 gv = *reinterpret_cast<const float4*>(g + c);
     float4 v[K];
@@ -125,25 +127,28 @@ constexpr int kUnsupported = -1;
 template <class Op>
 int launch(float* packed, const int32_t* idx, const float* grads,
            const float* scalars, const int32_t* n_valid, int64_t num_rows,
-           int64_t n, int dim, Op op, cudaStream_t stream) {
+           int64_t n, int dim, Op op, int lr_index, cudaStream_t stream) {
   const int64_t rows_per_block = kThreads / 32;
   const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
   if (blocks > 0x7fffffffLL) return kUnsupported;
   apply_scatter_row_blocks_kernel<Op>
       <<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-          packed, idx, grads, scalars, n_valid, num_rows, n, dim, op);
+          packed, idx, grads, scalars, n_valid, num_rows, n, dim, op,
+          lr_index);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // optimizer: 0 = Adagrad (k must be 2), 1 = SGD (k must be 1).
+// lr_index: -1 takes `lr`; else the rate is scalars[lr_index], written on
+// the device (a learning-rate schedule), and `lr` is ignored.
 // Returns cudaGetLastError() after the launch, or -1 for an unsupported
 // (optimizer, k) pair or grid size; 0 means launched.
 extern "C" int krt_apply_scatter_row_blocks(
     void* packed, const void* idx, const void* grads, const void* scalars,
     const void* n_valid, long long num_rows, long long n, int k, int dim,
-    int optimizer, float lr, float eps, void* stream) {
+    int optimizer, float lr, int lr_index, float eps, void* stream) {
   if (n <= 0) return 0;
   float* p = static_cast<float*>(packed);
   const int32_t* ix = static_cast<const int32_t*>(idx);
@@ -152,10 +157,12 @@ extern "C" int krt_apply_scatter_row_blocks(
   const int32_t* nv = static_cast<const int32_t*>(n_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (optimizer == 0 && k == Adagrad::kRows) {
-    return launch(p, ix, g, sc, nv, num_rows, n, dim, Adagrad{lr, eps}, s);
+    return launch(p, ix, g, sc, nv, num_rows, n, dim, Adagrad{lr, eps},
+                  lr_index, s);
   }
   if (optimizer == 1 && k == Sgd::kRows) {
-    return launch(p, ix, g, sc, nv, num_rows, n, dim, Sgd{lr}, s);
+    return launch(p, ix, g, sc, nv, num_rows, n, dim, Sgd{lr}, lr_index,
+                  s);
   }
   return kUnsupported;
 }

@@ -6,8 +6,7 @@ embedding_dim 128, Adagrad lr 0.0034, global batch 16384, max_ids 8192 /
 max_unique 4096, embedding_threshold 21000 (the reference's
 configs/v6e_8.py:15-190, 202-205). Some fields select paths the port's
 main.py does not have yet; main.py raises for them rather than ignore
-them (profiling, checkpoints, pipelined embedding, the multi-device
-exchange dtype).
+them (pipelined embedding, the multi-device exchange dtype).
 """
 
 from __future__ import annotations
@@ -82,7 +81,9 @@ class ExperimentConfig:
     #: convergence-to-plateau evidence (reference target protocol:
     #: configs/v6e_32_full_dataset.py:205, AUC 0.8275). 0 = final only.
     eval_every: int = 0
-    profile_dir: str = "/tmp/keras_rs_tpu_profile"
+    #: Where `do_profile` writes its trace. None: `keras_rs_tpu_profile`
+    #: under the process's temporary directory (TMPDIR).
+    profile_dir: str | None = None
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1000
     #: "bfloat16" halves the bytes of the multi-device embedding

@@ -16,9 +16,17 @@ dense tables on a one-device mesh and runs no COO path at all), and both
 modes take the worst-case capacities main.py:87-108 gives the device
 mode, where the JAX entry point's host mode takes the config's 8192 /
 4096 and grows them as batches overflow: the port has no capacity
-growth (ROADMAP A10), so smaller capacities would drop ids. Profiling, checkpoints,
-pipelined embedding, the multi-device exchange dtype and more than one
-process are not ported: main raises NotImplementedError for each.
+growth (ROADMAP A10), so smaller capacities would drop ids.
+
+With `checkpoint_dir`, every `checkpoint_every` steps the model (its
+stacked tables, slots and step counters included) and the dense
+optimizer are saved (training/checkpoint.py), and a rerun resumes from
+the latest step, logging "resumed from checkpoint step N" as the JAX
+entry point does. `--profile` (or KRT_PROFILE_DIR) traces steps 10-20
+with torch.profiler into `profile_dir` (`--profile_dir`; by default
+`keras_rs_tpu_profile` under TMPDIR). Pipelined embedding, the
+multi-device exchange dtype and more than one process are not ported:
+main raises NotImplementedError for each.
 
 Run from the repository root:
   python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
@@ -32,6 +40,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import tempfile
 import time
 from typing import Any
 
@@ -46,6 +55,11 @@ from keras_rs_tpu_torch.examples.ml_perf.configs import (
 )
 from keras_rs_tpu_torch.metrics.classification import AUC, BinaryAccuracy
 from keras_rs_tpu_torch.models.dlrm import DLRMConfig, DLRMDCNv2, bce_loss
+from keras_rs_tpu_torch.training.checkpoint import CheckpointManager
+from keras_rs_tpu_torch.training.trainer import (
+    start_profiler,
+    stop_profiler,
+)
 from keras_rs_tpu_torch.training.train_state import (
     DenseAdagrad,
     make_train_step,
@@ -72,10 +86,6 @@ def binary_auc(labels: np.ndarray, scores: np.ndarray) -> float:
 def check_supported(cfg: ExperimentConfig) -> None:
     """Raises NotImplementedError for what the port does not run yet."""
     missing = []
-    if cfg.do_profile:
-        missing.append("profiling (--profile; ROADMAP A13)")
-    if cfg.checkpoint_dir:
-        missing.append("checkpoints (checkpoint_dir; ROADMAP A13)")
     if cfg.pipeline_embedding:
         missing.append("pipelined embedding (--pipeline_embedding; "
                        "ROADMAP A10)")
@@ -156,6 +166,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def profile_dir(cfg: ExperimentConfig) -> str:
+    """`cfg.profile_dir`, else `keras_rs_tpu_profile` under TMPDIR."""
+    return cfg.profile_dir or os.path.join(tempfile.gettempdir(),
+                                           "keras_rs_tpu_profile")
+
+
 def main(config_name: str = "smoke_test", *, device: Any = None,
          **overrides) -> dict:
     """Trains and evaluates the named config (with `overrides` of its
@@ -196,6 +212,16 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     optimizer = DenseAdagrad(model.parameters(), cfg.learning_rate)
     step_fn = make_train_step(model, make_loss_fn(cfg.device_preprocessing),
                               optimizer)
+    state = {"model": model, "optimizer": optimizer}
+    ckpt = (CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir
+            else None)
+    # Checkpoint-restart: a rerun with the same checkpoint_dir resumes
+    # from its latest step instead of starting over.
+    start_step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        start_step = ckpt.latest_step()
+        ckpt.restore(start_step, state)
+        logger.info("resumed from checkpoint step %d", start_step)
 
     def dropped_ids(batch: dict) -> int:
         """Device mode drops ids over a capacity without a warning: one
@@ -242,18 +268,26 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
                 ck_probs)
 
     t0 = time.time()
-    warmup = min(10, max(0, cfg.num_steps - 1))
+    warmup = min(10, max(0, cfg.num_steps - start_step - 1))
     t_warm = t0
     losses, auc_curve = [], []
     batch = None
-    for step in range(cfg.num_steps):
+    profiler = None
+    for step in range(start_step, cfg.num_steps):
+        if cfg.do_profile and step == 10:
+            profiler = start_profiler(device)
         batch = next(loader)
         loss = step_fn(batch)
         losses.append(loss)
-        if step + 1 == warmup:
+        if step - start_step + 1 == warmup:
             # Throughput counts from here (first-call costs excluded).
             _sync(device)
             t_warm = time.time()
+        if profiler is not None and step == 20:
+            stop_profiler(profiler, profile_dir(cfg), device)
+            profiler = None
+        if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
+            ckpt.save(step + 1, state)
         if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
             # Eval wall time stays out of the training throughput.
             t_eval = time.time()
@@ -268,7 +302,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             logger.info(
                 "step %d loss %.5f (%.1f ex/s post-warmup)", step + 1,
                 float(loss),
-                cfg.global_batch_size * (step + 1 - warmup)
+                cfg.global_batch_size * (step - start_step + 1 - warmup)
                 / max(time.time() - t_warm, 1e-9),
             )
             if cfg.device_preprocessing:
@@ -279,11 +313,15 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
                         "(unique capacity overflow: raise "
                         "device_unique_factor)", n_dropped, step + 1,
                     )
+    if profiler is not None:  # fewer than 21 steps: trace what ran
+        stop_profiler(profiler, profile_dir(cfg), device)
     _sync(device)
     throughput = (
-        cfg.global_batch_size * max(cfg.num_steps - warmup, 0)
+        cfg.global_batch_size * max(cfg.num_steps - start_step - warmup, 0)
         / max(time.time() - t_warm, 1e-9)
     )
+    if ckpt is not None:
+        ckpt.close()
 
     device_step_ms = None
     if cfg.honest_timing and batch is not None:
@@ -337,7 +375,11 @@ def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
     parser.add_argument("--file_pattern", default=None)
     parser.add_argument("--val_file_pattern", default=None)
     parser.add_argument("--profile", action="store_true",
-                        help="not ported (raises)")
+                        help="trace steps 10-20 with torch.profiler into "
+                        "profile_dir (KRT_PROFILE_DIR sets both)")
+    parser.add_argument("--profile_dir", default=None,
+                        help="directory of the --profile trace (default "
+                        "keras_rs_tpu_profile under TMPDIR)")
     parser.add_argument(
         "--device_preprocessing", action="store_true",
         help="run COO preprocessing on the device inside the step",
@@ -356,7 +398,8 @@ def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
     args = parser.parse_args(argv)
     overrides: dict[str, Any] = {}
     for name in ("num_steps", "global_batch_size", "dense_output_dtype",
-                 "file_pattern", "val_file_pattern", "eval_every"):
+                 "file_pattern", "val_file_pattern", "eval_every",
+                 "profile_dir"):
         if getattr(args, name):
             overrides[name] = getattr(args, name)
     for flag, name in (("profile", "do_profile"),

@@ -36,9 +36,9 @@ from keras_rs_tpu_torch.utils.device import resolve_device
 
 class Embedding(nn.Module):
     """Plain [vocab, dim] lookup; `attend(x)` scores x against the table
-    (the tied, "reversible" projection SASRec uses). Glorot-uniform, the
-    initializer SASRec gives it (the JAX layer's default, random_normal,
-    has no caller)."""
+    (the tied, "reversible" projection SASRec uses). The table is drawn
+    by `embeddings_initializer` (a name or an initializer; random_normal
+    by default, as in the JAX package)."""
 
     def __init__(
         self,
@@ -46,11 +46,12 @@ class Embedding(nn.Module):
         output_dim: int,
         *,
         generator: torch.Generator | None = None,
+        embeddings_initializer: Any = "random_normal",
         device: Any = None,
     ) -> None:
         super().__init__()
         self.embeddings = nn.Parameter(
-            initializers.GlorotUniform()(
+            initializers.get(embeddings_initializer)(
                 (input_dim, output_dim), torch.float32,
                 resolve_device(device), generator,
             )

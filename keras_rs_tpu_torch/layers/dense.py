@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
+from keras_rs_tpu_torch.core import regularizers as reg_lib
 from keras_rs_tpu_torch.utils.device import resolve_device
 
 
@@ -30,9 +31,18 @@ def _dtype(d: Any) -> torch.dtype | None:
     return getattr(torch, str(d))
 
 
+def regularizers_of(**named: Any) -> dict[str, reg_lib.Regularizer]:
+    """{attribute: Regularizer} of the given ones that are not None (the
+    `_regularizers` dict core.regularizers.regularization_loss reads)."""
+    regs = {attr: reg_lib.get(r) for attr, r in named.items()}
+    return {attr: r for attr, r in regs.items() if r is not None}
+
+
 class Dense(nn.Module):
     """y = activation(x @ kernel + bias); glorot-uniform kernel, zero bias,
-    f32 parameters."""
+    f32 parameters. `kernel_regularizer` /
+    `bias_regularizer` (names or core.regularizers objects) add their
+    penalties to `regularization_loss`."""
 
     def __init__(
         self,
@@ -41,12 +51,16 @@ class Dense(nn.Module):
         *,
         generator: torch.Generator | None = None,
         activation: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        kernel_regularizer: Any = None,
+        bias_regularizer: Any = None,
         compute_dtype: Any = None,
         output_dtype: Any = None,
         device: Any = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
+        self._regularizers = regularizers_of(kernel=kernel_regularizer,
+                                             bias=bias_regularizer)
         self.kernel = nn.Parameter(
             initializers.GlorotUniform()(
                 (in_features, out_features), torch.float32, device, generator
@@ -79,7 +93,7 @@ class Dense(nn.Module):
 class MLP(nn.Module):
     """Stack of Dense layers with ReLU between them, e.g. DLRM's bottom and
     top towers. Hidden outputs take `output_dtype`; the final output has
-    no activation and stays f32."""
+    no activation and stays f32. The regularizers apply to every layer."""
 
     def __init__(
         self,
@@ -87,6 +101,8 @@ class MLP(nn.Module):
         units: Sequence[int],
         *,
         generator: torch.Generator | None = None,
+        kernel_regularizer: Any = None,
+        bias_regularizer: Any = None,
         compute_dtype: Any = None,
         output_dtype: Any = None,
         device: Any = None,
@@ -101,6 +117,8 @@ class MLP(nn.Module):
                 Dense(
                     prev, u, generator=generator,
                     activation=None if last else torch.relu,
+                    kernel_regularizer=kernel_regularizer,
+                    bias_regularizer=bias_regularizer,
                     compute_dtype=compute_dtype,
                     output_dtype=None if last else output_dtype,
                     device=device,

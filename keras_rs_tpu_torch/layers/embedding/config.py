@@ -1,8 +1,9 @@
 """Embedding table and feature configuration.
 
 Counterpart of keras_rs_tpu/layers/embedding/config.py with the same
-fields, defaults and validation; initializers and optimizers come from
-this package. Serialization (get_config / from_config) is not ported yet.
+fields, defaults, validation and configs (`get_config` / `from_config`,
+the same dicts as the JAX package's); initializers and optimizers come
+from this package.
 """
 
 from __future__ import annotations
@@ -63,6 +64,40 @@ class TableConfig:
                 "vocabulary_size and embedding_dim must be positive."
             )
 
+    def get_config(self) -> dict[str, Any]:
+        from keras_rs_tpu_torch.layers.embedding import optimizers as opt_lib
+
+        initializer = self.initializer
+        if not isinstance(initializer, str):
+            initializer = init_lib.serialize(initializer)
+        optimizer = self.optimizer
+        if not isinstance(optimizer, str):
+            optimizer = opt_lib.serialize(optimizer)
+        return {
+            "name": self.name,
+            "vocabulary_size": self.vocabulary_size,
+            "embedding_dim": self.embedding_dim,
+            "initializer": initializer,
+            "optimizer": optimizer,
+            "combiner": self.combiner,
+            "placement": self.placement,
+            "max_ids_per_partition": self.max_ids_per_partition,
+            "max_unique_ids_per_partition": self.max_unique_ids_per_partition,
+            "dtype": self.dtype,
+        }
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "TableConfig":
+        from keras_rs_tpu_torch.layers.embedding import optimizers as opt_lib
+
+        config = dict(config)
+        if not isinstance(config["initializer"], str):
+            config["initializer"] = init_lib.deserialize(
+                config["initializer"])
+        if not isinstance(config["optimizer"], str):
+            config["optimizer"] = opt_lib.deserialize(config["optimizer"])
+        return cls(**config)
+
 
 @dataclasses.dataclass(eq=False)
 class FeatureConfig:
@@ -99,6 +134,20 @@ class FeatureConfig:
                 f"combiner-reduced); got input_shape={self.input_shape}, "
                 f"output_shape={self.output_shape}."
             )
+
+    def get_config(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "table": self.table.get_config(),
+            "input_shape": tuple(self.input_shape),
+            "output_shape": tuple(self.output_shape),
+        }
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "FeatureConfig":
+        config = dict(config)
+        config["table"] = TableConfig.from_config(config["table"])
+        return cls(**config)
 
     @property
     def reduced(self) -> bool:

@@ -33,8 +33,11 @@ row-wise) and `stack{i}_step`; `stack_state(i)` bundles them as the
 lookup takes them. Tables are exported and imported as logical
 [vocab, dim] tensors in the storage dtype.
 
-Not ported yet: multi-device sharding, stats tracking and capacity
-growth (`record_stats` / `update_stats`), serialization.
+`get_config` / `from_config` round-trip the architecture (the tables and
+features); the values travel through checkpoints (training/checkpoint.py:
+the stacks' buffers are in the state_dict). Not ported yet:
+multi-device sharding, stats tracking and capacity growth
+(`record_stats` / `update_stats`).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 from torch import nn
 
 from keras_rs_tpu_torch.convert import as_tensor
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.layers.embedding.config import (
     FeatureConfig,
     TableConfig,
@@ -114,6 +118,7 @@ def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
     return out
 
 
+@export("keras_rs_tpu_torch.layers.DistributedEmbedding")
 class DistributedEmbedding(nn.Module):
     def __init__(
         self,
@@ -428,6 +433,44 @@ class DistributedEmbedding(nn.Module):
         new.dense_tables = nn.ModuleDict(dict(self.dense_tables))
         new._dense_feature_to_table = dict(self._dense_feature_to_table)
         return new
+
+    def get_config(self) -> dict[str, Any]:
+        """The tables (shared tables once, by index) and the features, as
+        the JAX package's config holds them; its mesh entries (axis_name,
+        table_stacking, dtype, auto_grow, comm_dtype, shard_rotation)
+        have no counterpart on one device. Table values come from a
+        checkpoint, not from the config."""
+        tables: list[TableConfig] = []
+        table_index: dict[int, int] = {}
+        features = []
+        for fc in self._feature_leaves:
+            if id(fc.table) not in table_index:
+                table_index[id(fc.table)] = len(tables)
+                tables.append(fc.table)
+            features.append({
+                "name": fc.name,
+                "table_index": table_index[id(fc.table)],
+                "input_shape": tuple(fc.input_shape),
+                "output_shape": tuple(fc.output_shape),
+            })
+        return {"tables": [t.get_config() for t in tables],
+                "features": features}
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "DistributedEmbedding":
+        """Rebuilds the layer (features keyed by name, tables shared as
+        the config shares them); `config` may add `generator` and
+        `device`."""
+        tables = [TableConfig.from_config(c) for c in config["tables"]]
+        fcs = {
+            f["name"]: FeatureConfig(
+                name=f["name"], table=tables[f["table_index"]],
+                input_shape=tuple(f["input_shape"]),
+                output_shape=tuple(f["output_shape"]))
+            for f in config["features"]
+        }
+        return cls(fcs, generator=config.get("generator"),
+                   device=config.get("device"))
 
 
 def _to_host(a: Any) -> np.ndarray:

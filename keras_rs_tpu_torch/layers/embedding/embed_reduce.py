@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from keras_rs_tpu_torch.core import initializers
+from keras_rs_tpu_torch.core import regularizers as reg_lib
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.data.ragged import Ragged
 from keras_rs_tpu_torch.data.sparse_utils import is_sparse, sparse_densify
 from keras_rs_tpu_torch.ops import quant
@@ -87,6 +89,7 @@ def densify_inputs(inputs: Any, weights: Any, feature: str | None = None):
     return inputs, weights
 
 
+@export("keras_rs_tpu_torch.layers.EmbedReduce")
 class EmbedReduce(nn.Module):
     """Embeds 1-D or 2-D integer inputs; reduces the list axis if present.
 
@@ -104,6 +107,7 @@ class EmbedReduce(nn.Module):
         *,
         generator: torch.Generator | None = None,
         embeddings_initializer: Any = "random_uniform",
+        embeddings_regularizer: Any = None,
         combiner: str = "mean",
         table: torch.Tensor | None = None,
         device: Any = None,
@@ -111,7 +115,9 @@ class EmbedReduce(nn.Module):
     ) -> None:
         """`table` [input_dim, output_dim], where given, becomes the
         embeddings as f32 on its own device (no copy when it is f32
-        already); else they are drawn with `generator` on `device`."""
+        already); else they are drawn with `generator` on `device`.
+        `embeddings_regularizer` adds its penalty of the table to
+        core.regularizers.regularization_loss."""
         super().__init__()
         _check_combiner(combiner)
         if table is not None:
@@ -130,7 +136,21 @@ class EmbedReduce(nn.Module):
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.combiner = combiner
+        self.embeddings_regularizer = reg_lib.get(embeddings_regularizer)
+        self._regularizers = (
+            {"embeddings": self.embeddings_regularizer}
+            if self.embeddings_regularizer is not None else {}
+        )
         self.name = name or "embed_reduce"
+
+    def get_config(self) -> dict[str, Any]:
+        """The architecture (the weights come from a checkpoint)."""
+        return {
+            "input_dim": self.input_dim,
+            "output_dim": self.output_dim,
+            "combiner": self.combiner,
+            "name": self.name,
+        }
 
     @property
     def device(self) -> torch.device:
@@ -193,6 +213,7 @@ class EmbedReduce(nn.Module):
         )
 
 
+@export("keras_rs_tpu_torch.layers.QuantizedEmbedReduce")
 class QuantizedEmbedReduce(EmbedReduce):
     """`EmbedReduce` over an int8 per-row-quantized table (inference).
 
@@ -260,6 +281,8 @@ class QuantizedEmbedReduce(EmbedReduce):
         self.input_dim = rows
         self.output_dim = dim
         self.combiner = combiner
+        self.embeddings_regularizer = None
+        self._regularizers = {}
         self.name = name or "quantized_embed_reduce"
         if q is not None:
             self.register_buffer("q", q)
@@ -296,6 +319,20 @@ class QuantizedEmbedReduce(EmbedReduce):
                    layout: str = "rows") -> "QuantizedEmbedReduce":
         q, scale = quant.quantize_rows_int8(torch.as_tensor(table))
         return cls(q, scale, combiner=combiner, name=name, layout=layout)
+
+    def get_config(self) -> dict[str, Any]:
+        return {**super().get_config(), "layout": self.layout}
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "QuantizedEmbedReduce":
+        """An architecture-only rebuild: zero q and unit scales on
+        `config["device"]` (default cuda:0), whose values a checkpoint
+        restores."""
+        config = dict(config)
+        rows, dim = config.pop("input_dim"), config.pop("output_dim")
+        device = resolve_device(config.pop("device", None))
+        return cls(torch.zeros((rows, dim), dtype=torch.int8, device=device),
+                   torch.ones((rows, 1), device=device), **config)
 
     @property
     def device(self) -> torch.device:

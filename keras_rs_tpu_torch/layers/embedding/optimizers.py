@@ -15,15 +15,20 @@ PyTorch before the row-scatter kernel writes the rows back.
                      square root
   * FTRL:            keras.optimizers.Ftrl, with l2_shrinkage and beta
 
-Learning rates are floats; schedules (callables of the step) are not
-ported yet.
+Learning rates are floats or callables of the step (a schedule): the
+callable takes the stack's 0-dim f32 step counter (0-based) on its device
+and returns the rate as a tensor, evaluated on the device inside the
+update, so a schedule adds no host sync (B1 reads it from its scalars
+buffer).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Union
 
 import torch
+
+LearningRate = Union[float, Callable[[torch.Tensor], Any]]
 
 
 class EmbeddingOptimizer:
@@ -35,8 +40,23 @@ class EmbeddingOptimizer:
     #: a [R, dim] buffer; their `apply` inputs and outputs are [U] vectors.
     rowwise_slots: tuple[str, ...] = ()
 
-    def __init__(self, learning_rate: float = 0.001):
-        self.learning_rate = float(learning_rate)
+    def __init__(self, learning_rate: LearningRate = 0.001):
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
+
+    def lr(self, step: torch.Tensor) -> float | torch.Tensor:
+        """The rate at `step`: the float, or the schedule's value as a
+        0-dim f32 tensor. A schedule computes it from `step` on the
+        device and must return a tensor."""
+        if not callable(self.learning_rate):
+            return self.learning_rate
+        value = self.learning_rate(step)
+        if not isinstance(value, torch.Tensor):
+            raise TypeError(
+                "A learning-rate schedule must return a tensor computed "
+                f"from the step tensor, not {type(value).__name__}."
+            )
+        return value.to(torch.float32).reshape(())
 
     def init_slot(self, slot_name: str, shape, dtype=torch.float32,
                   device=None) -> torch.Tensor:
@@ -52,6 +72,10 @@ class EmbeddingOptimizer:
         raise NotImplementedError
 
     def get_config(self) -> dict[str, Any]:
+        if callable(self.learning_rate):
+            raise ValueError(
+                "Callable learning rates cannot be serialized; pass a float."
+            )
         return {"learning_rate": self.learning_rate}
 
 
@@ -59,11 +83,11 @@ class SGD(EmbeddingOptimizer):
     name = "sgd"
     slot_names = ()
 
-    def __init__(self, learning_rate: float = 0.01):
+    def __init__(self, learning_rate: LearningRate = 0.01):
         super().__init__(learning_rate)
 
     def apply(self, rows, grads, slots, step):
-        return rows - self.learning_rate * grads, {}
+        return rows - self.lr(step) * grads, {}
 
 
 class Adagrad(EmbeddingOptimizer):
@@ -72,7 +96,7 @@ class Adagrad(EmbeddingOptimizer):
 
     def __init__(
         self,
-        learning_rate: float = 0.001,
+        learning_rate: LearningRate = 0.001,
         initial_accumulator_value: float = 0.1,
         epsilon: float = 1e-7,
     ):
@@ -89,7 +113,7 @@ class Adagrad(EmbeddingOptimizer):
     def apply(self, rows, grads, slots, step):
         acc = slots["accumulator"] + torch.square(grads)
         update = grads / (torch.sqrt(acc) + self.epsilon)
-        return rows - self.learning_rate * update, {"accumulator": acc}
+        return rows - self.lr(step) * update, {"accumulator": acc}
 
     def get_config(self):
         return {
@@ -111,7 +135,7 @@ class RowWiseAdagrad(Adagrad):
     def apply(self, rows, grads, slots, step):
         acc = slots["accumulator"] + torch.sum(torch.square(grads), dim=-1)
         update = grads / (torch.sqrt(acc)[:, None] + self.epsilon)
-        return rows - self.learning_rate * update, {"accumulator": acc}
+        return rows - self.lr(step) * update, {"accumulator": acc}
 
 
 class Adam(EmbeddingOptimizer):
@@ -120,7 +144,7 @@ class Adam(EmbeddingOptimizer):
 
     def __init__(
         self,
-        learning_rate: float = 0.001,
+        learning_rate: LearningRate = 0.001,
         beta_1: float = 0.9,
         beta_2: float = 0.999,
         epsilon: float = 1e-7,
@@ -142,7 +166,7 @@ class Adam(EmbeddingOptimizer):
         m_hat = m / (1.0 - torch.pow(self.beta_1, t))
         v_hat = v / (1.0 - torch.pow(self.beta_2, t))
         update = m_hat / (torch.sqrt(v_hat) + self.epsilon)
-        return rows - self.learning_rate * update, {
+        return rows - self.lr(step) * update, {
             "momentum": m,
             "velocity": v,
         }
@@ -162,7 +186,7 @@ class FTRL(EmbeddingOptimizer):
 
     def __init__(
         self,
-        learning_rate: float = 0.001,
+        learning_rate: LearningRate = 0.001,
         learning_rate_power: float = -0.5,
         initial_accumulator_value: float = 0.1,
         l1_regularization_strength: float = 0.0,
@@ -190,7 +214,7 @@ class FTRL(EmbeddingOptimizer):
         # keras.optimizers.Ftrl: the accumulator takes the raw gradient,
         # the linear term the shrinkage-adjusted g + 2 * l2_shrinkage * w,
         # and beta adds beta / lr to the quadratic.
-        lr = self.learning_rate
+        lr = self.lr(step)
         p = -self.learning_rate_power
         acc, linear = slots["accumulator"], slots["linear"]
         new_acc = acc + torch.square(grads)
@@ -246,6 +270,13 @@ def get(identifier: Any) -> EmbeddingOptimizer:
     raise ValueError(f"Cannot interpret optimizer: {identifier!r}")
 
 
-def deserialize(spec: dict[str, Any]) -> EmbeddingOptimizer:
-    """{"class_name": name, "config": kwargs} -> optimizer."""
+def serialize(optimizer: EmbeddingOptimizer) -> dict[str, Any]:
+    return {"class_name": optimizer.name, "config": optimizer.get_config()}
+
+
+def deserialize(spec: Any) -> EmbeddingOptimizer:
+    """A name (as `get`) or {"class_name": name, "config": kwargs} ->
+    optimizer."""
+    if isinstance(spec, str):
+        return get(spec)
     return _BY_NAME[spec["class_name"]](**spec["config"])

@@ -145,6 +145,13 @@ class TableStack:
 
 def _optimizer_key(table: TableConfig) -> str:
     opt = opt_lib.get(table.optimizer)
+    if callable(opt.learning_rate):
+        # A schedule is keyed by identity, the rest of the config by
+        # value: two tables stack only when they share the same schedule
+        # object and every other hyperparameter.
+        cfg = {k: v for k, v in vars(opt).items()
+               if k != "learning_rate" and not callable(v)}
+        return f"{opt.name}:{id(opt.learning_rate)}:{sorted(cfg.items())}"
     return f"{opt.name}:{sorted(opt.get_config().items())}"
 
 

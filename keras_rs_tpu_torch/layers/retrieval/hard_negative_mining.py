@@ -17,12 +17,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.ops.topk import top_k
 
 # Large-but-safe boost; max float32 / 100 like the reference.
 MAX_FLOAT = float(np.finfo(np.float32).max / 100.0)
 
 
+@export("keras_rs_tpu_torch.layers.HardNegativeMining")
 class HardNegativeMining(nn.Module):
     def __init__(self, num_hard_negatives: int, name: str | None = None):
         super().__init__()

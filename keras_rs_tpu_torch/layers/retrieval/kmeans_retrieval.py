@@ -28,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.layers.retrieval.retrieval import Retrieval
 from keras_rs_tpu_torch.ops.topk import top_k
 from keras_rs_tpu_torch.utils.device import resolve_device
@@ -93,6 +94,7 @@ def kmeans(x: torch.Tensor, num_clusters: int, *,
     return lloyd(x, x[init], iterations)
 
 
+@export("keras_rs_tpu_torch.layers.KMeansRetrieval")
 class KMeansRetrieval(Retrieval):
     """IVF approximate top-k retrieval.
 

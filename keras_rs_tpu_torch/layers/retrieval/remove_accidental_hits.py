@@ -14,10 +14,12 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from keras_rs_tpu_torch.core.serialization import export
 
 SMALLEST_FLOAT = float(np.finfo(np.float32).min / 100.0)
 
 
+@export("keras_rs_tpu_torch.layers.RemoveAccidentalHits")
 class RemoveAccidentalHits(nn.Module):
     def __init__(self, name: str | None = None):
         super().__init__()

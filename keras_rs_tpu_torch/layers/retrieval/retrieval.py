@@ -18,6 +18,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.ops.topk import chunked_topk_mips, top_k
 
 
@@ -74,6 +75,7 @@ class Retrieval(nn.Module):
         }
 
 
+@export("keras_rs_tpu_torch.layers.BruteForceRetrieval")
 class BruteForceRetrieval(Retrieval):
     """Exact top-k retrieval by scoring all candidates (non-trainable
     state, not serialized)."""

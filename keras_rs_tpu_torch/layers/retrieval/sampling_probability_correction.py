@@ -8,8 +8,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from keras_rs_tpu_torch.core.serialization import export
 
 
+@export("keras_rs_tpu_torch.layers.SamplingProbabilityCorrection")
 class SamplingProbabilityCorrection(nn.Module):
     def __init__(self, epsilon: float = 1e-6, name: str | None = None):
         super().__init__()

@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.losses.base import Loss, unpack_labels_and_mask
 from keras_rs_tpu_torch.ops.ranking import (
     sort_by_scores,
@@ -21,6 +22,7 @@ from keras_rs_tpu_torch.ops.ranking import (
 )
 
 
+@export("keras_rs_tpu_torch.losses.ListMLELoss")
 class ListMLELoss(Loss):
     """loss = -sum_i log(exp(s_i) / sum_{j >= i} exp(s_j)), items ordered
     by descending true label; one loss per list."""

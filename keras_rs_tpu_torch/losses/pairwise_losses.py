@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.losses.base import Loss, unpack_labels_and_mask
 from keras_rs_tpu_torch.ops.pairwise import (
     apply_pairwise_op,
@@ -72,6 +73,7 @@ class PairwiseLoss(Loss):
         return config
 
 
+@export("keras_rs_tpu_torch.losses.PairwiseHingeLoss")
 class PairwiseHingeLoss(PairwiseLoss):
     """loss = sum_i sum_j I(y_i > y_j) * max(0, 1 - (s_i - s_j))."""
 
@@ -81,6 +83,7 @@ class PairwiseHingeLoss(PairwiseLoss):
         return torch.maximum(hinge, torch.zeros_like(hinge))
 
 
+@export("keras_rs_tpu_torch.losses.PairwiseLogisticLoss")
 class PairwiseLogisticLoss(PairwiseLoss):
     """loss = sum_i sum_j I(y_i > y_j) * log(1 + exp(-(s_i - s_j))),
     in the stable form relu(-d) + log(1 + exp(-|d|)) of the reference."""
@@ -98,6 +101,7 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+@export("keras_rs_tpu_torch.losses.PairwiseSoftZeroOneLoss")
 class PairwiseSoftZeroOneLoss(PairwiseLoss):
     """loss = sum_i sum_j I(y_i > y_j) * soft_zero_one(s_i - s_j), with
     soft_zero_one(d) = 1 - sigmoid(d) if d > 0 else sigmoid(-d)."""
@@ -110,6 +114,7 @@ class PairwiseSoftZeroOneLoss(PairwiseLoss):
         )
 
 
+@export("keras_rs_tpu_torch.losses.PairwiseMeanSquaredError")
 class PairwiseMeanSquaredError(PairwiseLoss):
     """loss = sum_i sum_j ((y_i - y_j) - (s_i - s_j))^2 over valid pairs:
     every valid ordered pair contributes (not only y_i > y_j), self-pairs

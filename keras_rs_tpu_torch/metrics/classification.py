@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.utils.device import resolve_device
 
 _EPSILON = 1e-7
@@ -47,13 +48,16 @@ def _weights(sample_weight: Any, like: torch.Tensor) -> torch.Tensor:
     ).broadcast_to(like.shape)
 
 
+@export("keras_rs_tpu_torch.metrics.AUC")
 class AUC:
     """Streaming ROC-AUC (thresholded approximation, Keras parity)."""
 
-    def __init__(self, num_thresholds: int = 200, device: Any = None) -> None:
+    def __init__(self, num_thresholds: int = 200, name: str | None = None,
+                 device: Any = None) -> None:
         if num_thresholds < 2:
             raise ValueError("num_thresholds must be >= 2")
         self.num_thresholds = num_thresholds
+        self.name = name or "auc"
         self.device = resolve_device(device)
         # Keras thresholds: {-eps, evenly spaced interior, 1 + eps}.
         self.thresholds = torch.arange(
@@ -111,12 +115,18 @@ class AUC:
             return torch.zeros((), device=self.device)
         return self.result_from_state(self._state)
 
+    def get_config(self) -> dict[str, Any]:
+        return {"num_thresholds": self.num_thresholds, "name": self.name}
 
+
+@export("keras_rs_tpu_torch.metrics.BinaryAccuracy")
 class BinaryAccuracy:
     """Streaming accuracy at a probability threshold (default 0.5)."""
 
-    def __init__(self, threshold: float = 0.5, device: Any = None) -> None:
+    def __init__(self, threshold: float = 0.5, name: str | None = None,
+                 device: Any = None) -> None:
         self.threshold = float(threshold)
+        self.name = name or "binary_accuracy"
         self.device = resolve_device(device)
         self._state: MeanPair | None = None
 
@@ -153,3 +163,6 @@ class BinaryAccuracy:
         if self._state is None:
             return torch.zeros((), device=self.device)
         return self.result_from_state(self._state)
+
+    def get_config(self) -> dict[str, Any]:
+        return {"threshold": self.threshold, "name": self.name}

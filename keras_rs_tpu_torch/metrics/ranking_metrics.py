@@ -8,6 +8,7 @@ from typing import Any, Callable
 
 import torch
 
+from keras_rs_tpu_torch.core.serialization import export
 from keras_rs_tpu_torch.metrics.ranking_metric import RankingMetric
 from keras_rs_tpu_torch.ops.ranking import (
     compute_dcg,
@@ -25,6 +26,7 @@ def _binary_relevance(y: torch.Tensor) -> torch.Tensor:
     return (y >= 1.0).to(y.dtype)
 
 
+@export("keras_rs_tpu_torch.metrics.DCG")
 class DCG(RankingMetric):
     """Discounted cumulative gain."""
 
@@ -51,6 +53,7 @@ class DCG(RankingMetric):
         return divide_no_nan(dcg, per_list_weights), per_list_weights
 
 
+@export("keras_rs_tpu_torch.metrics.NDCG")
 class NDCG(RankingMetric):
     """Normalized DCG."""
 
@@ -83,6 +86,7 @@ class NDCG(RankingMetric):
         return divide_no_nan(dcg, ideal_dcg), per_list_weights
 
 
+@export("keras_rs_tpu_torch.metrics.MeanAveragePrecision")
 class MeanAveragePrecision(RankingMetric):
     """MAP over binary relevance (label >= 1)."""
 
@@ -103,6 +107,7 @@ class MeanAveragePrecision(RankingMetric):
         return per_list_map, get_list_weights(sample_weight, relevance)
 
 
+@export("keras_rs_tpu_torch.metrics.MeanReciprocalRank")
 class MeanReciprocalRank(RankingMetric):
     """MRR over binary relevance (label >= 1)."""
 
@@ -121,6 +126,7 @@ class MeanReciprocalRank(RankingMetric):
         return mrr, per_list_weights
 
 
+@export("keras_rs_tpu_torch.metrics.PrecisionAtK")
 class PrecisionAtK(RankingMetric):
     """P@k over binary relevance (label >= 1)."""
 
@@ -141,6 +147,7 @@ class PrecisionAtK(RankingMetric):
         return per_list_precision, per_list_weights
 
 
+@export("keras_rs_tpu_torch.metrics.RecallAtK")
 class RecallAtK(RankingMetric):
     """R@k over binary relevance (label >= 1)."""
 

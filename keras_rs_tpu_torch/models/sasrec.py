@@ -44,7 +44,7 @@ class SASRec(nn.Module):
         # Row 0 is the padding id.
         self.item_embedding = Embedding(
             vocabulary_size + 1, hidden_dim, generator=generator,
-            device=device,
+            embeddings_initializer="glorot_uniform", device=device,
         )
         self.position_embedding = PositionEmbedding(
             max_sequence_length, hidden_dim, generator=generator,

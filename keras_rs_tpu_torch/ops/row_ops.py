@@ -94,7 +94,7 @@ def apply_scatter_row_blocks_reference(
     idx: torch.Tensor,  # [N] int32, unique on the live prefix
     grads: torch.Tensor,  # [N, dim] f32 summed row gradients
     scalars: torch.Tensor,  # [n] f32; scalars[0] is the step counter
-    optimizer: opt_lib.EmbeddingOptimizer,
+    optimizer: opt_lib.EmbeddingOptimizer,  # its rate may be a schedule
     n_valid: torch.Tensor,  # one-element int32: live prefix length
 ) -> torch.Tensor:
     """Plain PyTorch version: gather, `optimizer.apply`, `index_copy_`.
@@ -136,8 +136,10 @@ def apply_scatter_row_blocks(
     i < n_valid, in place; returns `packed`.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel
-    of csrc/row_ops.cu (Adagrad or SGD) or raise. Every launch adds one
-    to `apply_scatter_row_blocks.launches`.
+    of csrc/row_ops.cu (Adagrad or SGD) or raise. A schedule (callable
+    learning rate) is evaluated on the device at scalars[0] and read by
+    the kernel from its scalars buffer. Every launch adds one to
+    `apply_scatter_row_blocks.launches`.
     """
     _check(packed, idx, grads, scalars, optimizer, n_valid)
     if packed.device.type == "cpu":
@@ -162,6 +164,12 @@ def apply_scatter_row_blocks(
             "The CUDA kernel needs packed and grads to start on a 16-byte "
             "boundary (float4 loads)."
         )
+    # A schedule's rate is computed on the device and handed over as
+    # scalars[1], which the kernel reads (lr_index 1): no host read.
+    lr, lr_index = optimizer.learning_rate, -1
+    if callable(lr):
+        scalars = torch.cat([scalars[:1], optimizer.lr(scalars[0])[None]])
+        lr, lr_index = 0.0, 1
     fn = _kernel_fn()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
@@ -176,7 +184,8 @@ def apply_scatter_row_blocks(
             packed.shape[1],
             packed.shape[2],
             code,
-            float(optimizer.learning_rate),
+            float(lr),
+            lr_index,
             float(getattr(optimizer, "epsilon", 0.0)),
             stream,
         )
@@ -207,6 +216,7 @@ def _kernel_fn():
         ctypes.c_int,  # dim
         ctypes.c_int,  # optimizer code
         ctypes.c_float,  # lr
+        ctypes.c_int,  # lr_index: -1, or the scalars entry holding lr
         ctypes.c_float,  # eps
         ctypes.c_void_p,  # stream
     ]

@@ -63,6 +63,15 @@ class DenseAdagrad:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict[str, Any]:
+        """The accumulators (the tensors themselves, in parameter order)."""
+        return {"accumulators": list(self.accumulators)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        """Copies a `state_dict` into the accumulators in place."""
+        _copy_into(self.accumulators, state["accumulators"], "accumulators")
+
 
 class DenseAdam:
     """`optax.adam` (scale_by_adam + scale_by_learning_rate) with optax's
@@ -109,6 +118,30 @@ class DenseAdam:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> dict[str, Any]:
+        """The step count and both moments (the tensors themselves)."""
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        """Copies a `state_dict` into the moments in place."""
+        _copy_into(self.mu, state["mu"], "mu")
+        _copy_into(self.nu, state["nu"], "nu")
+        self.count = int(state["count"])
+
+
+def _copy_into(dst: list[torch.Tensor], src: list[torch.Tensor],
+               name: str) -> None:
+    if len(dst) != len(src):
+        raise ValueError(f"{name}: {len(src)} tensors for {len(dst)} "
+                         "parameters.")
+    for i, (d, v) in enumerate(zip(dst, src)):
+        if tuple(d.shape) != tuple(v.shape):
+            raise ValueError(f"{name}[{i}]: shape {tuple(v.shape)} for "
+                             f"{tuple(d.shape)}.")
+        d.copy_(v)
 
 
 def make_train_step(

@@ -1,5 +1,5 @@
-"""keras_rs_tpu_torch and chip_smoke.py import neither JAX, optax nor
-the JAX package."""
+"""keras_rs_tpu_torch and chip_smoke.py import neither JAX, optax,
+orbax nor the JAX package."""
 
 import pkgutil
 import subprocess
@@ -8,7 +8,7 @@ from pathlib import Path
 
 import keras_rs_tpu_torch
 
-BLOCKED = ("jax", "jaxlib", "optax", "keras_rs_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "orbax", "keras_rs_tpu")
 
 _SCRIPT = """
 import importlib, sys
@@ -63,7 +63,14 @@ def test_port_imports_without_jax():
                  "models.two_tower", "models.ranking_model",
                  "data.ragged", "data.sparse_utils",
                  "data.feature_engineering", "serving",
-                 "examples.serving_deployment"):
+                 "examples.serving_deployment", "core.initializers",
+                 "core.regularizers", "core.serialization",
+                 "layers.recurrent",
+                 "layers.feature_interaction.dot_interaction",
+                 "layers.feature_interaction.feature_cross",
+                 "models.gru4rec", "training.checkpoint",
+                 "training.trainer", "examples.sequential_retrieval",
+                 "examples.dcn"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(

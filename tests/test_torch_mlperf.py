@@ -12,6 +12,7 @@ gives AUC > 0.60 after 300 smoke steps, the JAX test's gate.
 
 import dataclasses
 import os
+import tempfile
 import threading
 
 import numpy as np
@@ -46,6 +47,10 @@ def test_configs_match_jax():
     for name in configs.CONFIGS:
         ours = dataclasses.asdict(configs.CONFIGS[name]())
         ref = dataclasses.asdict(jax_configs.CONFIGS[name]())
+        # The JAX default is a fixed /tmp path; the port's None resolves
+        # under TMPDIR (main.profile_dir).
+        assert ours.pop("profile_dir") is None
+        assert ref.pop("profile_dir") == "/tmp/keras_rs_tpu_profile"
         assert ours == ref, name
     c = configs.CONFIGS["v6e_32_full_dataset"](val_file_pattern="v/*")
     assert c.val_file_pattern == "v/*" and c.num_steps == 28_000
@@ -105,14 +110,89 @@ def test_auc_gate_after_300_smoke_steps():
 
 
 @pytest.mark.parametrize("overrides, item", [
-    (dict(do_profile=True), "A13"),
-    (dict(checkpoint_dir="ckpt"), "A13"),
     (dict(pipeline_embedding=True), "A10"),
     (dict(embedding_comm_dtype="bfloat16"), "A10"),
 ])
 def test_unported_options_raise(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         mlperf.main("smoke_test", device="cpu", **overrides)
+
+
+def test_checkpoint_resume(tmp_path):
+    """JAX tests/test_examples.py::test_ml_perf_checkpoint_resume on the
+    port, in subprocesses on the CPU: a rerun with the same
+    checkpoint_dir resumes from the saved step 6 instead of starting
+    over."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    script = (
+        "import logging; logging.basicConfig(level=logging.INFO)\n"
+        "from keras_rs_tpu_torch.examples.ml_perf.main import main\n"
+        f"main('smoke_test', device='cpu', num_steps=6, "
+        f"checkpoint_dir={str(tmp_path / 'ck')!r}, checkpoint_every=2)\n"
+    )
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    runs = [subprocess.run([sys.executable, "-c", script], cwd=root,
+                           capture_output=True, text=True, env=env,
+                           timeout=300) for _ in range(2)]
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-2000:]
+    assert "resumed" not in runs[0].stderr + runs[0].stdout
+    assert "resumed from checkpoint step 6" in runs[1].stderr + runs[1].stdout
+    assert sorted(os.listdir(tmp_path / "ck")) == [
+        "step_2.pt", "step_4.pt", "step_6.pt"]
+
+
+def test_profile_writes_a_trace(tmp_path):
+    r = mlperf.main("smoke_test", device="cpu", num_steps=22,
+                    do_profile=True, profile_dir=str(tmp_path / "prof"))
+    traces = os.listdir(tmp_path / "prof")
+    assert len(traces) == 1 and np.isfinite(r["loss"])
+    assert os.path.getsize(tmp_path / "prof" / traces[0]) > 0
+
+
+def test_profile_without_a_directory_writes_under_tmpdir(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", None)  # re-read TMPDIR
+    name, kw = mlperf.parse_args(["--config", "smoke_test", "--device",
+                                  "cpu", "--num_steps", "22", "--profile"])
+    assert "profile_dir" not in kw
+    mlperf.main(name, **kw)
+    traces = os.listdir(tmp_path / "keras_rs_tpu_profile")
+    assert len(traces) == 1
+    assert mlperf.parse_args(["--profile_dir", "p"])[1] == dict(
+        profile_dir="p")
+
+
+def test_resumed_run_continues_the_losses(tmp_path):
+    """6 steps with a checkpoint, then a rerun to 12 steps: it restores
+    step 6 (the dense Adagrad accumulators and the stacked tables, slots
+    and step counters) and, drawing the dummy batches from the start
+    again, trains on batches 0-5. Its final loss equals that of one
+    process that trains 6 steps and then the same 6 batches again."""
+    ck = str(tmp_path / "ck")
+    mlperf.main("smoke_test", device="cpu", num_steps=6, checkpoint_dir=ck,
+                checkpoint_every=6, num_loader_threads=1)
+    resumed = mlperf.main("smoke_test", device="cpu", num_steps=12,
+                          checkpoint_dir=ck, checkpoint_every=6,
+                          num_loader_threads=1)
+    assert sorted(os.listdir(ck)) == ["step_12.pt", "step_6.pt"]
+    batches = list(criteo.CriteoDataset(
+        None, global_batch_size=SMOKE.global_batch_size,
+        vocab_sizes=SMOKE.vocab_sizes,
+        multi_hot_sizes=SMOKE.multi_hot_sizes).dummy_batches(6))
+    model = mlperf.build_model(SMOKE, torch.device("cpu"))
+    step = make_train_step(model, mlperf.make_loss_fn(False),
+                           DenseAdagrad(model.parameters(),
+                                        SMOKE.learning_rate))
+    losses = [float(step(model.preprocess(b))) for b in batches + batches]
+    assert resumed["loss"] == losses[-1]
+    assert float(model.embedding_layer.stack_state(0)["step"]) == 12.0
 
 
 def test_more_than_one_process_raises(monkeypatch):

@@ -86,3 +86,33 @@ def test_cuda_wrapper_rejects_misaligned_state(cuda):
             torch.tensor([4], dtype=torch.int32, device=cuda),
         )
     assert row_ops.apply_scatter_row_blocks.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adagrad", "sgd"])
+def test_cuda_kernel_reads_a_schedule_from_the_device(cuda, name):
+    """A callable learning rate is evaluated at the step counter on the
+    device and read by the kernel from its scalars buffer: no host sync
+    (sync-debug "error"), the plain version's rows."""
+    cls = {"adagrad": optimizers.Adagrad, "sgd": optimizers.SGD}[name]
+    k = 2 if name == "adagrad" else 1
+    opt = cls(learning_rate=lambda step: 0.05 * 0.5 ** step)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    packed = torch.rand((R, k, DIM), generator=g, device=cuda) + 0.1
+    idx = torch.randperm(R, generator=g, device=cuda)[:N].to(torch.int32)
+    args = (idx, torch.randn((N, DIM), generator=g, device=cuda),
+            torch.tensor([3.0], device=cuda), opt,
+            torch.tensor([N], dtype=torch.int32, device=cuda))
+    got, want = packed.clone(), packed.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        row_ops.apply_scatter_row_blocks(got, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    row_ops.apply_scatter_row_blocks_reference(want, *args)
+    torch.testing.assert_close(got, want, rtol=4 * 2.0**-23, atol=1e-12)
+    const = packed.clone()
+    row_ops.apply_scatter_row_blocks(const, idx, args[1], args[2],
+                                     cls(learning_rate=0.05), args[4])
+    assert not torch.equal(const, got)  # the rate at step 3 was used

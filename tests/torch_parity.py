@@ -164,6 +164,24 @@ def train_torch(tmodel, lr, batches):
     return [float(step(tmodel.preprocess(raw))) for raw in batches]
 
 
+def jax_attr(obj, dotted: str):
+    """`obj.a.0.b` for the dotted path "a.0.b" (digits index lists)."""
+    for part in dotted.split("."):
+        obj = obj[int(part)] if part.isdigit() else getattr(obj, part)
+    return obj
+
+
+def load_from_jax(tmodule, jmodule):
+    """Copies into each of `tmodule`'s parameters the JAX module's array
+    at the same attribute path (Dense, MLP, FeatureCross, GRU, GRU4Rec
+    keep the JAX names and layouts); returns `tmodule`."""
+    convert.load_params(tmodule, {
+        name: np.asarray(jax_attr(jmodule, name))
+        for name, _ in tmodule.named_parameters()
+    })
+    return tmodule
+
+
 def jax_block_params(block, prefix: str = "") -> dict:
     """A JAX TransformerBlock's arrays by the port's parameter names."""
     a = block.attention
