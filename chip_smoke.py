@@ -56,6 +56,14 @@ from --seed:
     ml_perf entry point's checkpoint resume and profiling. No new
     kernel: the reference's GRU (lax.scan over jnp), Trainer,
     checkpoints, FeatureCross and DotInteraction reach no Pallas kernel.
+  * pipelined embedding (training/pipelined.py: the next batch's lookup,
+    and its device COO transform, on a side CUDA stream beside the dense
+    compute, one update old) through the ml_perf entry point at full
+    width (--pipeline_embedding, packed f32 + Adagrad, B1) and in the
+    split layout (bf16 tables + row-wise Adagrad at the 4M cap, B3); the
+    six walkthrough examples (basic_ranking, basic_retrieval,
+    listwise_ranking, multi_task, deep_recommender, sas_rec) at their
+    default sizes, which reach no kernel.
 
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
@@ -220,12 +228,37 @@ Phases (any failure raises, so the exit code is not 0):
                    through save_checkpoint / restore_checkpoint where the
                    disk holds it (bytes, s, the device memory restore
                    adds, the state back bit for bit).
+ 30. pipelined     main("full_criteo", pipeline_embedding=True,
+     mlperf        device_preprocessing=True) at the 4M cap: 70 steps and
+                   the chained device step beside phase 16's figures
+                   (B1 once per step, no other kernel); then from the
+                   same weights over the same 8 batches the unpipelined
+                   and the pipelined step: step 0's losses equal, the
+                   losses within 5e-3; the first 3 prefetches equal to a
+                   gather of the same batch on the main stream taken
+                   before the step (the race check) and each B1 call
+                   held to its plain version at phase 2's bound; one step
+                   in sync-debug "error"; the idle share of main's loop
+                   and the ms of prefetch kernels overlapping the main
+                   stream's (profiler trace);
+ 31. pipelined     bf16 tables + row-wise Adagrad at the 4M cap, device
+     split         preprocessing: 8 steps on one batch (loss falls) and 3
+                   fresh, the first 3 race-checked, every row scatter
+                   held to its plain version, B3 once per step; the host
+                   syncs of one step and the overlap left;
+ 32. examples      the six walkthrough examples on the card at their
+                   default sizes (printout kept, headline gated, no
+                   kernel launch); the ml_perf entry point's pipelined
+                   resume (smoke_test: 6 steps with checkpoint_every 3,
+                   then a rerun to 9 that logs "resumed from checkpoint
+                   step 6", finite losses).
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
 just after it (B1 from the packed path, B2 from f32 + Adam, B3 from
 capacity mode, B4 from bf16 + Adagrad, B5-B7 from SASRec). The ml_perf
-path's counts (phase 16) are checked on their own line.
+path's counts (phase 16) and those of phases 30-32 are checked and
+printed on their own lines.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), then one JSON line {"kernels": [...]}, then last one JSON
@@ -244,6 +277,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1730,7 +1764,7 @@ def phase_coo(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def run_mlperf(seed: int, profile: bool) -> None:
+def run_mlperf(seed: int, profile: bool) -> dict:
     """The port's ml_perf `main` at full width (the MLPerf DLRM-DCNv2,
     each vocabulary capped at 4M rows, packed f32 + Adagrad state, batch
     16,384), device preprocessing, learnable dummy batches: MLPERF_STEPS
@@ -1743,7 +1777,9 @@ def run_mlperf(seed: int, profile: bool) -> None:
     step (torch.profiler's kernel and copy rows over 3 steps from the raw
     batch) / main's wall time per step. With `profile`, also the
     profiler's breakdown of 3 device-mode steps (the transform
-    labelled)."""
+    labelled). Returns the device-mode results, with "step_ms" (main's
+    wall time per step) and "busy_ms" (the device time of one whole
+    step) beside them."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
@@ -1860,6 +1896,7 @@ def run_mlperf(seed: int, profile: bool) -> None:
         f"{losses[False]}: differences {diff} (bound {MODE_LOSS_BOUND})")
     if diff[0] != 0.0 or max(diff) > MODE_LOSS_BOUND:
         fail(f"mlperf: device and host modes disagree: {diff}")
+    return dict(r, step_ms=step_ms, busy_ms=busy_ms)
 
 
 def phase_auc() -> None:
@@ -3742,6 +3779,652 @@ def run_a13(dev, seed: int, profile: bool) -> None:
     torch.cuda.empty_cache()
 
 
+
+# --- Pipelined embedding and the walkthrough examples (phases 30-32) -------
+
+#: Phase 30's own steps at full width: the unpipelined and the pipelined
+#: loss per step over the same batches, from the same weights.
+PIPE_STEPS = 8
+#: The first steps of phase 30 (and all of phase 31's first batch steps):
+#: the race check, each prefetch against a main-stream gather, bit for
+#: bit, and B1 held to its plain version.
+PIPE_RACE_STEPS = 3
+#: |pipelined - unpipelined| loss per step over PIPE_STEPS: the one-step
+#: staleness of the activations moves a loss near 0.69 by the size of
+#: one Adagrad update of the rows (lr 0.0034); the largest gap read on an
+#: H100 at seed 0 is 4.8e-6. What the steps compute is held bit for bit
+#: to the same steps with the prefetch on the main stream
+#: (held_to_main_stream), not by this bound.
+PIPE_LOSS_BOUND = 1e-4
+#: Elements per host-to-device chunk when a kept state is compared.
+COMPARE_CHUNK = 1 << 26
+SPLIT_FIXED_STEPS = 8
+SPLIT_FRESH_STEPS = 3
+EXAMPLE_RESUME = (6, 9, 3)  # steps, rerun to, checkpoint_every
+
+
+def profile_streams(label: str, step, batch, steps: int = 3) -> dict:
+    """torch.profiler over `steps` calls of step(batch) after one warm
+    call, read from its Chrome trace: per step, the wall ms, the device
+    time summed over every kernel and copy, the busy time (their union on
+    the timeline: concurrent kernels once), each stream's kernel ms, and
+    the ms of the other streams' kernels that run while a kernel of the
+    main stream (the one with the most kernel time) runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    path = SMOKE_DIR / f"trace-{label.replace(' ', '_')}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    spans = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            spans.append((stream, float(e["ts"]),
+                          float(e["ts"]) + float(e["dur"])))
+    if not spans:
+        fail(f"{label}: the profiler recorded no device activity")
+    per_stream: dict = {}
+    for stream, a, b in spans:
+        per_stream[stream] = per_stream.get(stream, 0.0) + (b - a)
+    main = max(per_stream, key=per_stream.get)
+
+    def union(intervals):
+        merged = []
+        for a, b in sorted(intervals):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    main_spans = union([(a, b) for s, a, b in spans if s == main])
+    overlap = 0.0
+    for s, a, b in spans:
+        if s == main:
+            continue
+        for ma, mb in main_spans:
+            if mb <= a:
+                continue
+            if ma >= b:
+                break
+            overlap += min(b, mb) - max(a, ma)
+    busy = sum(b - a for a, b in union([(a, b) for _, a, b in spans]))
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": sum(per_stream.values()) / 1e3 / steps,
+        "busy_ms": busy / 1e3 / steps,
+        "streams_ms": {str(k): v / 1e3 / steps
+                       for k, v in per_stream.items()},
+        "main_stream": str(main),
+        "overlap_ms": overlap / 1e3 / steps,
+    }
+
+
+def log_streams(label: str, prof: dict) -> None:
+    side = {k: v for k, v in prof["streams_ms"].items()
+            if k != prof["main_stream"]}
+    log(f"[{label} streams] per step: wall {prof['wall_ms']!r} ms; kernels "
+        f"and copies {prof['device_ms']!r} ms, busy {prof['busy_ms']!r} ms "
+        f"on the timeline (device idle {1 - prof['busy_ms'] / prof['wall_ms']:.1%} "
+        f"of the step alone); main stream {prof['main_stream']} "
+        f"{prof['streams_ms'][prof['main_stream']]!r} ms, other streams "
+        f"{side} ms, of which {prof['overlap_ms']!r} ms overlap kernels of "
+        "the main stream")
+
+
+def bits(t):
+    """`t` viewed as integers of its width: equal views are equal bits."""
+    import torch
+
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+@contextlib.contextmanager
+def scatter_held_to_plain():
+    """While open, every row scatter of the split update
+    (scatter_rows_unique_multi: B3 for the table alone, B4 for the table
+    with slots) is held to its plain version: before the launch each
+    table is copied with one spare row and the copy takes
+    `dst[idx[i]] = src[i]` for the live i < n_valid (the dead positions
+    write the spare row); after the kernel the whole table equals the
+    copy without its spare row, bit for bit, so a write to a dead
+    position's destination or to any row outside idx shows. Yields a
+    list with one 0-dim device tensor per call (the count of differing
+    elements over its tables), read once the steps are done: the check
+    makes no host read inside the step."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding import lookup
+
+    launch = lookup.scatter_rows_unique_multi
+    calls: list = []
+
+    def held(tables, idx, rows_list, n_valid=None):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)  # the check's own work
+        n = idx.shape[0]
+        live = torch.arange(n, device=idx.device) < (
+            n if n_valid is None else n_valid.reshape(()))
+        wants = []
+        for table, rows in zip(tables, rows_list):
+            want = torch.empty((table.shape[0] + 1, *table.shape[1:]),
+                               dtype=table.dtype, device=table.device)
+            want[:-1].copy_(table)
+            want.index_copy_(0, torch.where(live, idx.long(), table.shape[0]),
+                             rows.to(table.dtype))
+            wants.append(want)
+        torch.cuda.set_sync_debug_mode(mode)
+        out = launch(tables, idx, rows_list, n_valid)
+        torch.cuda.set_sync_debug_mode(0)
+        calls.append(sum((bits(t) != bits(w[:-1])).sum()
+                         for t, w in zip(tables, wants)))
+        del wants
+        torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    lookup.scatter_rows_unique_multi = held
+    try:
+        yield calls
+    finally:
+        lookup.scatter_rows_unique_multi = launch
+
+
+@contextlib.contextmanager
+def prefetch_on_main_stream():
+    """While open, the pipelined step's side stream is the current
+    stream (the pipelined module's `torch.cuda.Stream(device)` gives
+    `torch.cuda.current_stream(device)`): every kernel of the step runs
+    in program order."""
+    import torch
+
+    from keras_rs_tpu_torch.training import pipelined
+
+    class Cuda:
+        def __getattr__(self, name):
+            return getattr(torch.cuda, name)
+
+        @staticmethod
+        def Stream(device):
+            return torch.cuda.current_stream(device)
+
+    class Torch:
+        cuda = Cuda()
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    pipelined.torch = Torch()
+    try:
+        yield
+    finally:
+        pipelined.torch = torch
+
+
+def held_to_main_stream(label: str, build, n_steps: int) -> dict:
+    """The side-stream pipelined run held, bit for bit, to the same steps
+    with the prefetch on the main stream (prefetch_on_main_stream): the
+    loss of every step and, after the last, the model's whole state
+    (stacked tables, optimizer slots, step counters, dense parameters),
+    the dense optimizer's state and the last prefetch. Both runs take
+    PyTorch's deterministic algorithms (warn_only: the lookup's gradient
+    sum by row, `index_add_`, adds with atomics otherwise; B1 and the row
+    scatter write each row once). `build()` gives (state, step, batches,
+    get_pre) anew from the same seed; step t feeds batches[t] and
+    prefetches batches[t + 1] (the last step its own). The side-stream
+    run's state waits in host memory and is compared in chunks of
+    COMPARE_CHUNK elements. Fails on any difference; returns the losses
+    and the count of compared elements."""
+    import torch
+
+    from keras_rs_tpu_torch.training.train_state import map_tensors
+
+    def run():
+        state, step, batches, get_pre = build()
+        losses = []
+        before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for t in range(n_steps):
+                nxt = get_pre(batches[min(t + 1, len(batches) - 1)])
+                state, loss = step(state, batches[t], nxt)
+                losses.append(loss)
+        finally:
+            torch.use_deterministic_algorithms(before)
+        torch.cuda.synchronize()
+        found = {f"model.{k}": v
+                 for k, v in state.model.state_dict().items()}
+        slots: list = []
+        map_tensors(state.optimizer.state_dict(), slots.append)
+        found.update({f"optimizer.{i}": v for i, v in enumerate(slots)})
+        found.update({f"prefetch.{k}": v
+                      for k, v in state.prefetched.acts.items()})
+        return [float(x) for x in losses], found
+
+    t0 = time.perf_counter()
+    side_losses, found = run()
+    kept = {k: v.detach().to("cpu") for k, v in found.items()}
+    del found
+    torch.cuda.empty_cache()
+    with prefetch_on_main_stream():
+        main_losses, found = run()
+    differ, elements = {}, 0
+    for k, v in found.items():
+        host = kept.pop(k, None)
+        if host is None or host.shape != v.shape or host.dtype != v.dtype:
+            differ[k] = "shape or dtype"
+            continue
+        flat, hflat = v.reshape(-1), host.reshape(-1)
+        bad = 0
+        for i in range(0, flat.numel(), COMPARE_CHUNK):
+            chunk = hflat[i:i + COMPARE_CHUNK].to(v.device)
+            bad += int((bits(chunk) != bits(flat[i:i + COMPARE_CHUNK])).sum())
+        elements += flat.numel()
+        if bad:
+            differ[k] = bad
+    differ.update({k: "missing" for k in kept})
+    del found, kept
+    torch.cuda.empty_cache()
+    log(f"[{label} streams held] {n_steps} steps, side stream against the "
+        f"main stream, deterministic algorithms: losses {side_losses} "
+        f"against {main_losses}; final state {elements} elements compared "
+        f"bit for bit, differing {differ or 0}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if side_losses != main_losses or differ:
+        fail(f"{label}: the side-stream run differs from the main-stream "
+             f"run: losses {side_losses} against {main_losses}, state "
+             f"{differ}")
+    return {"losses": side_losses, "elements": elements}
+
+
+def race_checked_step(pstep, state, batch, nxt, embed_fn, checks: list):
+    """One pipelined step, its prefetch held to a gather of the same
+    next batch enqueued on the main stream before the step: the count of
+    differing elements goes into `checks` as a device tensor."""
+    from keras_rs_tpu_torch.training import pipelined
+
+    ref = pipelined.prime(state.model, nxt, embed_fn).acts
+    state, loss = pstep(state, batch, nxt)
+    checks.append(sum((state.prefetched.acts[k] != ref[k]).sum()
+                      for k in ref))
+    return state, loss
+
+
+def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
+    """Phase 30: pipelined embedding in the ml_perf entry point at full
+    width, device preprocessing (packed f32 + Adagrad at the 4M cap,
+    batch 16,384). `main(..., pipeline_embedding=True)` for MLPERF_STEPS
+    steps and the chained device step, held to phase 16's figures of
+    this call; then, from the same weights over the same PIPE_STEPS
+    batches, the unpipelined and the pipelined step: step 0's losses
+    equal, every loss within PIPE_LOSS_BOUND, the first PIPE_RACE_STEPS
+    prefetches equal to a main-stream gather bit for bit with each B1
+    call held to its plain version, B1 once per step and stack and no
+    other launch, no host sync in a step (sync-debug "error"); the
+    device's idle share of main's loop and the ms of prefetch kernels
+    that overlap the main stream's (profiler trace), for the whole step
+    from the raw host batch and for the chained step; last, the same
+    PIPE_STEPS steps under deterministic algorithms held bit for bit
+    to the prefetch on the main stream (held_to_main_stream)."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training import pipelined
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    r = mlperf.main("full_criteo", device=dev, num_steps=MLPERF_STEPS,
+                    vocab_sizes=capped, device_preprocessing=True,
+                    pipeline_embedding=True, honest_timing=True)
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    want_b1 = MLPERF_STEPS + MLPERF_TIMING_STEPS
+    want = {k: want_b1 if k == "apply_scatter_row_blocks" else 0
+            for k in counts}
+    log(f"[launches] phase 30 pipelined main: {counts}")
+    if counts != want:
+        fail(f"pipelined mlperf: launches {counts}, expected {want}")
+    if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+        fail(f"pipelined mlperf: results {r}")
+    step_ms = BATCH / r["throughput"] * 1e3
+    log(f"[pipelined mlperf] results {r}; {wall:.1f} s in main; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[pipelined mlperf] end to end {r['throughput']:.0f} examples/s "
+        f"({step_ms!r} ms per step) against {unpipelined['throughput']:.0f} "
+        f"unpipelined (phase 16, this call); chained device step "
+        f"{r['device_step_ms']!r} ms against "
+        f"{unpipelined['device_step_ms']!r} ms unpipelined; final loss "
+        f"{r['loss']!r} against {unpipelined['loss']!r}")
+    torch.cuda.empty_cache()
+
+    cfg = configs.full_criteo(vocab_sizes=capped)
+    raws = list(CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(
+            PIPE_STEPS + 1, seed=seed + 30))
+    model = mlperf.build_model(cfg, dev)
+    step = make_train_step(model, mlperf.make_loss_fn(True),
+                           DenseAdagrad(model.parameters(),
+                                        cfg.learning_rate))
+    plain_losses = [float(step(model.to_device(b)))
+                    for b in raws[:PIPE_STEPS]]
+    del model, step
+    torch.cuda.empty_cache()
+
+    def build():
+        model = mlperf.build_model(cfg, dev)
+        opt = DenseAdagrad(model.parameters(), cfg.learning_rate)
+        embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+        batches = [model.to_device(b) for b in raws]
+        state = pipelined.create_pipelined_train_state(
+            model, opt, get_pre(batches[0]), embed_fn)
+        pstep = pipelined.make_pipelined_train_step(bce_loss, opt, embed_fn,
+                                                    get_pre, inject)
+        return state, pstep, batches, get_pre
+
+    state, pstep, batches, get_pre = build()
+    model = state.model
+    embed_fn = mlperf.pipeline_fns(model, True)[0]
+    n_stacks = len(model.embedding_layer.stacks)
+    reset_launch_counts()
+    losses, races = [], []
+    with b1_held_to_plain() as b1_calls:
+        for i in range(PIPE_RACE_STEPS):
+            state, loss = race_checked_step(
+                pstep, state, batches[i], get_pre(batches[i + 1]),
+                embed_fn, races)
+            losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # One step with every host sync an error.
+        state, loss = pstep(state, batches[PIPE_RACE_STEPS],
+                            get_pre(batches[PIPE_RACE_STEPS + 1]))
+    except RuntimeError as e:
+        fail(f"pipelined step: a host sync in sync-debug 'error': {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(loss)
+    for i in range(PIPE_RACE_STEPS + 1, PIPE_STEPS):
+        state, loss = pstep(state, batches[i], get_pre(batches[i + 1]))
+        losses.append(loss)
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    races = [int(x) for x in races]
+    b1 = [{k: float(v) for k, v in c.items()} for c in b1_calls]
+    gaps = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    log(f"[launches] phase 30 pipelined steps: {counts}")
+    log(f"[pipelined] {PIPE_STEPS} steps at batch {BATCH}: losses "
+        f"{losses} against unpipelined {plain_losses} from the same "
+        f"weights: gaps {gaps} (step 0 equal: {gaps[0] == 0.0}; bound "
+        f"{PIPE_LOSS_BOUND}); prefetch against a main-stream gather, "
+        f"elements differing per step {races}; B1 against its plain "
+        f"version per call {b1}; step {PIPE_RACE_STEPS} ran in "
+        f"sync-debug 'error' (0 host syncs)")
+    if gaps[0] != 0.0:
+        fail(f"pipelined step 0 differs from the unpipelined step 0: "
+             f"{gaps[0]}")
+    if (not all(map(math.isfinite, losses))
+            or max(gaps) > PIPE_LOSS_BOUND):
+        fail(f"pipelined losses do not track the unpipelined run: {gaps}")
+    if any(races):
+        fail(f"pipelined prefetch differs from the main-stream gather: "
+             f"{races}")
+    if len(b1) != PIPE_RACE_STEPS * n_stacks or any(c["bad"] for c in b1):
+        fail(f"pipelined B1 calls against the plain version: {b1}")
+    want = {k: PIPE_STEPS * n_stacks if k == "apply_scatter_row_blocks"
+            else 0 for k in counts}
+    if counts != want:
+        fail(f"pipelined steps: launches {counts}, expected {want}")
+
+    def whole_step(raw):
+        on_card = model.to_device(raw)
+        return pstep(state, on_card, get_pre(on_card))[1]
+
+    prof = profile_streams("pipelined mlperf", whole_step, raws[0])
+    log_streams("pipelined", prof)
+    # The chained form (--honest_timing's): the batch already on the
+    # card, the host ahead of the device.
+    log_streams("pipelined chained", profile_streams(
+        "pipelined chained", lambda b: pstep(state, b, get_pre(b))[1],
+        batches[0]))
+    log(f"[pipelined mlperf] device idle {1 - prof['busy_ms'] / step_ms:.1%}"
+        f" of main's loop: {prof['busy_ms']!r} ms busy per whole step "
+        f"(profiler, 3 steps from the raw batch) against {step_ms!r} ms of "
+        f"wall time per step (unpipelined, phase 16: "
+        f"{1 - unpipelined['busy_ms'] / unpipelined['step_ms']:.1%})")
+    if profile:
+        phase_profile("pipelined mlperf", whole_step, raws[0],
+                      MLPERF_PROFILE_PARTS)
+    del model, state, pstep, batches, whole_step
+    torch.cuda.empty_cache()
+    held_to_main_stream("pipelined", build, PIPE_STEPS)
+
+
+def run_pipelined_split(dev, seed: int, profile: bool) -> None:
+    """Phase 31: the pipelined step in the split layout, bf16 tables with
+    row-wise Adagrad at the 4M cap, device preprocessing: 8 steps on one
+    batch (loss falls), 3 fresh; the first PIPE_RACE_STEPS race-checked
+    and every row scatter held to its plain version; B3 once per step and
+    stack, no other launch; the host syncs of one step (the rounding's
+    seed reads the step counter) and the overlap that is left; last, the
+    same steps under deterministic algorithms held bit for bit to the
+    prefetch on the main stream (held_to_main_stream)."""
+    import torch
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training import pipelined
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+
+    cfg = slice_config(table_dtype="bfloat16",
+                       embedding_optimizer="rowwise_adagrad")
+    raws = ([dlrm_batch(cfg, seed)] * SPLIT_FIXED_STEPS
+            + [dlrm_batch(cfg, seed + 1 + s)
+               for s in range(SPLIT_FRESH_STEPS)])
+
+    def build():
+        model = build_dlrm("pipelined split", cfg, seed)
+        opt = DenseAdagrad(model.parameters(), cfg.learning_rate)
+        embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+        order = [model.to_device(r) for r in raws]
+        state = pipelined.create_pipelined_train_state(
+            model, opt, get_pre(order[0]), embed_fn)
+        pstep = pipelined.make_pipelined_train_step(bce_loss, opt, embed_fn,
+                                                    get_pre, inject)
+        return state, pstep, order, get_pre
+
+    state, pstep, order, get_pre = build()
+    model = state.model
+    embed_fn = mlperf.pipeline_fns(model, True)[0]
+    (stack,) = model.embedding_layer.stacks
+    if stack.packed_state or stack.dtype != "bfloat16":
+        fail("pipelined split: the stack is not a bf16 split stack")
+    fixed, fresh = order[0], order[SPLIT_FIXED_STEPS:]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, races = [], []
+    with scatter_held_to_plain() as scatters:
+        for i, batch in enumerate(order):
+            nxt = get_pre(order[min(i + 1, len(order) - 1)])
+            if i < PIPE_RACE_STEPS:
+                state, loss = race_checked_step(pstep, state, batch, nxt,
+                                                embed_fn, races)
+            else:
+                state, loss = pstep(state, batch, nxt)
+            losses.append(loss)
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    races = [int(x) for x in races]
+    scatters = [int(x) for x in scatters]
+    n = len(order)
+    log(f"[launches] phase 31 pipelined split: {counts}")
+    log(f"[pipelined split] {n} steps: losses {losses}; prefetch against a "
+        f"main-stream gather, elements differing {races}; row scatters "
+        f"against the plain version, elements differing per call "
+        f"{scatters}; step counter "
+        f"{float(model.embedding_layer.stack_state(0)['step'])}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not all(map(math.isfinite, losses)):
+        fail(f"pipelined split: non-finite losses {losses}")
+    if not losses[SPLIT_FIXED_STEPS - 1] < losses[0]:
+        fail(f"pipelined split: loss did not fall on the fixed batch: "
+             f"{losses}")
+    if any(races) or len(scatters) != n or any(scatters):
+        fail(f"pipelined split: race {races}, scatters {scatters}")
+    want = {k: n if k == "scatter_rows" else 0 for k in counts}
+    if counts != want:
+        fail(f"pipelined split: launches {counts}, expected {want}")
+    sites = sync_sites(lambda: pstep(state, fresh[-1], get_pre(fresh[-1])))
+    log(f"[pipelined split] host syncs of one step: {len(sites)} {sites}")
+    log_streams("pipelined split chained", profile_streams(
+        "pipelined split", lambda b: pstep(state, b, get_pre(b))[1], fixed))
+    if profile:
+        phase_profile("pipelined split", lambda b: pstep(state, b,
+                                                         get_pre(b))[1],
+                      fixed, CAPACITY_PROFILE_PARTS)
+    del model, state, pstep, fixed, fresh, order
+    torch.cuda.empty_cache()
+    held_to_main_stream("pipelined split", build,
+                        SPLIT_FIXED_STEPS + SPLIT_FRESH_STEPS)
+
+
+WALKTHROUGHS = [
+    # (module, the line the JAX example test greps for, gate of the
+    # headline number, what it is)
+    ("basic_ranking", "test RMSE", lambda x: 0.0 < x < 0.5,
+     "held-out RMSE below 0.5 (mean predictor ~0.93)"),
+    ("basic_retrieval", "serving export round-trip OK",
+     lambda x: 0.2 < x <= 1.0, "recall@10 above 0.2 (popularity ~0.12)"),
+    ("listwise_ranking", "NDCG@5", lambda x: 0.8 < x <= 1.0,
+     "best NDCG@5 above 0.8 (a random ranking ~0.75)"),
+    ("multi_task", "rating RMSE", lambda x: 0.0 < x < 1.0,
+     "joint rating RMSE below 1.0"),
+    ("deep_recommender", "recall@10", lambda x: 0.1 < x <= 1.0,
+     "recall@10 above 0.1"),
+    ("sas_rec", "recall", lambda x: 0.06 < x <= 1.0,
+     "recall@10 above 0.06 (popularity ~0.03)"),
+]
+
+
+def run_walkthroughs(dev) -> None:
+    """Phase 32: the six walkthrough examples on the card at their
+    default sizes, each printout kept and its headline gated (the CPU
+    test's range, and the bound named in WALKTHROUGHS), no kernel
+    launched (SASRec at T 20 takes the einsum path); then the ml_perf
+    entry point's pipelined resume, its launch counts zeroed just before:
+    6 steps with checkpoint_every 3, a rerun to 9 that logs "resumed from
+    checkpoint step 6" with finite losses, one row kernel per step and
+    stack, each row scatter held to its plain version
+    (scatter_held_to_plain)."""
+    import importlib
+    import io
+    import shutil
+
+    import torch
+
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+
+    reset_launch_counts()
+    for name, expect, gate, what in WALKTHROUGHS:
+        module = importlib.import_module(f"keras_rs_tpu_torch.examples.{name}")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            headline = module.main(dev)
+        seconds = time.perf_counter() - t
+        for line in out.getvalue().splitlines():
+            log(f"[example {name}] {line}")
+        log(f"[example {name}] headline {headline!r} in {seconds:.1f} s; "
+            f"gate: {what}")
+        if expect not in out.getvalue():
+            fail(f"example {name}: no '{expect}' line")
+        if not (math.isfinite(headline) and gate(headline)):
+            fail(f"example {name}: headline {headline} fails '{what}'")
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    log(f"[launches] phase 32 examples: {counts}")
+    if any(counts.values()):
+        fail(f"the walkthrough examples launched kernels: {counts}")
+
+    work = SMOKE_DIR / "pipelined_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    messages: list[str] = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Collect()
+    logging.getLogger("ml_perf").addHandler(handler)
+    steps, rerun_to, every = EXAMPLE_RESUME
+    n_stacks = len(mlperf.build_model(configs.smoke_test(),
+                                      dev).embedding_layer.stacks)
+    runs, logs = [], []
+    reset_launch_counts()
+    try:
+        with scatter_held_to_plain() as scatters:
+            for num_steps in (steps, rerun_to):
+                del messages[:]
+                runs.append(mlperf.main(
+                    "smoke_test", device=dev, num_steps=num_steps,
+                    checkpoint_dir=str(work / "ck"), checkpoint_every=every,
+                    pipeline_embedding=True))
+                logs.append(list(messages))
+    finally:
+        logging.getLogger("ml_perf").removeHandler(handler)
+    counts = launch_counts()
+    scatters = [int(x) for x in scatters]
+    saved = sorted(os.listdir(work / "ck"))
+    shutil.rmtree(work, ignore_errors=True)
+    row = sum(counts[k] for k in ROW_KERNELS)
+    log(f"[launches] phase 32 pipelined resume: {counts}")
+    log(f"[pipelined resume] ml_perf smoke_test, pipelined: {steps} steps "
+        f"with checkpoint_every {every}, then a rerun to {rerun_to}: losses "
+        f"{[x['loss'] for x in runs]}; checkpoints {saved}; the rerun "
+        f"logged {[m for m in logs[1] if 'resumed' in m]}; row scatters "
+        f"against the plain version, elements differing per call "
+        f"{scatters}")
+    if len(scatters) != rerun_to * n_stacks or any(scatters):
+        fail(f"pipelined resume: row scatters against the plain version "
+             f"{scatters}, expected {rerun_to * n_stacks} calls, all 0")
+    if any("resumed" in m for m in logs[0]) or not any(
+            f"resumed from checkpoint step {steps}" in m for m in logs[1]):
+        fail("pipelined resume: the rerun did not resume")
+    if not all(math.isfinite(x["loss"]) for x in runs):
+        fail(f"pipelined resume: losses {runs}")
+    if row != rerun_to * n_stacks or any(counts[k] for k in FLASH_KERNELS):
+        fail(f"pipelined resume: launches {counts}, expected one row "
+             f"kernel per step and stack ({rerun_to * n_stacks})")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3777,7 +4460,7 @@ def main() -> int:
     kernels += run_sasrec(args.seed, args.profile)
     log(f"[time] SASRec phases done at {time.perf_counter() - t0:.1f} s")
     phase_coo(args.seed)
-    run_mlperf(args.seed, args.profile)
+    unpipelined = run_mlperf(args.seed, args.profile)
     phase_auc()
     log(f"[time] COO, ml_perf and AUC phases done at "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3795,6 +4478,11 @@ def main() -> int:
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
     run_a13(dev, args.seed, args.profile)
     log(f"[time] GRU4Rec, layer and checkpoint phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_pipelined(dev, args.seed, args.profile, unpipelined)
+    run_pipelined_split(dev, args.seed, args.profile)
+    run_walkthroughs(dev)
+    log(f"[time] pipelined and walkthrough phases done at "
         f"{time.perf_counter() - t0:.1f} s")
 
     log(card)

@@ -22,6 +22,9 @@ validation, checkpoints of training/checkpoint.py, metrics log,
 profiling, evaluate), the full-rank FeatureCross, DotInteraction,
 regularizers (core/regularizers.py), the registry of core/serialization.py
 and learning-rate schedules for the embedding optimizers, which reach no
-kernel beyond B1 (a schedule's rate is read from the device). Modules
-build on cuda:0 unless given `device=` (utils/device.py).
+kernel beyond B1 (a schedule's rate is read from the device); pipelined
+embedding (training/pipelined.py: the next batch's lookup on a side CUDA
+stream, one update old, B1 or B3 in every step), has_aux loss functions
+and the walkthrough examples (examples/). Modules build on cuda:0 unless
+given `device=` (utils/device.py).
 """

@@ -4,9 +4,9 @@ The port's copy of examples/ml_perf/configs.py, with the same names and
 values: the full 26-feature Criteo vocabulary (4x40M, 3M, 590k, ...),
 embedding_dim 128, Adagrad lr 0.0034, global batch 16384, max_ids 8192 /
 max_unique 4096, embedding_threshold 21000 (the reference's
-configs/v6e_8.py:15-190, 202-205). Some fields select paths the port's
-main.py does not have yet; main.py raises for them rather than ignore
-them (pipelined embedding, the multi-device exchange dtype).
+configs/v6e_8.py:15-190, 202-205). One field selects a path the port's
+main.py does not have yet; main.py raises for it rather than ignore it
+(the multi-device exchange dtype).
 """
 
 from __future__ import annotations
@@ -66,9 +66,10 @@ class ExperimentConfig:
     device_unique_factor: int = 4
     #: One-step-stale pipelined embedding execution (the reference TF
     #: backend's `pipeline_execution_with_tensor_core`): the lookup for
-    #: batch t+1 overlaps batch t's dense compute, at the cost of lookups
-    #: being one update old. Not ported yet (ROADMAP A10): main.py
-    #: raises.
+    #: batch t+1 runs on a side CUDA stream beside batch t's dense
+    #: compute (training/pipelined.py), at the cost of lookups being one
+    #: update old. A resumed pipelined run re-primes the prefetch from
+    #: its first batch.
     pipeline_embedding: bool = False
     do_profile: bool = False
     #: After training, measure the train step's device time over chained

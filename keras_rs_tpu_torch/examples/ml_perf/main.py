@@ -24,7 +24,10 @@ optimizer are saved (training/checkpoint.py), and a rerun resumes from
 the latest step, logging "resumed from checkpoint step N" as the JAX
 entry point does. `--profile` (or KRT_PROFILE_DIR) traces steps 10-20
 with torch.profiler into `profile_dir` (`--profile_dir`; by default
-`keras_rs_tpu_profile` under TMPDIR). Pipelined embedding, the
+`keras_rs_tpu_profile` under TMPDIR). `--pipeline_embedding` trains
+with one-step-stale lookups (training/pipelined.py): the lookup of the
+next batch, and in device mode its COO transform, runs on a side CUDA
+stream beside the dense compute, with one batch of lookahead. The
 multi-device exchange dtype and more than one process are not ported:
 main raises NotImplementedError for each.
 
@@ -55,6 +58,7 @@ from keras_rs_tpu_torch.examples.ml_perf.configs import (
 )
 from keras_rs_tpu_torch.metrics.classification import AUC, BinaryAccuracy
 from keras_rs_tpu_torch.models.dlrm import DLRMConfig, DLRMDCNv2, bce_loss
+from keras_rs_tpu_torch.training import pipelined as pipelining
 from keras_rs_tpu_torch.training.checkpoint import CheckpointManager
 from keras_rs_tpu_torch.training.trainer import (
     start_profiler,
@@ -86,9 +90,6 @@ def binary_auc(labels: np.ndarray, scores: np.ndarray) -> float:
 def check_supported(cfg: ExperimentConfig) -> None:
     """Raises NotImplementedError for what the port does not run yet."""
     missing = []
-    if cfg.pipeline_embedding:
-        missing.append("pipelined embedding (--pipeline_embedding; "
-                       "ROADMAP A10)")
     if cfg.embedding_comm_dtype is not None:
         missing.append("the multi-device exchange dtype "
                        "(embedding_comm_dtype; ROADMAP A10)")
@@ -157,6 +158,26 @@ def make_loss_fn(device_preprocessing: bool):
     return bce_loss
 
 
+def pipeline_fns(model: DLRMDCNv2, device_preprocessing: bool):
+    """(embed_fn, get_pre, inject) of the pipelined step
+    (training/pipelined.py): in device mode the large features' raw ids
+    are the embedding input and the COO transform runs inside the
+    prefetch (JAX main.py:170-200); small-table ids and dense floats are
+    consumed raw by the model."""
+    if not device_preprocessing:
+        return pipelining.dlrm_pipeline_fns()
+    _, _, inject = pipelining.dlrm_pipeline_fns()
+
+    def embed_fn(m: DLRMDCNv2, raw_large: dict):
+        layer = m.embedding_layer
+        return layer, layer.preprocess_on_device(raw_large)
+
+    def get_pre(batch: dict) -> dict:
+        return {f"cat_{i}": batch[f"cat_{i}"] for i in model.large_idx}
+
+    return embed_fn, get_pre, inject
+
+
 def _raw(batch: dict) -> dict:
     return {k: np.asarray(v) for k, v in batch.items()}
 
@@ -210,9 +231,24 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
         num_workers=cfg.num_loader_threads,
     )
     optimizer = DenseAdagrad(model.parameters(), cfg.learning_rate)
-    step_fn = make_train_step(model, make_loss_fn(cfg.device_preprocessing),
-                              optimizer)
-    state = {"model": model, "optimizer": optimizer}
+    pipelined = (cfg.pipeline_embedding
+                 and model.embedding_layer is not None)
+    next_batch = None
+    if pipelined:
+        embed_fn, get_pre, inject = pipeline_fns(model,
+                                                 cfg.device_preprocessing)
+        next_batch = next(loader)
+        state = pipelining.create_pipelined_train_state(
+            model, optimizer, get_pre(next_batch), embed_fn)
+        pipelined_step = pipelining.make_pipelined_train_step(
+            bce_loss, optimizer, embed_fn, get_pre, inject)
+
+        def step_fn(batch: dict, next_pre: Any) -> torch.Tensor:
+            return pipelined_step(state, batch, next_pre)[1]
+    else:
+        step_fn = make_train_step(
+            model, make_loss_fn(cfg.device_preprocessing), optimizer)
+        state = {"model": model, "optimizer": optimizer}
     ckpt = (CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir
             else None)
     # Checkpoint-restart: a rerun with the same checkpoint_dir resumes
@@ -222,6 +258,11 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
         start_step = ckpt.latest_step()
         ckpt.restore(start_step, state)
         logger.info("resumed from checkpoint step %d", start_step)
+        if pipelined and start_step < cfg.num_steps:
+            # The checkpoint holds no prefetch: prime it from the
+            # resumed loop's first batch (step-0 semantics).
+            state.prefetched = pipelining.prime(
+                model, get_pre(next_batch), embed_fn)
 
     def dropped_ids(batch: dict) -> int:
         """Device mode drops ids over a capacity without a warning: one
@@ -276,8 +317,17 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     for step in range(start_step, cfg.num_steps):
         if cfg.do_profile and step == 10:
             profiler = start_profiler(device)
-        batch = next(loader)
-        loss = step_fn(batch)
+        if pipelined:
+            # One batch of lookahead: the step prefetches the next
+            # batch's activations; the last step feeds its own batch
+            # again (the prefetch is discarded).
+            batch = next_batch
+            if step + 1 < cfg.num_steps:
+                next_batch = next(loader)
+            loss = step_fn(batch, get_pre(next_batch))
+        else:
+            batch = next(loader)
+            loss = step_fn(batch)
         losses.append(loss)
         if step - start_step + 1 == warmup:
             # Throughput counts from here (first-call costs excluded).
@@ -327,7 +377,14 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     if cfg.honest_timing and batch is not None:
         from keras_rs_tpu_torch.utils.timing import measure_step_time
 
-        device_step_ms = measure_step_time(step_fn, batch) * 1e3
+        timed_step = step_fn
+        if pipelined:
+            # Chained on the measured batch, its own embedding input as
+            # the prefetch target: the work of a real lookahead step.
+            def timed_step(b: dict) -> torch.Tensor:
+                return step_fn(b, get_pre(b))
+
+        device_step_ms = measure_step_time(timed_step, batch) * 1e3
         logger.info("device step: %.3f ms (%.1f ex/s on the device)",
                     device_step_ms,
                     cfg.global_batch_size / device_step_ms * 1e3)
@@ -388,8 +445,11 @@ def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
         "--eval_every", type=int, default=None,
         help="evaluate every N steps and record an AUC curve",
     )
-    parser.add_argument("--pipeline_embedding", action="store_true",
-                        help="not ported (raises)")
+    parser.add_argument(
+        "--pipeline_embedding", action="store_true",
+        help="one-step-stale lookups: the next batch's lookup runs on a "
+        "side CUDA stream beside the dense compute",
+    )
     parser.add_argument(
         "--honest_timing", action="store_true",
         help="after training, measure the device step time with CUDA "

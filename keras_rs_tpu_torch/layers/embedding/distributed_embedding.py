@@ -18,6 +18,9 @@ Usage:
                                      # on the device from device tensors
     activations = layer(pre)         # backward updates the stacked
                                      # tables in place (Overwrite contract)
+    layer.apply_cotangents(pre, d_activations)  # the same update from a
+                                     # cotangent computed elsewhere
+                                     # (training/pipelined.py)
 
 Feature inputs are id arrays shaped as the feature declares, `Ragged`
 batches (data/ragged.py) or sparse id matrices (data/sparse_utils.py),
@@ -67,8 +70,10 @@ from keras_rs_tpu_torch.layers.embedding.embed_reduce import (
 from keras_rs_tpu_torch.layers.embedding.optimizers import SGD
 from keras_rs_tpu_torch.layers.embedding.lookup import (
     init_stack_state,
+    merge_cotangents,
     split_activations,
     stack_lookup,
+    stack_update,
 )
 from keras_rs_tpu_torch.layers.embedding.preprocessing import (
     CooBatch,
@@ -341,6 +346,39 @@ class DistributedEmbedding(nn.Module):
             out_shape = tuple(fc.output_shape[:-1]) + (act.shape[-1],)
             outs.append(act.reshape(out_shape))
         return dict(zip(self._keys, outs))
+
+    def apply_cotangents(self, pre: dict[str, Any],
+                         d_acts: Mapping[str, Any]) -> None:
+        """The training update of a lookup from its activations'
+        cotangent alone: what the backward of `self(pre)` does, without
+        running the forward again (the JAX pipelined step's vjp,
+        training/pipelined.py).
+
+        `pre` is the preprocessed batch the activations were gathered for
+        and `d_acts` their cotangents, keyed like `forward`'s output (None
+        counts as zero). Each stack takes its features' cotangents in its
+        segment layout (`lookup.merge_cotangents`) and updates its state
+        in place (`stack_update`: the fused optimizer, the step counter). The dense-placement tables run
+        their lookup through autograd, so their gradients accumulate in
+        `.grad` for the dense optimizer.
+        """
+        d_by_name = {fc.name: d_acts[k]
+                     for k, fc in zip(self._keys, self._feature_leaves)}
+        for i, stack in enumerate(self.stacks):
+            stack_update(stack, self.stack_state(i),
+                         pre["sharded"][stack.name],
+                         merge_cotangents(stack, d_by_name, self.device))
+        outs, grads = [], []
+        with torch.enable_grad():
+            for name, (ids, w) in pre["dense"].items():
+                if d_by_name[name] is None:
+                    continue
+                act = self.dense_tables[self._dense_feature_to_table[name]](
+                    ids, w)
+                outs.append(act)
+                grads.append(d_by_name[name].reshape(act.shape).to(act.dtype))
+            if outs:
+                torch.autograd.backward(outs, grads)
 
     # ------------------------------------------------------------------
     @torch.no_grad()

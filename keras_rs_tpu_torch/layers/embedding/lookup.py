@@ -3,18 +3,19 @@
 Counterpart of keras_rs_tpu/layers/embedding/lookup.py at one device, for
 both state layouts (init_stack_state).
 
-  forward  (construction order, lookup.py:275-302): gather each entry's
-    table row (bf16 rows cast to f32), then per feature a dense
-    [B, L, dim] * gain sum over L. Where the construction-order arrays
-    are absent (a feature's ids narrower or wider than its declared
-    valence, e.g. a densified Ragged batch, or a bucket capacity below
-    the entry count) the sorted forward runs instead (lookup.py:213-249
-    at D = 1): gather the rows of the bucketed entries, scale them by
-    their gains and segment-sum them into the B * F segments.
-  backward (lookup.py:330-523): gather the cotangent by each entry's
-    segment and scale by its gain, segment-sum into the U unique rows,
-    then update the live unique rows (the first n_valid of U, counted on
-    the device):
+  forward  (`stack_gather`; construction order, lookup.py:275-302):
+    gather each entry's table row (bf16 rows cast to f32), then per
+    feature a dense [B, L, dim] * gain sum over L. Where the
+    construction-order arrays are absent (a feature's ids narrower or
+    wider than its declared valence, e.g. a densified Ragged batch, or a
+    bucket capacity below the entry count) the sorted forward runs
+    instead (lookup.py:213-249 at D = 1): gather the rows of the
+    bucketed entries, scale them by their gains and segment-sum them
+    into the B * F segments.
+  backward (`stack_update`, lookup.py:330-523): gather the cotangent by
+    each entry's segment and scale by its gain, segment-sum into the U
+    unique rows, then update the live unique rows (the first n_valid of
+    U, counted on the device):
       * packed state, Adagrad or SGD: one fused read-apply-write per row
         (ops/row_ops.py::apply_scatter_row_blocks, kernel B1);
       * packed state, other optimizers (Adam, FTRL): gather the [k, dim]
@@ -29,12 +30,15 @@ both state layouts (init_stack_state).
 The update follows the Overwrite contract of the JAX package
 (training/train_state.py:30-35): the backward pass writes the new table
 and optimizer slots into the state in place and adds 1 to the stack's
-step counter; autograd returns no gradient for the state.
+step counter; autograd returns no gradient for the state. The two
+halves are also plain functions, so a pipelined step
+(training/pipelined.py) gathers without autograd and updates from a
+cotangent it computed elsewhere.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 
@@ -99,6 +103,14 @@ def _rows(stack: TableStack, table: torch.Tensor,
     return table[slots, 0] if stack.packed_state else table[slots]
 
 
+def stack_gather(stack: TableStack, state: Mapping[str, torch.Tensor],
+                 coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The lookup's forward without autograd: activations [B * F, dim]
+    (sample-major) of the stack's table for the batch of `coo`. It only
+    reads the state."""
+    return _forward(stack, state["table"], coo)
+
+
 def _forward(stack: TableStack, table: torch.Tensor,
              coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
     if "fwd_slots" not in coo:
@@ -132,9 +144,14 @@ def _forward_sorted(stack: TableStack, table: torch.Tensor,
     ).index_add_(0, coo["recv_segs"], contrib)
 
 
-def _backward_update(stack: TableStack, state: dict[str, torch.Tensor],
-                     coo: Mapping[str, torch.Tensor],
-                     d_acts: torch.Tensor) -> None:
+def stack_update(stack: TableStack, state: dict[str, torch.Tensor],
+                 coo: Mapping[str, torch.Tensor],
+                 d_acts: torch.Tensor) -> None:
+    """The lookup's backward: applies the stack's optimizer to `state` in
+    place from the activations' cotangent `d_acts` [B * F, dim] of the
+    batch of `coo`, and adds 1 to the step counter. It needs only the COO
+    arrays and the cotangent, not the forward's activations, so a
+    pipelined step updates the tables without a second gather."""
     U = stack.max_unique_ids_per_shard
     dim = stack.stack_dim
     # Per-entry gradient: the cotangent of the entry's segment times its
@@ -227,11 +244,11 @@ class _StackLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, anchor, stack, state, coo):
         ctx.stack, ctx.state, ctx.coo = stack, state, coo
-        return _forward(stack, state["table"], coo)
+        return stack_gather(stack, state, coo)
 
     @staticmethod
     def backward(ctx, d_acts):
-        _backward_update(ctx.stack, ctx.state, ctx.coo, d_acts)
+        stack_update(ctx.stack, ctx.state, ctx.coo, d_acts)
         return None, None, None, None
 
 
@@ -248,12 +265,13 @@ def stack_lookup(
     recv_gains, entry_unique (int64) and unique_slots (int32), all
     flattened.
     Returns activations [B * F, dim] (sample-major). When grad mode is on,
-    the backward pass applies the stack's optimizer to `state` in place.
+    the backward pass applies the stack's optimizer to `state` in place;
+    when it is off, this is `stack_gather`.
     """
-    anchor = torch.zeros(
-        (), device=state["table"].device,
-        requires_grad=torch.is_grad_enabled(),
-    )
+    if not torch.is_grad_enabled():
+        return stack_gather(stack, state, coo)
+    anchor = torch.zeros((), device=state["table"].device,
+                         requires_grad=True)
     return _StackLookup.apply(anchor, stack, state, coo)
 
 
@@ -267,3 +285,19 @@ def split_activations(
         f.name: a[:, f.feature_index, : f.embedding_dim]
         for f in stack.features
     }
+
+
+def merge_cotangents(
+    stack: TableStack, d_by_name: Mapping[str, Any], device: torch.device
+) -> torch.Tensor:
+    """The inverse of `split_activations` for cotangents: per-feature
+    [B, dim_f] tensors (None counts as zero) -> the stack's
+    [B * F, stack_dim] f32 layout, zero past each feature's width."""
+    d = torch.zeros((stack.batch_size, stack.num_features, stack.stack_dim),
+                    dtype=torch.float32, device=device)
+    for f in stack.features:
+        g = d_by_name[f.name]
+        if g is not None:
+            d[:, f.feature_index, : f.embedding_dim] = g.reshape(
+                stack.batch_size, f.embedding_dim)
+    return d.reshape(-1, stack.stack_dim)

@@ -144,19 +144,42 @@ def _copy_into(dst: list[torch.Tensor], src: list[torch.Tensor],
         d.copy_(v)
 
 
+def map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
+    """`fn` over every tensor of a dict / tuple / list / NamedTuple
+    structure; other leaves are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, map_tensors(v, fn)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        items = [map_tensors(v, fn) for v in tree]
+        if hasattr(tree, "_fields"):  # NamedTuple
+            return type(tree)(*items)
+        return type(tree)(items)
+    return tree
+
+
 def make_train_step(
     model: nn.Module,
-    loss_fn: Callable[[nn.Module, Any], torch.Tensor],
+    loss_fn: Callable[[nn.Module, Any], Any],
     optimizer: DenseAdagrad | DenseAdam,
-) -> Callable[[Any], torch.Tensor]:
+    has_aux: bool = False,
+) -> Callable[[Any], Any]:
     """`step(batch) -> loss` (detached): forward, backward (which also
-    updates the stacked embedding tables in place), dense optimizer."""
+    updates the stacked embedding tables in place), dense optimizer.
 
-    def step(batch: Any) -> torch.Tensor:
+    With `has_aux`, `loss_fn` returns `(loss, aux)` and the step returns
+    `(loss, aux)`, both detached, the aux as the loss function gave it
+    (no host read), as the JAX step does."""
+
+    def step(batch: Any) -> Any:
         optimizer.zero_grad()
-        loss = loss_fn(model, batch)
+        out = loss_fn(model, batch)
+        loss = out[0] if has_aux else out
         loss.backward()
         optimizer.step()
+        if has_aux:
+            return loss.detach(), map_tensors(out[1], torch.Tensor.detach)
         return loss.detach()
 
     return step

@@ -106,16 +106,21 @@ class Trainer:
         optimizer: an object with `step()`, `zero_grad()`,
             `state_dict()` and `load_state_dict()` over the model's
             parameters (`DenseAdam`, `DenseAdagrad`).
-        loss_fn: callable (model, batch) -> scalar loss.
+        loss_fn: callable (model, batch) -> scalar loss, or (loss, aux).
+        has_aux: whether loss_fn returns (loss, aux); `step` then returns
+            (loss, aux), and `fit` and `evaluate` read the loss from it.
     """
 
     def __init__(self, model: nn.Module, optimizer: Any,
-                 loss_fn: Callable[[nn.Module, Any], torch.Tensor]) -> None:
+                 loss_fn: Callable[[nn.Module, Any], Any], *,
+                 has_aux: bool = False) -> None:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self.has_aux = has_aux
         self.device = next(model.parameters()).device
-        self._step_fn = make_train_step(model, loss_fn, optimizer)
+        self._step_fn = make_train_step(model, loss_fn, optimizer,
+                                        has_aux=has_aux)
 
     @property
     def state(self) -> dict[str, Any]:
@@ -123,8 +128,9 @@ class Trainer:
         (training/checkpoint.py saves and restores it)."""
         return {"model": self.model, "optimizer": self.optimizer}
 
-    def step(self, batch: Any) -> torch.Tensor:
-        """One training step; returns the detached loss (no host sync)."""
+    def step(self, batch: Any) -> Any:
+        """One training step; returns the detached loss, or (loss, aux)
+        with `has_aux` (no host sync)."""
         return self._step_fn(batch_to_device(batch, self.device))
 
     def fit(
@@ -173,7 +179,8 @@ class Trainer:
                         break
                     if profile_dir and global_step == profile_steps[0]:
                         profiler = start_profiler(self.device)
-                    losses.append(self.step(batch))
+                    out = self.step(batch)
+                    losses.append(out[0] if self.has_aux else out)
                     if profiler is not None and (
                             global_step == profile_steps[1]):
                         stop_profiler(profiler, profile_dir, self.device)
@@ -253,8 +260,10 @@ class Trainer:
                                         sample_weight)
             if report_loss:
                 n = _leading_dim(y_pred)
-                loss_total = loss_total + self.loss_fn(self.model,
-                                                       batch).float() * n
+                loss = self.loss_fn(self.model, batch)
+                if self.has_aux:
+                    loss = loss[0]
+                loss_total = loss_total + loss.float() * n
                 count += n
             n_batches += 1
         if n_batches == 0:

@@ -70,7 +70,10 @@ def test_port_imports_without_jax():
                  "layers.feature_interaction.feature_cross",
                  "models.gru4rec", "training.checkpoint",
                  "training.trainer", "examples.sequential_retrieval",
-                 "examples.dcn"):
+                 "examples.dcn", "training.pipelined",
+                 "examples.basic_ranking", "examples.basic_retrieval",
+                 "examples.listwise_ranking", "examples.multi_task",
+                 "examples.deep_recommender", "examples.sas_rec"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(

@@ -110,12 +110,112 @@ def test_auc_gate_after_300_smoke_steps():
 
 
 @pytest.mark.parametrize("overrides, item", [
-    (dict(pipeline_embedding=True), "A10"),
+    # Pipelining is ported; with it, the exchange dtype still raises.
+    (dict(pipeline_embedding=True, embedding_comm_dtype="bfloat16"),
+     "A10"),
     (dict(embedding_comm_dtype="bfloat16"), "A10"),
 ])
 def test_unported_options_raise(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as err:
         mlperf.main("smoke_test", device="cpu", **overrides)
+    assert "pipelin" not in str(err.value)
+
+
+@pytest.mark.parametrize("device_preprocessing", [False, True],
+                         ids=["host", "device"])
+def test_pipelined_smoke_main_runs_on_the_cpu(device_preprocessing):
+    """--pipeline_embedding in both preprocessing modes; with one loader
+    thread (the batch order kept) the two modes' losses are equal, as
+    unpipelined, and step 0 is the unpipelined step 0."""
+    kw = dict(device="cpu", num_steps=5, num_loader_threads=1,
+              device_preprocessing=device_preprocessing)
+    r = mlperf.main("smoke_test", pipeline_embedding=True, eval_every=4,
+                    **kw)
+    assert set(r) == {"loss", "throughput", "accuracy", "auc", "auc_curve"}
+    assert np.isfinite(r["loss"]) and r["throughput"] > 0
+    assert 0.0 <= r["auc"] <= 1.0
+    other = mlperf.main("smoke_test", pipeline_embedding=True,
+                        **dict(kw, device_preprocessing=not
+                               device_preprocessing))
+    assert other["loss"] == r["loss"]
+    first = [mlperf.main("smoke_test", pipeline_embedding=p,
+                         **dict(kw, num_steps=1))["loss"]
+             for p in (False, True)]
+    assert first[0] == first[1]
+
+
+def test_pipelined_resume_reprimes(tmp_path):
+    """JAX tests/test_examples.py::test_ml_perf_checkpoint_resume_pipelined
+    on the port, in subprocesses on the CPU: 6 pipelined steps with a
+    checkpoint every 3, then a rerun to 9 logs "resumed from checkpoint
+    step 6" and trains 3 finite steps through the re-primed state."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    ck = str(tmp_path / "ck")
+
+    def script(steps):
+        return (
+            "import logging, math; logging.basicConfig(level=logging.INFO)\n"
+            "from keras_rs_tpu_torch.examples.ml_perf.main import main\n"
+            f"r = main('smoke_test', device='cpu', num_steps={steps}, "
+            f"checkpoint_dir={ck!r}, checkpoint_every=3, "
+            "pipeline_embedding=True)\n"
+            "assert math.isfinite(r['loss']), r\n"
+            "print('RESUME_OK')\n")
+
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    runs = [subprocess.run([sys.executable, "-c", script(n)], cwd=root,
+                           capture_output=True, text=True, env=env,
+                           timeout=300) for n in (6, 9)]
+    for r in runs:
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "RESUME_OK" in r.stdout
+    assert "resumed" not in runs[0].stderr + runs[0].stdout
+    assert "resumed from checkpoint step 6" in runs[1].stderr + runs[1].stdout
+    assert sorted(os.listdir(ck)) == ["step_3.pt", "step_6.pt", "step_9.pt"]
+
+
+def test_pipelined_resume_continues_the_losses(tmp_path):
+    """The pipelined rerun to 9 steps restores step 6 and re-primes its
+    prefetch from the resumed loader's first batch (dummy batch 0): its
+    final loss equals that of one process that trains 6 pipelined steps,
+    re-primes from batch 0 and trains on batches 0-2."""
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.training import pipelined
+
+    ck = str(tmp_path / "ck")
+    kw = dict(device="cpu", checkpoint_dir=ck, checkpoint_every=6,
+              num_loader_threads=1, pipeline_embedding=True)
+    mlperf.main("smoke_test", num_steps=6, **kw)
+    resumed = mlperf.main("smoke_test", num_steps=9, **kw)
+    batches = list(criteo.CriteoDataset(
+        None, global_batch_size=SMOKE.global_batch_size,
+        vocab_sizes=SMOKE.vocab_sizes,
+        multi_hot_sizes=SMOKE.multi_hot_sizes).dummy_batches(6))
+    model = mlperf.build_model(SMOKE, torch.device("cpu"))
+    opt = DenseAdagrad(model.parameters(), SMOKE.learning_rate)
+    embed_fn, get_pre, inject = pipelined.dlrm_pipeline_fns()
+
+    def run(state, seq):
+        pre = [model.preprocess(b) for b in seq]
+        state.prefetched = pipelined.prime(model, get_pre(pre[0]), embed_fn)
+        for t, b in enumerate(pre):
+            state, loss = step(state, b, get_pre(pre[min(t + 1,
+                                                         len(pre) - 1)]))
+        return state, loss
+
+    state = pipelined.create_pipelined_train_state(
+        model, opt, get_pre(model.preprocess(batches[0])), embed_fn)
+    step = pipelined.make_pipelined_train_step(bce_loss, opt, embed_fn,
+                                               get_pre, inject)
+    state, _ = run(state, batches)
+    state, loss = run(state, batches[:3])
+    assert resumed["loss"] == float(loss)
+    assert state.step == 9
 
 
 def test_checkpoint_resume(tmp_path):
@@ -209,6 +309,8 @@ def test_cli_flags():
     assert kw == dict(num_steps=7, do_profile=True,
                       device_preprocessing=True, honest_timing=True,
                       device="cpu")
+    assert mlperf.parse_args(["--pipeline_embedding"])[1] == dict(
+        pipeline_embedding=True)
 
 
 def test_step_time_needs_a_card():

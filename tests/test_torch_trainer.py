@@ -297,3 +297,71 @@ def test_fit_profile_dir_writes_a_trace(tmp_path):
     trainer.fit(batches[:2], log_every=0, profile_dir=str(tmp_path / "p2"),
                 profile_steps=(1, 5))
     assert len(os.listdir(tmp_path / "p2")) == 1
+
+
+def _aux_loss(lib):
+    """_softmax_loss with an aux: the mean query norm and a tuple."""
+    base = _softmax_loss(lib)
+
+    def loss_fn(m, batch):
+        loss = base(m, batch)
+        q = m.query_tower(batch[0])
+        return loss, {"norm": (q * q).sum(-1).mean(),
+                      "pair": (2 * loss, loss + 1)}
+    return loss_fn
+
+
+def _aux_leaves(aux):
+    return [aux["norm"], aux["pair"][0], aux["pair"][1]]
+
+
+@pytest.mark.parametrize("entry", ["step", "fit", "evaluate"])
+def test_has_aux_matches_jax(entry):
+    """has_aux in make_train_step, Trainer.fit and Trainer.evaluate
+    against the JAX Trainer(has_aux=True): the step returns (loss, aux)
+    detached, in the loss function's structure; fit and evaluate read
+    the loss from out[0]. Within 1e-5 relative (f32 Adagrad steps), and
+    the losses equal those of the same loss without an aux."""
+    u, it = _ids()
+    jmodel, tmodel = _two_tower_pair(seed=4)
+    _, plain = _two_tower_pair(seed=4)
+    batches = [(u[i:i + 128], it[i:i + 128]) for i in range(0, 512, 128)]
+    jbatches = [(jnp.asarray(a), jnp.asarray(b)) for a, b in batches]
+    tbatches = [(torch.from_numpy(a), torch.from_numpy(b))
+                for a, b in batches]
+    jtrainer = jtraining.Trainer(jmodel, optax.adagrad(0.5),
+                                 _aux_loss("jax"), has_aux=True)
+    trainer = Trainer(tmodel, train_state.DenseAdagrad(tmodel.parameters(),
+                                                       0.5),
+                      _aux_loss("torch"), has_aux=True)
+    reference = Trainer(plain, train_state.DenseAdagrad(plain.parameters(),
+                                                        0.5),
+                        _softmax_loss("torch"))
+    if entry == "step":
+        jstep = jtraining.make_train_step(_aux_loss("jax"),
+                                          optax.adagrad(0.5), has_aux=True,
+                                          donate=False)
+        jstate = jtraining.create_train_state(jmodel, optax.adagrad(0.5))
+        for jb, tb in zip(jbatches, tbatches):
+            jstate, (jloss, jaux) = jstep(jstate, *[jb])
+            loss, aux = trainer.step(tb)
+            assert float(loss) == float(reference.step(tb))
+            assert not loss.requires_grad
+            assert isinstance(aux["pair"], tuple)
+            np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+            for got, want in zip(_aux_leaves(aux), _aux_leaves(jaux)):
+                assert not got.requires_grad
+                np.testing.assert_allclose(float(got), float(want),
+                                           rtol=1e-5)
+    elif entry == "fit":
+        jhist = jtrainer.fit(lambda: iter(jbatches), epochs=2, log_every=0)
+        hist = trainer.fit(lambda: iter(tbatches), epochs=2, log_every=1)
+        np.testing.assert_allclose(hist["loss"], jhist["loss"], rtol=1e-5)
+        assert hist == reference.fit(lambda: iter(tbatches), epochs=2,
+                                     log_every=0)
+    else:
+        jres = jtrainer.evaluate(jbatches, {}, lambda m, b: (b[1], b[1]))
+        res = trainer.evaluate(tbatches, {}, lambda m, b: (b[1], b[1]))
+        np.testing.assert_allclose(res["loss"], jres["loss"], rtol=1e-6)
+        assert res == reference.evaluate(tbatches, {},
+                                         lambda m, b: (b[1], b[1]))
