@@ -64,6 +64,14 @@ from --seed:
     six walkthrough examples (basic_ranking, basic_retrieval,
     listwise_ranking, multi_task, deep_recommender, sas_rec) at their
     default sizes, which reach no kernel.
+  * the sharded embedding at D = 2 (parallel/, DistributedEmbedding over
+    a mesh of ranks): two spawned ranks on cuda:0 joined by gloo (NCCL
+    refuses two ranks on one device), each with its shard of the tables,
+    its 8,192 samples of each batch of 16,384 and a replica of the dense
+    model: the ml_perf entry point at full width (packed f32 + Adagrad
+    at the 4M cap, device COO with its all_to_all, B1 on each shard), the
+    split layout (bf16 + row-wise Adagrad, B3 on each shard), capacity
+    auto-grow and nested feature configs.
 
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
@@ -252,13 +260,48 @@ Phases (any failure raises, so the exit code is not 0):
                    resume (smoke_test: 6 steps with checkpoint_every 3,
                    then a rerun to 9 that logs "resumed from checkpoint
                    step 6", finite losses).
+ 33. probe         two ranks on cuda:0 in one gloo group: each
+                   collective of parallel/collectives.py on CUDA tensors
+                   of the types the path gives it, checked; any that
+                   gloo does not carry is staged through host memory in
+                   this script's ranks (host_staged), never in the
+                   package;
+ 34. sharded       MLPerf widths and batch 16,384 over the two ranks
+     mlperf        (8,192 each): with vocabularies capped at 500k, an f32
+                   dense stack and a D = 1 copy in each rank from the
+                   same seed: the rank's device COO bit-exact with the
+                   one-process transform at D = 2 (its send row and
+                   received column), activations, logits, 2 steps'
+                   losses, the all-gathered tables and the dense
+                   parameters within 1e-4 x max(1, |D = 1|), and
+                   comm_dtype="bfloat16" for one step within
+                   tests/test_comm_dtype.py's bounds; then
+                   main("full_criteo") at the 4M cap on each rank
+                   (device COO, 8 steps and the chained device timing of
+                   2 blocks of 3 steps, B1 once per step, its first 3
+                   calls held to the plain version), peak memory; then
+                   the ms of each exchange of one step at its shapes
+                   (all_to_all, reduce-scatter and all-gather in f32 and
+                   bf16, the dense gradients' all_reduce);
+ 35. sharded       bf16 + row-wise Adagrad at the 4M cap over the two
+     split         ranks: 3 steps on one batch (the global loss falls),
+                   B3 once per step on each shard, each held to the
+                   plain scatter on a copy of the whole shard;
+ 36. sharded       a skewed batch over capacity through
+     autogrow      preprocess_on_device(training=True): both ranks grow
+                   alike, nothing is dropped, and the activations equal a
+                   layer built with the grown capacities (COO and
+                   activations bit for bit, deterministic algorithms); a
+                   layer of nested feature configs returns its nest and
+                   equals its from_config rebuild.
 
 The launch counts in the kernels line are those of the main paths alone:
 every count is set to 0 just before a path's train-and-serve run and read
-just after it (B1 from the packed path, B2 from f32 + Adam, B3 from
-capacity mode, B4 from bf16 + Adagrad, B5-B7 from SASRec). The ml_perf
-path's counts (phase 16) and those of phases 30-32 are checked and
-printed on their own lines.
+just after it (B1 from the packed path and from phase 34's entry point
+on both ranks, B2 from f32 + Adam, B3 from capacity mode and from phase
+35 on both ranks, B4 from bf16 + Adagrad, B5-B7 from SASRec; the parts
+are printed on `[launches]` lines). The ml_perf path's counts (phase 16)
+and those of phases 30-32 are checked and printed on their own lines.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), then one JSON line {"kernels": [...]}, then last one JSON
@@ -3117,14 +3160,15 @@ GRU4REC_PROFILE_PARTS = [
 
 
 @contextlib.contextmanager
-def b1_held_to_plain():
-    """While open, every B1 call of the embedding backward also runs the
-    plain version (apply_scatter_row_blocks_reference, uncounted, with the
-    same optimizer, schedule included) on a copy of the blocks it
-    updates, and compares the live blocks after the kernel with it at
-    phase 2's bound. Yields a list with one dict of 0-dim device tensors
-    per call (step, lr, err, bad), read once the steps are done: the
-    check makes no host read inside the step."""
+def b1_held_to_plain(first: int | None = None):
+    """While open, every B1 call of the embedding backward (with `first`,
+    the first `first` calls) also runs the plain version
+    (apply_scatter_row_blocks_reference, uncounted, with the same
+    optimizer, schedule included) on a copy of the blocks it updates,
+    and compares the live blocks after the kernel with it at phase 2's
+    bound. Yields a list with one dict of 0-dim device tensors per call
+    (step, lr, err, bad), read once the steps are done: the check makes
+    no host read inside the step."""
     import torch
 
     from keras_rs_tpu_torch.layers.embedding import lookup
@@ -3134,6 +3178,8 @@ def b1_held_to_plain():
     calls: list[dict] = []
 
     def held(packed, idx, grads, scalars, optimizer, n_valid):
+        if first is not None and len(calls) >= first:
+            return launch(packed, idx, grads, scalars, optimizer, n_valid)
         n = idx.shape[0]
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)  # the check's own work
@@ -4425,6 +4471,688 @@ def run_walkthroughs(dev) -> None:
              f"kernel per step and stack ({rerun_to * n_stacks})")
 
 
+# --- phases 33-36: the sharded embedding over two ranks on one card ------
+
+SHARD_RANKS = 2
+#: Phase 34's comparison with one device: full widths and batch, each
+#: vocabulary capped here (a D = 1 copy beside the two shards of each
+#: rank); the timed run keeps VOCAB_CAP.
+SHARD_COMPARE_CAP = 500_000
+SHARD_COMPARE_STEPS = 2
+#: f32 bound of the D = 2 run against D = 1 (activations, logits,
+#: losses, tables, dense parameters): |d| <= 1e-4 * max(1, |D = 1|).
+#: The exchanges and the gradient all_reduce add in another order.
+SHARD_F32_BOUND = 1e-4
+SHARD_MLPERF_STEPS = 8
+#: The entry point's chained device timing in the ranks: 2 blocks of 3
+#: steps after a warm-up block (utils/timing.measure_step_time).
+SHARD_TIMING = {"iters": 3, "blocks": 2}
+SHARD_HELD_CALLS = 3
+SHARD_SPLIT_STEPS = 3
+RANK_TIMEOUT_S = 420
+#: What the probe runs on CUDA tensors under gloo, by the package's
+#: collective that uses it (parallel/collectives.py) and the types the
+#: path gives it.
+PROBES = (("all_to_all", "int32"), ("reduce_scatter", "float32"),
+          ("reduce_scatter", "bfloat16"), ("all_gather", "float32"),
+          ("all_gather", "bfloat16"), ("all_reduce", "float32"))
+
+
+def rlog(rank: int, msg: str) -> None:
+    log(f"[rank {rank}] {msg}")
+
+
+def _rank_main(rank: int, world: int, port: int, conn) -> None:
+    """A rank of phases 33-36: cuda:0, a gloo group over localhost, then
+    the cases the parent sends until it sends None."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format=f"[rank {rank}] [%(name)s] %(message)s",
+                        force=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        while True:
+            msg = conn.recv()
+            if msg is None:
+                break
+            name, kwargs = msg
+            try:
+                conn.send(("ok", globals()[name](rank, world, **kwargs)))
+            except BaseException:  # sent to the parent, which fails
+                conn.send(("error", traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+        conn.close()
+
+
+class Ranks:
+    """`world` spawned processes on cuda:0 in one gloo group. `run`
+    calls a rank case on every rank under a timeout; a rank that raises
+    or does not answer kills every rank and fails the script."""
+
+    def __init__(self, world: int) -> None:
+        import multiprocessing
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        self.conns, self.procs = [], []
+        for rank in range(world):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_rank_main,
+                            args=(rank, world, port, child))
+            p.start()
+            child.close()
+            self.conns.append(parent)
+            self.procs.append(p)
+
+    def run(self, name: str, **kwargs) -> list:
+        t = time.perf_counter()
+        for conn in self.conns:
+            conn.send((name, kwargs))
+        out, errors = [], []
+        timeout = RANK_TIMEOUT_S
+        for rank, conn in enumerate(self.conns):
+            if not conn.poll(timeout):
+                errors.append(f"rank {rank}: no answer in {timeout} s")
+                break
+            status, value = conn.recv()
+            if status == "error":
+                errors.append(f"rank {rank}:\n{value}")
+                timeout = 30  # the others may wait for it in a collective
+            out.append(value)
+        if errors:
+            self.close()
+            fail(f"{name}:\n" + "\n".join(errors))
+        log(f"[sharded] {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    def close(self) -> None:
+        for conn, p in zip(self.conns, self.procs):
+            if p.is_alive():
+                try:
+                    conn.send(None)
+                except (BrokenPipeError, OSError):
+                    pass
+        for p in self.procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        if any(p.is_alive() for p in self.procs):
+            fail("a rank outlived its phase")
+
+
+def host_staged(name: str, collective):
+    """`collective` (of parallel/collectives.py) with CUDA tensors
+    copied to host memory around it: for a collective that gloo does not
+    carry on CUDA tensors, in this script's ranks only."""
+    def staged(x, group, *args):
+        if group is None or x.device.type != "cuda":
+            return collective(x, group, *args)
+        if name == "all_reduce":
+            h = x.cpu()
+            collective(h, group, *args)
+            return x.copy_(h)
+        return collective(x.cpu(), group, *args).to(x.device)
+
+    staged.__name__ = f"host_staged_{name}"
+    return staged
+
+
+def stage(staged: list[str]) -> None:
+    """Installs host_staged versions of the named collectives (once)."""
+    from keras_rs_tpu_torch.parallel import collectives
+
+    for name in staged:
+        fn = getattr(collectives, name)
+        if not fn.__name__.startswith("host_staged_"):
+            setattr(collectives, name, host_staged(name, fn))
+
+
+def rank_probe(rank: int, world: int) -> dict[str, str]:
+    """Phase 33: each collective of the path on CUDA tensors under gloo,
+    its result checked: "ok", or what it raised or returned."""
+    import torch
+
+    from keras_rs_tpu_torch.parallel import collectives
+
+    dev = torch.device("cuda", 0)
+    group = torch.distributed.group.WORLD
+    out = {}
+    for name, dtype_name in PROBES:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.arange(world * 4, device=dev) + 100 * rank).to(dtype)
+        base = torch.arange(world * 4)
+        if name == "all_to_all":
+            want = torch.cat([base[4 * rank : 4 * rank + 4] + 100 * j
+                              for j in range(world)])
+            run = lambda: collectives.all_to_all(x.view(world, 4), group)
+        elif name == "reduce_scatter":
+            want = world * base[4 * rank : 4 * rank + 4] + 100 * sum(
+                range(world))
+            run = lambda: collectives.reduce_scatter(x, group)
+        elif name == "all_gather":
+            want = torch.cat([base[:4] + 100 * j for j in range(world)])
+            run = lambda: collectives.all_gather(x[:4], group)
+        else:
+            want = world * base + 100 * sum(range(world))
+            run = lambda: collectives.all_reduce(x.clone(), group)
+        key = f"{name}:{dtype_name}"
+        try:
+            got = run().reshape(-1).cpu()
+            torch.cuda.synchronize()
+            out[key] = ("ok" if torch.equal(got.double(), want.double())
+                        else f"wrong result {got.tolist()}")
+        except Exception as e:  # the probe's finding, reported
+            out[key] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _rank_rows(batch: dict, rank: int, world: int) -> dict:
+    n = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * n : (rank + 1) * n] for k, v in batch.items()}
+
+
+def rank_compare(rank: int, world: int, seed: int,
+                 staged: list[str]) -> dict:
+    """Phase 34, first part: the MLPerf DLRM-DCNv2 at full widths and
+    batch (vocabularies capped at SHARD_COMPARE_CAP, f32 dense stack)
+    sharded over the ranks against the same model at D = 1 in this rank,
+    from the same seed and global batches: the rank's device COO against
+    the single-process global transform at D = 2 (bit for bit),
+    activations and logits, SHARD_COMPARE_STEPS steps' losses, the
+    all-gathered tables and the dense parameters after each (within
+    SHARD_F32_BOUND); and comm_dtype="bfloat16" for one step against the
+    same, within tests/test_comm_dtype.py's bounds."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
+        preprocess_stack_device,
+    )
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    stage(staged)
+    dev = torch.device("cuda", 0)
+    cfg = configs.full_criteo(vocab_sizes=[
+        min(v, SHARD_COMPARE_CAP) for v in CRITEO_VOCAB_SIZES])
+    meshes = {world: mesh_lib.create_mesh(dev),
+              1: mesh_lib.Mesh(("data",), (1,), dev)}
+
+    def build(D, comm_dtype=None):
+        c = mlperf.model_config(cfg, D)
+        c.compute_dtype = c.dense_output_dtype = None  # f32 dense stack
+        c.embedding_comm_dtype = comm_dtype
+        return DLRMDCNv2(
+            c, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev, mesh=meshes[D])
+
+    ref, m2 = build(1), build(world)
+    source = CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(
+            SHARD_COMPARE_STEPS, seed=seed + 5)
+    host = list(source)
+    glob = [ref.to_device(b) for b in host]
+    loc = [m2.to_device(_rank_rows(b, rank, world)) for b in host]
+    n = cfg.global_batch_size // world
+    rows = slice(rank * n, (rank + 1) * n)
+
+    # The rank's COO against the global transform at D = 2.
+    (stack,) = m2.embedding_layer.stacks
+    large = [f"cat_{i}" for i in m2.large_idx]
+    g_coo, _ = preprocess_stack_device(
+        stack, {k: glob[0][k] for k in large})
+    r_coo, _ = preprocess_stack_device(
+        stack, {k: loc[0][k] for k in large}, shard=rank,
+        group=m2.embedding_layer._group)
+    pairs = {
+        "send_slots": (r_coo.send_slots[0], g_coo.send_slots[rank]),
+        "send_segs": (r_coo.send_segs[0], g_coo.send_segs[rank]),
+        "send_gains": (r_coo.send_gains[0], g_coo.send_gains[rank]),
+        "recv_slots": (r_coo.recv_slots, g_coo.send_slots[:, rank]),
+        "recv_segs": (r_coo.recv_segs, g_coo.send_segs[:, rank]),
+        "recv_gains": (r_coo.recv_gains, g_coo.send_gains[:, rank]),
+        "unique_slots": (r_coo.unique_slots[0], g_coo.unique_slots[rank]),
+        "entry_unique": (r_coo.entry_unique[0], g_coo.entry_unique[rank]),
+    }
+    for k, (a, b) in pairs.items():
+        if not torch.equal(bits(a), bits(b)):
+            fail(f"rank {rank}: COO {k} differs from the global transform")
+    n_ids = int((r_coo.send_slots != stack.sink_slot).sum())
+    del g_coo, r_coo
+
+    def err(a, b) -> float:
+        a, b = a.detach().float(), b.detach().float()
+        d = (a - b).abs()
+        bad = d > SHARD_F32_BOUND * b.abs().clamp(min=1.0)
+        if bool(bad.any()):
+            fail(f"rank {rank}: {int(bad.sum())} values over the f32 "
+                 f"bound; worst {float(d.max())!r}")
+        return float(d.max())
+
+    errs: dict[str, float] = {}
+    with torch.no_grad():
+        a1 = ref.embedding_layer(ref.embedding_layer.preprocess_on_device(
+            {k: glob[0][k] for k in large}))
+        a2 = m2.embedding_layer(m2.embedding_layer.preprocess_on_device(
+            {k: loc[0][k] for k in large}))
+        errs["activations"] = max(err(a2[k], a1[k][rows]) for k in large)
+        del a1, a2
+        errs["logits"] = err(m2(m2.preprocess_on_device(loc[0])),
+                             ref(ref.preprocess_on_device(glob[0]))[rows])
+
+    def loss_fn(m, b):
+        from keras_rs_tpu_torch.models.dlrm import bce_loss
+        return bce_loss(m, m.preprocess_on_device(b))
+
+    step1 = make_train_step(ref, loss_fn, DenseAdagrad(ref.parameters(),
+                                                       cfg.learning_rate))
+    step2 = make_train_step(m2, loss_fn, DenseAdagrad(m2.parameters(),
+                                                      cfg.learning_rate),
+                            mesh=meshes[world])
+    losses = {"d1": [], "d2": []}
+    bf16 = {}
+    for i in range(SHARD_COMPARE_STEPS):
+        losses["d1"].append(float(step1(glob[i])))
+        losses["d2"].append(float(step2(loc[i])))
+        want = ref.embedding_layer.get_embedding_tables()
+        got = m2.embedding_layer.get_embedding_tables()
+        errs[f"tables after step {i + 1}"] = max(
+            err(got[k], want[k]) for k in want)
+        del got
+        errs[f"dense after step {i + 1}"] = max(
+            err(p2, p1) for p1, p2 in zip(ref.parameters(),
+                                          m2.parameters()))
+        if i == 0:
+            # comm_dtype="bfloat16": the same first step, within
+            # tests/test_comm_dtype.py's bounds of the f32 result.
+            mb = build(world, "bfloat16")
+            stepb = make_train_step(mb, loss_fn, DenseAdagrad(
+                mb.parameters(), cfg.learning_rate), mesh=meshes[world])
+            lb = float(stepb(loc[0]))
+            tb = mb.embedding_layer.get_embedding_tables()
+            worst = 0.0
+            for k in want:
+                d = (tb[k] - want[k]).abs()
+                if bool((d > 2e-4 + 2e-2 * want[k].abs()).any()):
+                    fail(f"rank {rank}: bf16 exchange table {k} over "
+                         "rtol 2e-2 / atol 2e-4")
+                worst = max(worst, float(d.max()))
+            rel = abs(lb - losses["d1"][0]) / abs(losses["d1"][0])
+            if rel >= 1e-2:
+                fail(f"rank {rank}: bf16 exchange loss {lb} against "
+                     f"{losses['d1'][0]}")
+            bf16 = {"loss": lb, "loss_rel": rel, "tables_max_abs": worst}
+            del mb, stepb, tb
+        del want
+        torch.cuda.empty_cache()
+    for a, b in zip(losses["d2"], losses["d1"]):
+        if abs(a - b) > SHARD_F32_BOUND * max(1.0, abs(b)):
+            fail(f"rank {rank}: losses {losses}")
+    dense_params = sum(p.numel() for p in m2.parameters())
+    out = {"ids": n_ids, "errs": errs, "losses": losses, "bf16": bf16,
+           "dense_params": dense_params, "S_l": stack.local_batch_size
+           * stack.num_features, "C": stack.max_ids_per_partition}
+    rlog(rank, f"[compare] D = {world} against D = 1 at cap "
+         f"{SHARD_COMPARE_CAP}: COO bit-exact ({n_ids} ids sent); max abs "
+         f"errors {errs}; losses {losses}; bf16 exchange {bf16}")
+    del ref, m2, step1, step2, glob, loc
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_mlperf(rank: int, world: int, seed: int,
+                staged: list[str]) -> dict:
+    """Phase 34, second part: the ml_perf entry point on this rank,
+    main("full_criteo") at the 4M cap with device preprocessing and the
+    chained device timing (SHARD_TIMING); launches counted from 0, the
+    first SHARD_HELD_CALLS B1 calls held to the plain version, peak
+    memory."""
+    import functools
+
+    import torch
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.utils import timing
+
+    stage(staged)
+    dev = torch.device("cuda", 0)
+    capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
+    measure = timing.measure_step_time
+    timing.measure_step_time = functools.partial(measure, **SHARD_TIMING)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        with b1_held_to_plain(first=SHARD_HELD_CALLS) as calls:
+            r = mlperf.main("full_criteo", device=dev,
+                            num_steps=SHARD_MLPERF_STEPS,
+                            vocab_sizes=capped, device_preprocessing=True,
+                            honest_timing=True)
+    finally:
+        timing.measure_step_time = measure
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = SHARD_MLPERF_STEPS + SHARD_TIMING["iters"] * (
+        SHARD_TIMING["blocks"] + 1)
+    want = {k: steps if k == "apply_scatter_row_blocks" else 0
+            for k in counts}
+    if counts != want:
+        fail(f"rank {rank}: sharded mlperf launches {counts}, expected "
+             f"{want}")
+    if len(calls) != SHARD_HELD_CALLS or any(bool(c["bad"]) for c in calls):
+        fail(f"rank {rank}: B1 against its plain version: "
+             f"{[(float(c['err']), bool(c['bad'])) for c in calls]}")
+    held = [float(c["err"]) for c in calls]
+    if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+        fail(f"rank {rank}: results {r}")
+    rlog(rank, f"[mlperf D = {world}] results {r}; {wall:.1f} s in main; "
+         f"device step {r['device_step_ms']!r} ms (CUDA events, chained); "
+         f"peak device memory {peak:.2f} GB; B1 launches "
+         f"{counts['apply_scatter_row_blocks']}, the first "
+         f"{SHARD_HELD_CALLS} held to the plain version: max_abs_err "
+         f"{held}")
+    torch.cuda.empty_cache()
+    return {"results": r, "counts": counts, "peak_gb": peak,
+            "held_err": held, "wall_s": wall}
+
+
+def rank_collectives(rank: int, world: int, S_l: int, C: int,
+                     dense_params: int, staged: list[str]) -> dict:
+    """Phase 34, third part: the ms of each exchange of one step of the
+    4M-cap sharded step at its shapes (host clock around each call
+    between two synchronizes; median of 5 after 2), under gloo on one
+    card: the COO all_to_all ([D, 3, C] int32), the forward's
+    reduce-scatter ([D * S_l, 128]) and the backward's all-gather
+    ([S_l, 128]) in f32 and bf16, and the dense gradients' all_reduce."""
+    import torch
+
+    from keras_rs_tpu_torch.parallel import collectives
+
+    stage(staged)
+    dev = torch.device("cuda", 0)
+    group = torch.distributed.group.WORLD
+    cases = {
+        "all_to_all coo": (collectives.all_to_all, torch.zeros(
+            (world, 3, C), dtype=torch.int32, device=dev)),
+        "reduce_scatter f32": (collectives.reduce_scatter, torch.ones(
+            (world * S_l, 128), device=dev)),
+        "all_gather f32": (collectives.all_gather, torch.ones(
+            (S_l, 128), device=dev)),
+        "reduce_scatter bf16": (collectives.reduce_scatter, torch.ones(
+            (world * S_l, 128), dtype=torch.bfloat16, device=dev)),
+        "all_gather bf16": (collectives.all_gather, torch.ones(
+            (S_l, 128), dtype=torch.bfloat16, device=dev)),
+        "all_reduce dense grads": (collectives.all_reduce, torch.ones(
+            (dense_params,), device=dev)),
+    }
+    ms, nbytes = {}, {}
+    for name, (fn, x) in cases.items():
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(x, group)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+        ms[name] = statistics.median(times)
+        nbytes[name] = x.numel() * x.element_size()
+    f32_step = sum(v for k, v in ms.items() if "bf16" not in k)
+    rlog(rank, f"[collectives, gloo on one card] ms {ms}; bytes {nbytes}; "
+         f"one f32 step's exchanges {f32_step!r} ms")
+    return {"ms": ms, "bytes": nbytes, "f32_step_ms": f32_step}
+
+
+def rank_split(rank: int, world: int, seed: int,
+               staged: list[str]) -> dict:
+    """Phase 35: the split layout at D = 2: bf16 tables with row-wise
+    Adagrad at the 4M cap, device preprocessing, SHARD_SPLIT_STEPS
+    data-parallel steps on one batch (the global loss falls), every
+    row scatter (B3 on the rank's shard) held to its plain version on a
+    copy of the whole shard, B3 once per step."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    stage(staged)
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    cfg = slice_config(table_dtype="bfloat16",
+                       embedding_optimizer="rowwise_adagrad")
+    # The worst case per shard: every id of the rank's samples in one
+    # bucket, and as many uniques per shard in all.
+    cfg.max_ids_per_partition //= world
+    cfg.max_unique_ids_per_partition //= world
+    torch.cuda.reset_peak_memory_stats()
+    model = DLRMDCNv2(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev, mesh=mesh)
+    (stack,) = model.embedding_layer.stacks
+    if stack.packed_state or stack.dtype != "bfloat16":
+        fail(f"rank {rank}: split stack expected, got {stack}")
+    raw = next(CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(1, seed=seed))
+    batch = model.to_device(_rank_rows(raw, rank, world))
+    step = make_train_step(model, mlperf.make_loss_fn(True),
+                           DenseAdagrad(model.parameters(),
+                                        cfg.learning_rate), mesh=mesh)
+    reset_launch_counts()
+    with scatter_held_to_plain() as calls:
+        losses = [float(step(batch)) for _ in range(SHARD_SPLIT_STEPS)]
+    counts = launch_counts()
+    differ = [int(c) for c in calls]
+    want = {k: SHARD_SPLIT_STEPS if k == "scatter_rows" else 0
+            for k in counts}
+    if counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS:
+        fail(f"rank {rank}: split layout launches {counts} (expected "
+             f"{want}), elements differing from the plain scatter {differ}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"rank {rank}: split layout losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rlog(rank, f"[split D = {world}] bf16 + row-wise Adagrad shard "
+         f"{tuple(model.embedding_layer.stack_state(0)['table'].shape)}; "
+         f"losses {losses}; B3 launches {counts['scatter_rows']}, each "
+         f"held to the plain scatter on a copy of the shard (elements "
+         f"differing {differ}); peak device memory {peak:.2f} GB")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "counts": counts, "peak_gb": peak}
+
+
+def rank_autogrow(rank: int, world: int, seed: int,
+                  staged: list[str]) -> dict:
+    """Phase 36: a skewed batch over capacity through
+    preprocess_on_device(training=True) at D = 2 (both ranks grow the
+    same way, the merged stats show no drop, the activations equal a
+    layer built with the grown capacities bit for bit), and a layer of
+    nested feature configs, whose activations come back in the nest and
+    equal those of its from_config rebuild (a list)."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding.config import (
+        FeatureConfig,
+        TableConfig,
+    )
+    from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
+        DistributedEmbedding,
+        flatten,
+    )
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+
+    stage(staged)
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    B, L, V = 4096, 8, 100_000
+
+    def layer_of(C, U, **kw):
+        t = TableConfig("hot", V, 128, optimizer="adagrad",
+                        placement="sharded", max_ids_per_partition=C,
+                        max_unique_ids_per_partition=U)
+        return DistributedEmbedding(
+            [FeatureConfig("f", t, (B, L), (B, 128))],
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev, mesh=mesh, **kw)
+
+    g = np.random.default_rng(seed)
+    ids = g.integers(0, V, (B, L))
+    # Half the ids on a few hot rows of shard 0: its buckets overflow.
+    hot = g.random((B, L)) < 0.5
+    ids = np.where(hot, 2 * g.integers(0, 8, (B, L)), ids)
+    local = [torch.from_numpy(_rank_rows({"f": ids}, rank, world)["f"]).to(
+        dev)]
+    layer = layer_of(64, 64)
+    pre = layer.preprocess_on_device(local, training=True)
+    grown = (layer.stacks[0].max_ids_per_partition,
+             layer.stacks[0].max_unique_ids_per_shard)
+    merged = layer.update_stats(warn=False)[layer.stacks[0].name]
+    if merged.dropped_ids or grown[0] <= 64:
+        fail(f"rank {rank}: auto-grow: capacities {grown}, stats {merged}")
+    # The forward depends on the bucket capacity only; U per shard is
+    # a multiple of D here, so round the grown U up.
+    twin = layer_of(grown[0], -(-grown[1] // world))
+    pre2, stats = twin.preprocess_on_device(local, return_stats=True)
+    name = layer.stacks[0].name
+    same_coo = all(torch.equal(pre["sharded"][name][k],
+                               pre2["sharded"][name][k])
+                   for k in ("recv_slots", "recv_segs", "recv_gains"))
+    # The sorted forward sums with index_add_, whose CUDA atomics add in
+    # any order unless deterministic algorithms are on.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            got, want = layer(pre)[0], twin(pre2)[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not (same_coo and torch.equal(got, want)) or any(
+            int(s.dropped_ids) for s in stats.values()):
+        fail(f"rank {rank}: the grown layer differs from one built with "
+             f"its capacities (COO equal: {same_coo})")
+
+    def nested_configs():
+        ta = TableConfig("ta", 5000, 128, optimizer="adagrad",
+                         placement="sharded")
+        tb = TableConfig("tb", 3000, 64, optimizer="sgd", combiner="mean",
+                         placement="sharded")
+        return {"g": {"a": FeatureConfig("a", ta, (B, 4), (B, 128))},
+                "h": [FeatureConfig("b", tb, (B, 2), (B, 64)),
+                      FeatureConfig("c", tb, (B, 3), (B, 64))]}
+
+    nested = DistributedEmbedding(
+        nested_configs(), device=dev, mesh=mesh,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed + 1)
+    x = {k: torch.from_numpy(_rank_rows(
+        {k: rng.integers(0, v, (B, n))}, rank, world)[k]).to(dev)
+        for k, v, n in (("a", 5000, 4), ("b", 3000, 2), ("c", 3000, 3))}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            out = nested({"g": {"a": x["a"]}, "h": [x["b"], x["c"]]})
+            rebuilt = DistributedEmbedding.from_config(dict(
+                nested.get_config(), device=dev, mesh=mesh,
+                generator=torch.Generator(device=dev).manual_seed(seed)))
+            flat = rebuilt([x["a"], x["b"], x["c"]])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    leaves, structure = flatten(out, lambda v: isinstance(v, torch.Tensor))
+    if structure != nested._feature_structure or not all(
+            torch.equal(a, b) for a, b in zip(leaves, flat)):
+        fail(f"rank {rank}: nested configs: {structure}")
+    rlog(rank, f"[autogrow D = {world}] capacities (C, U) (64, 128) -> "
+         f"{grown}, merged stats {merged}; equal to a layer built with "
+         f"them; nested configs {structure} round-trip through "
+         "get_config / from_config")
+    return {"grown": grown, "structure": str(structure)}
+
+
+def run_sharded(seed: int) -> dict[str, int]:
+    """Phases 33-36 on SHARD_RANKS spawned ranks; returns the launches
+    of B1 (phase 34's entry point run) and B3 (phase 35), summed over
+    the ranks."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = Ranks(SHARD_RANKS)
+    try:
+        probe = ranks.run("rank_probe")
+        for key in probe[0]:
+            log(f"[probe] gloo on CUDA tensors, {key}: "
+                f"{[p[key] for p in probe]}")
+        staged = sorted({key.split(":")[0] for p in probe
+                         for key, v in p.items() if v != "ok"})
+        if staged:
+            log(f"[probe] gloo does not carry {staged} on CUDA tensors: "
+                "this script's ranks stage them through host memory "
+                "(host_staged)")
+        cmp = ranks.run("rank_compare", seed=seed, staged=staged)
+        ml = ranks.run("rank_mlperf", seed=seed, staged=staged)
+        coll = ranks.run("rank_collectives", S_l=ml_shapes(cmp)[0],
+                         C=ml_shapes(cmp)[1],
+                         dense_params=cmp[0]["dense_params"], staged=staged)
+        split = ranks.run("rank_split", seed=seed, staged=staged)
+        grow = ranks.run("rank_autogrow", seed=seed, staged=staged)
+    finally:
+        ranks.close()
+    losses = [r["results"]["loss"] for r in ml]
+    if len(set(losses)) != 1 or len({c["losses"]["d2"][-1]
+                                     for c in cmp}) != 1:
+        fail(f"ranks disagree on the global loss: {losses}")
+    if len({g["grown"] for g in grow}) != 1:
+        fail(f"ranks grew differently: {[g['grown'] for g in grow]}")
+    if len({tuple(s["losses"]) for s in split}) != 1:
+        fail(f"ranks disagree on the split layout's losses")
+    step_ms = [r["results"]["device_step_ms"] for r in ml]
+    log(f"[sharded] D = {SHARD_RANKS} on one card, gloo: device step ms "
+        f"{step_ms}; end to end examples/s "
+        f"{[r['results']['throughput'] for r in ml]}; ms in the exchanges "
+        f"of one f32 step {[c['f32_step_ms'] for c in coll]}; peak GB "
+        f"{[r['peak_gb'] for r in ml]}; phases 33-36 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {
+        "apply_scatter_row_blocks": sum(
+            r["counts"]["apply_scatter_row_blocks"] for r in ml),
+        "scatter_rows": sum(s["counts"]["scatter_rows"] for s in split),
+    }
+
+
+def ml_shapes(cmp: list) -> tuple[int, int]:
+    """(S_l, C) of the 4M-cap entry point's stack at D = SHARD_RANKS:
+    the same widths and batch as phase 34's comparison (its capacities
+    depend on the multi-hot sizes and the batch, not the vocabularies)."""
+    return cmp[0]["S_l"], cmp[0]["C"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4484,6 +5212,13 @@ def main() -> int:
     run_walkthroughs(dev)
     log(f"[time] pipelined and walkthrough phases done at "
         f"{time.perf_counter() - t0:.1f} s")
+    sharded = run_sharded(args.seed)
+    for k in kernels:
+        if k["name"] in sharded:
+            log(f"[launches] {k['name']}: {k['launches']} on one device, "
+                f"{sharded[k['name']]} on the {SHARD_RANKS} ranks")
+            k["launches"] += sharded[k["name"]]
+    log(f"[time] sharded phases done at {time.perf_counter() - t0:.1f} s")
 
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,15 @@ and learning-rate schedules for the embedding optimizers, which reach no
 kernel beyond B1 (a schedule's rate is read from the device); pipelined
 embedding (training/pipelined.py: the next batch's lookup on a side CUDA
 stream, one update old, B1 or B3 in every step), has_aux loss functions
-and the walkthrough examples (examples/). Modules build on cuda:0 unless
-given `device=` (utils/device.py).
+and the walkthrough examples (examples/); the sharded embedding over D > 1
+ranks of torch.distributed (parallel/: meshes, collectives, multi-process
+helpers; DistributedEmbedding's mesh, the per-rank device COO with its
+all_to_all, the lookup's reduce-scatter and all-gather around B1 / B3 on
+each rank's shard), capacity growth and nested feature configs, and the
+ml_perf entry point under torchrun. Modules build on cuda:0 unless given
+`device=` (utils/device.py).
 """
+
+from keras_rs_tpu_torch.version import __version__, version
+
+__all__ = ["__version__", "version"]

@@ -1,9 +1,10 @@
 """Criteo dataloader: TFRecord files or dummy data.
 
-The port's copy of keras_rs_tpu/data/criteo.py for one process (numpy
-only: batches are host arrays, which the consumer moves to the device;
-the JAX package's per-host batch slicing waits for the multi-process
-port, ROADMAP A10). Capability parity with the reference's
+The port's copy of keras_rs_tpu/data/criteo.py (numpy only: batches are
+host arrays, which the consumer moves to the device). With
+`process_index` / `process_count` every process reads the same files in
+the same seeded order and keeps its rows of each global batch (the JAX
+package's per-host slicing, criteo.py:575). Capability parity with the reference's
 examples/ml_perf/dataloader.py: 13 dense float features + 26
 categorical multi-hot int64 features stored `decode_raw` style (raw
 little-endian bytes in a BytesList), a seeded file shuffle per epoch,
@@ -59,6 +60,8 @@ class CriteoDataset:
         vocab_sizes: Sequence[int],
         multi_hot_sizes: Sequence[int] | None = None,
         shuffle_seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
         dense_key: str = "dense_features",
         label_key: str = "label",
         cat_key_fmt: str = "categorical_feature_{i}",
@@ -77,7 +80,16 @@ class CriteoDataset:
         in that mode mirror the reference ("clicked", "int-feature-1..
         13", "categorical-feature-14..39"); override with `label_key` /
         `dense_keys` / `cat_keys`.
+
+        `process_index` / `process_count` slice each global batch into
+        this process's rows (the same shuffle on every process).
         """
+        if global_batch_size % process_count:
+            raise ValueError(
+                "global_batch_size must be divisible by process_count."
+            )
+        self.process_index = process_index
+        self.process_count = process_count
         self.file_batch_size = file_batch_size
         if file_batch_size is not None:
             n_cat = len(vocab_sizes)
@@ -161,7 +173,7 @@ class CriteoDataset:
                 batch["label"] = rng.integers(0, 2, size=(B,)).astype(
                     np.float32
                 )
-            yield batch
+            yield self._host_shard(batch)
 
     # -- tfrecord mode --------------------------------------------------------
     def _example_to_row(self, payload: bytes) -> dict[str, np.ndarray]:
@@ -377,19 +389,19 @@ class CriteoDataset:
                                 for k in file_arrays
                             }
                             continue
-                        yield {
+                        yield self._host_shard({
                             k: np.concatenate(
                                 [pending[k], file_arrays[k][:need]]
                             )
                             for k in file_arrays
-                        }
+                        })
                         lo = need
                         pending = None
                     while n_rows - lo >= B:
-                        yield {
+                        yield self._host_shard({
                             k: v[lo : lo + B]
                             for k, v in file_arrays.items()
-                        }
+                        })
                         lo += B
                     pending = (
                         {k: v[lo:] for k, v in file_arrays.items()}
@@ -446,6 +458,16 @@ class CriteoDataset:
         for i in range(len(self.vocab_sizes)):
             out[f"cat_{i}"] = np.stack([r[f"cat_{i}"] for r in rows])
         return out
+
+    def _host_shard(
+        self, batch: dict[str, np.ndarray]
+    ) -> dict[str, np.ndarray]:
+        """This process's rows of a global batch."""
+        if self.process_count == 1:
+            return batch
+        per_host = self.global_batch_size // self.process_count
+        lo = self.process_index * per_host
+        return {k: v[lo : lo + per_host] for k, v in batch.items()}
 
 
 def write_batched_criteo_files(

@@ -1,4 +1,5 @@
-"""MLPerf DLRM-DCNv2 training entry point, on one CUDA device.
+"""MLPerf DLRM-DCNv2 training entry point, on one CUDA device or one
+process per device.
 
 The port of examples/ml_perf/main.py: the DLRM-DCNv2 of configs.py
 trained on Criteo TFRecord files or on learnable dummy batches, with the
@@ -15,8 +16,22 @@ On one device the large tables always go to the stacked engine
 dense tables on a one-device mesh and runs no COO path at all), and both
 modes take the worst-case capacities main.py:87-108 gives the device
 mode, where the JAX entry point's host mode takes the config's 8192 /
-4096 and grows them as batches overflow: the port has no capacity
-growth (ROADMAP A10), so smaller capacities would drop ids.
+4096 and grows them as batches overflow.
+
+Under torchrun (WORLD_SIZE > 1) every process is one rank of a 1-D mesh
+(parallel/): it holds its shard of the large tables, a replica of the
+dense model and its B / D samples of every batch (CriteoDataset's
+process slicing), preprocesses on the device (forced, as the JAX entry
+point forces it with more than one process: the host COO needs the
+global batch), and averages the dense gradients over the ranks. The
+capacities are sized for D as main.py:87-108 sizes them. The eval's
+streaming AUC and accuracy sum their state over the ranks; the exact
+rank AUC cross-check runs with one process only (main.py:425-440). Rank
+r runs on cuda:LOCAL_RANK unless `--device` names another device, and
+the process group's backend is NCCL on CUDA unless `--dist_backend`
+names another: two ranks on one card need `--device cuda:0
+--dist_backend gloo`. The pipelined step and checkpoints of sharded
+state are not ported yet and raise (ROADMAP A10, second half).
 
 With `checkpoint_dir`, every `checkpoint_every` steps the model (its
 stacked tables, slots and step counters included) and the dense
@@ -27,15 +42,15 @@ with torch.profiler into `profile_dir` (`--profile_dir`; by default
 `keras_rs_tpu_profile` under TMPDIR). `--pipeline_embedding` trains
 with one-step-stale lookups (training/pipelined.py): the lookup of the
 next batch, and in device mode its COO transform, runs on a side CUDA
-stream beside the dense compute, with one batch of lookahead. The
-multi-device exchange dtype and more than one process are not ported:
-main raises NotImplementedError for each.
+stream beside the dense compute, with one batch of lookahead.
 
 Run from the repository root:
   python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
       --device cpu
   python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
       --device_preprocessing          # on cuda:0
+  torchrun --nproc_per_node 2 -m keras_rs_tpu_torch.examples.ml_perf.main \
+      --config smoke_test --device cuda:0 --dist_backend gloo
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from keras_rs_tpu_torch.data.criteo import CriteoDataset
 from keras_rs_tpu_torch.data.loader import ThreadedDataLoader
@@ -58,6 +74,8 @@ from keras_rs_tpu_torch.examples.ml_perf.configs import (
 )
 from keras_rs_tpu_torch.metrics.classification import AUC, BinaryAccuracy
 from keras_rs_tpu_torch.models.dlrm import DLRMConfig, DLRMDCNv2, bce_loss
+from keras_rs_tpu_torch.parallel import collectives, multihost
+from keras_rs_tpu_torch.parallel import mesh as mesh_lib
 from keras_rs_tpu_torch.training import pipelined as pipelining
 from keras_rs_tpu_torch.training.checkpoint import CheckpointManager
 from keras_rs_tpu_torch.training.trainer import (
@@ -87,25 +105,30 @@ def binary_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     )
 
 
-def check_supported(cfg: ExperimentConfig) -> None:
-    """Raises NotImplementedError for what the port does not run yet."""
-    missing = []
-    if cfg.embedding_comm_dtype is not None:
-        missing.append("the multi-device exchange dtype "
-                       "(embedding_comm_dtype; ROADMAP A10)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        missing.append("more than one process (WORLD_SIZE > 1; ROADMAP A10)")
-    if missing:
-        raise NotImplementedError(
-            "Not ported to keras_rs_tpu_torch yet: " + "; ".join(missing)
+def rank_device(device: Any = None) -> torch.device:
+    """This process's device: `device` where given, else cuda:LOCAL_RANK
+    under a launcher with more than one process, else cuda:0
+    (utils/device.py). A CUDA device that does not exist raises."""
+    if device is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         "0")))
+    device = resolve_device(device)
+    if device.type == "cuda" and not (
+            torch.cuda.is_available()
+            and (device.index or 0) < torch.cuda.device_count()):
+        raise RuntimeError(
+            f"{device} does not exist on this machine "
+            f"({torch.cuda.device_count()} CUDA device(s)); name another "
+            "with --device."
         )
+    return device
 
 
-def capacities(cfg: ExperimentConfig) -> tuple[int, int]:
-    """(max_ids_per_partition, max_unique_ids_per_partition): the worst
-    case of main.py:87-108 at one device, every large id of the batch in
-    the one bucket and every one of them unique."""
-    D = 1
+def capacities(cfg: ExperimentConfig, D: int = 1) -> tuple[int, int]:
+    """(max_ids_per_partition, max_unique_ids_per_partition) over D
+    shards: the worst case of main.py:87-108, every large id of a shard's
+    B / D samples in one bucket, and device_unique_factor times the mean
+    per-shard count of uniques (at D = 1 every id unique)."""
     large_mh = sum(
         m for v, m in zip(cfg.vocab_sizes, cfg.multi_hot_sizes)
         if v >= cfg.embedding_threshold
@@ -117,8 +140,8 @@ def capacities(cfg: ExperimentConfig) -> tuple[int, int]:
     return max_ids, max_unique
 
 
-def model_config(cfg: ExperimentConfig) -> DLRMConfig:
-    max_ids, max_unique = capacities(cfg)
+def model_config(cfg: ExperimentConfig, D: int = 1) -> DLRMConfig:
+    max_ids, max_unique = capacities(cfg, D)
     return DLRMConfig(
         vocab_sizes=cfg.vocab_sizes,
         multi_hot_sizes=cfg.multi_hot_sizes,
@@ -134,15 +157,21 @@ def model_config(cfg: ExperimentConfig) -> DLRMConfig:
         global_batch_size=cfg.global_batch_size,
         table_placement="sharded",
         dense_output_dtype=cfg.dense_output_dtype,
+        embedding_comm_dtype=cfg.embedding_comm_dtype,
     )
 
 
-def build_model(cfg: ExperimentConfig, device: torch.device) -> DLRMDCNv2:
-    """The config's model with its weights drawn from seed 0."""
+def build_model(cfg: ExperimentConfig, device: torch.device,
+                mesh: mesh_lib.Mesh | None = None) -> DLRMDCNv2:
+    """The config's model with its weights drawn from seed 0 (on every
+    rank: the dense replicas start equal, and the logical tables are
+    those of one device)."""
+    D = 1 if mesh is None else mesh.size
     return DLRMDCNv2(
-        model_config(cfg),
+        model_config(cfg, D),
         generator=torch.Generator(device=device).manual_seed(0),
         device=device,
+        mesh=mesh,
     )
 
 
@@ -193,18 +222,38 @@ def profile_dir(cfg: ExperimentConfig) -> str:
                                            "keras_rs_tpu_profile")
 
 
+def merge_metric(metric: Any, group) -> None:
+    """A streaming metric's state summed over the ranks of `group`, in
+    place (its counts and sums add)."""
+    state = metric._state
+    metric._state = type(state)(*(collectives.all_reduce(t.clone(), group)
+                                  for t in state))
+
+
 def main(config_name: str = "smoke_test", *, device: Any = None,
-         **overrides) -> dict:
+         dist_backend: str | None = None, **overrides) -> dict:
     """Trains and evaluates the named config (with `overrides` of its
     fields); returns the results dict it logs. `device` defaults to
-    cuda:0 (utils/device.py)."""
+    cuda:0, or cuda:LOCAL_RANK with more than one process (then the
+    process group starts here with `dist_backend`, by default NCCL on
+    CUDA; parallel/multihost.py)."""
     cfg = CONFIGS[config_name](**overrides)
-    check_supported(cfg)
-    device = resolve_device(device)
-    logger.info("config=%s device=%s device_preprocessing=%s", cfg.name,
-                device, cfg.device_preprocessing)
-    model = build_model(cfg, device)
-    max_ids, max_unique = capacities(cfg)
+    device = rank_device(device)
+    started_group = not dist.is_initialized() and multihost.initialize(
+        device, dist_backend)
+    mesh = mesh_lib.create_mesh(device)
+    D = mesh.size
+    group = mesh.group(mesh.axis_names)
+    rank = multihost.process_index()
+    if D > 1 and not cfg.device_preprocessing:
+        # The host COO needs the global batch; a rank holds its samples.
+        logger.info("%d processes: enabling device_preprocessing", D)
+        cfg.device_preprocessing = True
+    logger.info("config=%s device=%s processes=%d rank=%d "
+                "device_preprocessing=%s", cfg.name, device, D, rank,
+                cfg.device_preprocessing)
+    model = build_model(cfg, device, mesh)
+    max_ids, max_unique = capacities(cfg, D)
     logger.info("capacities: max_ids_per_partition=%d "
                 "max_unique_ids_per_partition=%d", max_ids, max_unique)
 
@@ -213,6 +262,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
         global_batch_size=cfg.global_batch_size,
         vocab_sizes=cfg.vocab_sizes,
         multi_hot_sizes=cfg.multi_hot_sizes,
+        process_index=rank,
+        process_count=D,
         file_batch_size=cfg.file_batch_size,
     )
 
@@ -247,7 +298,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             return pipelined_step(state, batch, next_pre)[1]
     else:
         step_fn = make_train_step(
-            model, make_loss_fn(cfg.device_preprocessing), optimizer)
+            model, make_loss_fn(cfg.device_preprocessing), optimizer,
+            mesh=mesh)
         state = {"model": model, "optimizer": optimizer}
     ckpt = (CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir
             else None)
@@ -266,7 +318,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
 
     def dropped_ids(batch: dict) -> int:
         """Device mode drops ids over a capacity without a warning: one
-        extra transform, host-reading the summed DeviceStats."""
+        extra transform, host-reading the summed DeviceStats (this
+        rank's)."""
         with torch.no_grad():
             _, stats = model.embedding_layer.preprocess_on_device(
                 {f"cat_{i}": batch[f"cat_{i}"] for i in model.large_idx},
@@ -284,6 +337,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
                 global_batch_size=cfg.global_batch_size,
                 vocab_sizes=cfg.vocab_sizes,
                 multi_hot_sizes=cfg.multi_hot_sizes,
+                process_index=rank,
+                process_count=D,
                 file_batch_size=cfg.file_batch_size,
             ).batches(epochs=1)
         return dataset.dummy_batches(4, seed=777)
@@ -305,6 +360,9 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             if collect_probs:
                 ck_labels.append(np.asarray(eval_batch["label"]))
                 ck_probs.append(probs.cpu().numpy())
+        if D > 1:
+            merge_metric(auc_m, group)
+            merge_metric(acc_m, group)
         return (float(acc_m.result()), float(auc_m.result()), ck_labels,
                 ck_probs)
 
@@ -314,6 +372,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     losses, auc_curve = [], []
     batch = None
     profiler = None
+    trace_dir = (profile_dir(cfg) if D == 1
+                 else os.path.join(profile_dir(cfg), f"rank{rank}"))
     for step in range(start_step, cfg.num_steps):
         if cfg.do_profile and step == 10:
             profiler = start_profiler(device)
@@ -334,7 +394,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             _sync(device)
             t_warm = time.time()
         if profiler is not None and step == 20:
-            stop_profiler(profiler, profile_dir(cfg), device)
+            stop_profiler(profiler, trace_dir, device)
             profiler = None
         if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
             ckpt.save(step + 1, state)
@@ -364,7 +424,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
                         "device_unique_factor)", n_dropped, step + 1,
                     )
     if profiler is not None:  # fewer than 21 steps: trace what ran
-        stop_profiler(profiler, profile_dir(cfg), device)
+        stop_profiler(profiler, trace_dir, device)
     _sync(device)
     throughput = (
         cfg.global_batch_size * max(cfg.num_steps - start_step - warmup, 0)
@@ -390,13 +450,15 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
                     cfg.global_batch_size / device_step_ms * 1e3)
     loader.stop()
 
-    # Final eval; the exact rank AUC on the host checks the thresholded
-    # streaming one.
-    acc, auc, ck_labels, ck_probs = run_eval(collect_probs=True)
-    exact = binary_auc(np.concatenate(ck_labels), np.concatenate(ck_probs))
-    if abs(exact - auc) > 0.01:
-        logger.warning("streaming AUC %.4f deviates from exact rank AUC "
-                       "%.4f", auc, exact)
+    # Final eval; with one process the exact rank AUC on the host checks
+    # the thresholded streaming one (it needs every probability).
+    acc, auc, ck_labels, ck_probs = run_eval(collect_probs=D == 1)
+    if D == 1:
+        exact = binary_auc(np.concatenate(ck_labels),
+                           np.concatenate(ck_probs))
+        if abs(exact - auc) > 0.01:
+            logger.warning("streaming AUC %.4f deviates from exact rank "
+                           "AUC %.4f", auc, exact)
 
     results = {
         "loss": float(losses[-1]) if losses else float("nan"),
@@ -412,6 +474,8 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             cfg.global_batch_size / (device_step_ms / 1e3)
         )
     logger.info("results: %s", results)
+    if started_group:
+        dist.destroy_process_group()
     return results
 
 
@@ -421,7 +485,11 @@ def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default="smoke_test")
     parser.add_argument("--device", default=None,
-                        help="torch device (default cuda:0)")
+                        help="torch device (default cuda:0, or "
+                        "cuda:LOCAL_RANK under torchrun)")
+    parser.add_argument("--dist_backend", default=None,
+                        help="torch.distributed backend with more than one "
+                        "process (default nccl on CUDA, gloo on the CPU)")
     parser.add_argument("--num_steps", type=int, default=None)
     parser.add_argument("--global_batch_size", type=int, default=None)
     parser.add_argument(
@@ -474,8 +542,9 @@ def parse_args(argv: list[str] | None = None) -> tuple[str, dict]:
         overrides["profile_dir"] = os.environ["KRT_PROFILE_DIR"]
     if os.environ.get("KRT_CHECKPOINT_DIR"):
         overrides["checkpoint_dir"] = os.environ["KRT_CHECKPOINT_DIR"]
-    if args.device is not None:
-        overrides["device"] = args.device
+    for name in ("device", "dist_backend"):
+        if getattr(args, name) is not None:
+            overrides[name] = getattr(args, name)
     return args.config, overrides
 
 

@@ -25,6 +25,11 @@ dropped entries. The observed stats come back as 0-d device tensors
 (`DeviceStats`); a caller that wants them on the host reads them when it
 chooses to.
 
+At D > 1 a rank transforms its own slice of the batch and exchanges
+its buckets with the other ranks (`shard=`, one all_to_all): the JAX
+package runs the same transform on the global arrays inside jit, where
+XLA inserts the exchange.
+
 Library torch ops only: the reference runs no Pallas kernel here.
 """
 
@@ -36,6 +41,7 @@ import torch
 
 from keras_rs_tpu_torch.layers.embedding.preprocessing import CooBatch
 from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
+from keras_rs_tpu_torch.parallel import collectives
 
 _INT_MAX = 2**31 - 1  # dedup key of an empty position (slots are int32)
 
@@ -57,6 +63,9 @@ def preprocess_stack_device(
     stack: TableStack,
     inputs: Mapping[str, torch.Tensor],
     weights: Mapping[str, torch.Tensor] | None = None,
+    *,
+    shard: int | None = None,
+    group=None,
 ) -> tuple[CooBatch, DeviceStats]:
     """preprocessing.preprocess_stack on the device.
 
@@ -66,6 +75,17 @@ def preprocess_stack_device(
     Returns the CooBatch (device tensors of the numpy path's shapes and
     dtypes; fwd_slots / fwd_gains under the numpy path's gate) and the
     stats.
+
+    With `shard` (a rank of a D-shard layer, D > 1) the inputs are that
+    rank's B / D samples and the result is its part of the global
+    transform: send_* [1, D, C] are row `shard` of the global arrays,
+    the all_to_all over `group` (one collective of the three arrays)
+    gives recv_* [D, C], which are column `shard` (bucket (d, shard) of
+    every source d), and unique_slots [1, U] / entry_unique [1, D * C]
+    dedup what this rank received, as the JAX package does for device
+    `shard`: the integers equal the global transform's bit for bit. The
+    stats are this rank's (its buckets, its uniques; parallel/multihost
+    merges them across ranks).
     """
     D = stack.num_shards
     C = stack.max_ids_per_partition
@@ -78,15 +98,20 @@ def preprocess_stack_device(
     sink = stack.sink_slot
     device = inputs[stack.features[0].name].device
     all_sum = all(t.combiner == "sum" for t in stack.tables)
-    sample = torch.arange(B, device=device)
+    # Sources in the input: every device (global) or this rank alone.
+    rank_mode = shard is not None and D > 1
+    n_src = 1 if rank_mode else D
+    n_in = n_src * Bl
+    sample = torch.arange(n_in, device=device)
 
     # --- the flattened entry list, feature by feature -----------------
     ds, ss, slots, segs, gains, valids = [], [], [], [], [], []
     for fspec in stack.features:
         ids = _as_matrix(inputs[fspec.name])
-        if ids.shape[0] != B:
+        if ids.shape[0] != n_in:
             raise ValueError(
-                f"Feature {fspec.name}: expected global batch {B}, got "
+                f"Feature {fspec.name}: expected "
+                f"{'local' if rank_mode else 'global'} batch {n_in}, got "
                 f"{ids.shape[0]}."
             )
         L = ids.shape[1]
@@ -111,7 +136,7 @@ def preprocess_stack_device(
         r = torch.where(valid, r, 0)
 
         def per_entry(per_sample: torch.Tensor) -> torch.Tensor:
-            return per_sample[:, None].expand(B, L).reshape(-1)
+            return per_sample[:, None].expand(n_in, L).reshape(-1)
 
         ds.append(per_entry(sample // Bl))
         ss.append((r + tspec.rotation) % D)
@@ -124,18 +149,20 @@ def preprocess_stack_device(
         torch.cat(x) for x in (ds, ss, slots, segs, gains, valids)
     )
     N = d.shape[0]
+    n_buckets = n_src * D
 
-    # --- combiner divisors [D, S_l] -----------------------------------
+    # --- combiner divisors [n_src, S_l] -------------------------------
     if all_sum:
-        divisors = torch.ones((D, S_l), dtype=torch.float32, device=device)
+        divisors = torch.ones((n_src, S_l), dtype=torch.float32,
+                              device=device)
     else:
-        div_idx = torch.where(valid, d * S_l + seg, D * S_l)
-        sums = torch.zeros((2, D * S_l + 1), dtype=torch.float32,
+        div_idx = torch.where(valid, d * S_l + seg, n_src * S_l)
+        sums = torch.zeros((2, n_src * S_l + 1), dtype=torch.float32,
                            device=device)
         sums[0].index_add_(0, div_idx, gain)
         sums[1].index_add_(0, div_idx, gain * gain)
-        sum_g, sum_g2 = sums[:, : D * S_l].reshape(2, D, Bl, F)
-        divisors = torch.ones((D, Bl, F), dtype=torch.float32,
+        sum_g, sum_g2 = sums[:, : n_src * S_l].reshape(2, n_src, Bl, F)
+        divisors = torch.ones((n_src, Bl, F), dtype=torch.float32,
                               device=device)
         for fspec in stack.features:
             combiner = stack.table_spec(fspec.table_name).combiner
@@ -144,12 +171,13 @@ def preprocess_stack_device(
                 divisors[:, :, f] = sum_g[:, :, f]
             elif combiner == "sqrtn":
                 divisors[:, :, f] = torch.sqrt(sum_g2[:, :, f])
-        divisors = torch.where(divisors == 0, 1.0, divisors).view(D, S_l)
+        divisors = torch.where(divisors == 0, 1.0, divisors).view(n_src,
+                                                                  S_l)
 
     # --- bucket by (source device, shard); slot-ascending within ------
     # One stable sort on the fused int64 key bucket * R_l + slot: the
     # numpy path's lexsort((slot, s, d)), ties in the original order.
-    bucket = torch.where(valid, d * D + s, D * D)
+    bucket = torch.where(valid, d * D + s, n_buckets)
     key_s, order = torch.sort(bucket * R_l + slot, stable=True)
     seg_s = seg[order]
     gain_s = gain[order]
@@ -157,9 +185,9 @@ def preprocess_stack_device(
     slot_s = key_s - bucket_s * R_l
     # Bucket starts from the sorted keys (bincount would read the max).
     starts = torch.searchsorted(
-        bucket_s, torch.arange(D * D + 1, device=device)
+        bucket_s, torch.arange(n_buckets + 1, device=device)
     )
-    counts = starts[1:] - starts[:-1]  # [D * D]; bucket D * D = invalid
+    counts = starts[1:] - starts[:-1]  # [n_buckets]; invalid: n_buckets
 
     if D == 1:
         # One bucket, whose entries the sort put first: the bucket fill
@@ -177,17 +205,17 @@ def preprocess_stack_device(
         send_gains = fill(gain_s, 0.0, torch.float32)
     else:
         rank = torch.arange(N, device=device) - starts[
-            bucket_s.clamp(max=D * D - 1)
+            bucket_s.clamp(max=n_buckets - 1)
         ]
-        within = (bucket_s < D * D) & (rank < C)
+        within = (bucket_s < n_buckets) & (rank < C)
         # Dropped entries land on the spare last element.
-        flat_idx = torch.where(within, bucket_s * C + rank, D * D * C)
+        flat_idx = torch.where(within, bucket_s * C + rank, n_buckets * C)
 
         def scatter(x_s: torch.Tensor, pad, dtype) -> torch.Tensor:
-            out = torch.full((D * D * C + 1,), pad, dtype=dtype,
+            out = torch.full((n_buckets * C + 1,), pad, dtype=dtype,
                              device=device)
             out.scatter_(0, flat_idx, x_s.to(dtype))
-            return out[: D * D * C].view(D, D, C)
+            return out[: n_buckets * C].view(n_src, D, C)
 
         send_slots = scatter(slot_s, sink, torch.int32)
         send_segs = scatter(seg_s, 0, torch.int32)
@@ -195,16 +223,18 @@ def preprocess_stack_device(
 
     # Fold the divisor into the gains (the numpy path's expression, so
     # equal inputs give equal bits); all-sum stacks skip it (x / 1.0).
-    src = torch.arange(D, device=device)[:, None, None]
+    src = torch.arange(n_src, device=device)[:, None, None]
     if not all_sum:
         send_gains = send_gains / divisors[src, send_segs.long()]
     # Globalized segment ids: source device * S_l + segment.
-    send_segs = send_segs + (src * S_l).int()
+    first_src = shard if rank_mode else 0
+    send_segs = send_segs + ((src + first_src) * S_l).int()
 
     max_ids = counts.max()
     dropped = (counts - C).clamp(min=0).sum()
 
     # --- per-shard dedup of the received slots (backward pass) --------
+    recv = None
     if D == 1:
         # The bucket is slot-sorted already: adjacency dedup, and the
         # entry order is the sorted order.
@@ -228,34 +258,20 @@ def preprocess_stack_device(
         entry_unique[:m] = torch.where(keep, uidx, U)
         entry_unique = entry_unique.view(1, C)
     else:
-        # Shard e receives bucket (d, e) of every source d: D slot-sorted
-        # runs, merged by one stable sort per shard.
-        recv_slots = send_slots.permute(1, 0, 2).reshape(D, D * C)
-        # Membership is occupancy (slot != sink), as in numpy and C++.
-        key = torch.where(recv_slots != sink, recv_slots, _INT_MAX).long()
-        key_s, pos_s = torch.sort(key, dim=1, stable=True)
-        real_s = key_s != _INT_MAX
-        prev = torch.nn.functional.pad(key_s[:, :-1], (1, 0), value=-1)
-        new_unique = real_s & (key_s != prev)
-        uidx = torch.cumsum(new_unique, 1) - 1
-        max_unique = new_unique.sum(1).max()
-        row = torch.arange(D, device=device)[:, None]
-        # Dropped entries go to the spare element D * U: a per-row
-        # sentinel would land in the next shard's first unique.
-        u_flat = torch.where(new_unique & (uidx < U - 1), row * U + uidx,
-                             D * U)
-        unique_slots = torch.full((D * U + 1,), sink, dtype=torch.int32,
-                                  device=device)
-        unique_slots.scatter_(0, u_flat.reshape(-1),
-                              key_s.reshape(-1).int())
-        unique_slots = unique_slots[: D * U].view(D, U)
-        inv = torch.where(uidx < U - 1, uidx, U)
-        e_write = torch.where(real_s, row * (D * C) + pos_s, D * D * C)
-        entry_unique = torch.full((D * D * C + 1,), U, dtype=torch.int32,
-                                  device=device)
-        entry_unique.scatter_(0, e_write.reshape(-1),
-                              inv.reshape(-1).int())
-        entry_unique = entry_unique[: D * D * C].view(D, D * C)
+        if rank_mode:
+            # The exchange: bucket e of this rank goes to rank e, and
+            # block d of what comes back is bucket (d, shard).
+            packed = torch.stack(
+                [send_slots[0], send_segs[0], send_gains[0].view(torch.int32)],
+                dim=1)  # [D, 3, C]
+            got = collectives.all_to_all(packed, group)
+            recv = (got[:, 0], got[:, 1], got[:, 2].view(torch.float32))
+            recv_slots = recv[0].reshape(1, D * C)
+        else:
+            # Shard e receives bucket (d, e) of every source d.
+            recv_slots = send_slots.permute(1, 0, 2).reshape(D, D * C)
+        unique_slots, entry_unique, max_unique = _dedup_received(
+            recv_slots, U, sink, device)
     dropped_total = dropped + (max_unique - (U - 1)).clamp(min=0)
 
     coo = CooBatch(
@@ -266,6 +282,8 @@ def preprocess_stack_device(
         entry_unique=entry_unique,
         divisors=divisors,
     )
+    if recv is not None:
+        coo.recv_slots, coo.recv_segs, coo.recv_gains = recv
     # Construction-order forward arrays: the pre-sort entry list, masked,
     # under the numpy path's gate (construction_fwd and every feature at
     # its declared (batch, valence)).
@@ -284,3 +302,35 @@ def preprocess_stack_device(
         dropped_ids=dropped_total.int(),
     )
     return coo, stats
+
+
+def _dedup_received(recv_slots: torch.Tensor, U: int, sink: int,
+                    device) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Per-shard dedup of received slots [E, D * C] (E shards, each a
+    concatenation of D slot-sorted runs, merged by one stable sort per
+    shard): (unique_slots [E, U], entry_unique [E, D * C], the largest
+    unique count)."""
+    E, n = recv_slots.shape
+    # Membership is occupancy (slot != sink), as in numpy and C++.
+    key = torch.where(recv_slots != sink, recv_slots, _INT_MAX).long()
+    key_s, pos_s = torch.sort(key, dim=1, stable=True)
+    real_s = key_s != _INT_MAX
+    prev = torch.nn.functional.pad(key_s[:, :-1], (1, 0), value=-1)
+    new_unique = real_s & (key_s != prev)
+    uidx = torch.cumsum(new_unique, 1) - 1
+    max_unique = new_unique.sum(1).max()
+    row = torch.arange(E, device=device)[:, None]
+    # Dropped entries go to the spare element E * U: a per-row sentinel
+    # would land in the next shard's first unique.
+    u_flat = torch.where(new_unique & (uidx < U - 1), row * U + uidx, E * U)
+    unique_slots = torch.full((E * U + 1,), sink, dtype=torch.int32,
+                              device=device)
+    unique_slots.scatter_(0, u_flat.reshape(-1), key_s.reshape(-1).int())
+    unique_slots = unique_slots[: E * U].view(E, U)
+    inv = torch.where(uidx < U - 1, uidx, U)
+    e_write = torch.where(real_s, row * n + pos_s, E * n)
+    entry_unique = torch.full((E * n + 1,), U, dtype=torch.int32,
+                              device=device)
+    entry_unique.scatter_(0, e_write.reshape(-1), inv.reshape(-1).int())
+    return unique_slots, entry_unique[: E * n].view(E, n), max_unique

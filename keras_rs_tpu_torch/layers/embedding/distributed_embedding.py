@@ -1,12 +1,16 @@
-"""DistributedEmbedding: the user-facing stacked embedding layer (D = 1).
+"""DistributedEmbedding: the user-facing stacked embedding layer.
 
-Counterpart of keras_rs_tpu/layers/embedding/distributed_embedding.py on
-one device: per-table placement ("sharded" tables go to the stacked
-engine of lookup.py, "default_device" tables to EmbedReduce), table
-sharing by TableConfig identity, auto table stacking, COO preprocessing
-on the host (`preprocess`, or `preprocess_host` + `to_device` where a
-loader thread does the host part) or on the device
-(`preprocess_on_device`), Ragged and sparse inputs, table import/export,
+Counterpart of keras_rs_tpu/layers/embedding/distributed_embedding.py:
+any nest of feature configs (a dict, nested dicts, a list, one bare
+config; activations come back in the same nest), per-table placement
+("sharded" tables go to the stacked engine of lookup.py,
+"default_device" tables to EmbedReduce; "auto" is sharded when the mesh
+has more than one shard), table sharing by TableConfig identity, auto
+table stacking, COO preprocessing on the host (`preprocess`, or
+`preprocess_host` + `to_device` where a loader thread does the host
+part) or on the device (`preprocess_on_device`), Ragged and sparse
+inputs, table import/export, input stats with capacity growth
+(`auto_grow`, `record_stats`, `update_stats`, `rebuild_capacities`),
 and the serving forms: `freeze()` (a slot-free `FrozenEmbedding`, f32 or
 int8 in three layouts) and `serving_copy()` (a slot-free stacked twin).
 
@@ -22,30 +26,46 @@ Usage:
                                      # cotangent computed elsewhere
                                      # (training/pipelined.py)
 
+Sharded over D > 1 ranks (one process per device, torch.distributed; a
+`mesh` of parallel/mesh.py, by default over every rank of the default
+process group): each rank builds the layer with the same generator
+seed, holds its shard of every stack (stacking.py), takes its B / D
+samples of every feature and returns their activations. Preprocessing
+runs on the device (`preprocess_on_device`: the rank's buckets go to
+their shards in one all_to_all); the host `preprocess` needs the global
+batch and raises. `get_embedding_tables` all-gathers the logical tables
+and `set_embedding_tables` keeps each rank's rows. `comm_dtype=
+"bfloat16"` sends the lookup's two [., dim] exchanges in bf16.
+
 Feature inputs are id arrays shaped as the feature declares, `Ragged`
 batches (data/ragged.py) or sparse id matrices (data/sparse_utils.py),
 densified to padded ids and 0/1 weights as in the JAX package: a Ragged
 batch pads to its longest row, so a batch narrower than a feature's
-valence takes the lookup's sorted forward (lookup.py).
+valence takes the lookup's sorted forward (lookup.py). Inputs bind to
+the features as a nest of the configs' structure, a flat dict keyed by
+feature names, or, for a one-feature layer, a bare array.
 
 Each stack's state is registered as buffers: `stack{i}_table` (the
 packed [R, stride, dim] f32 state, or the split layout's [R, dim] table
 in its storage dtype, f32 or bf16), `stack{i}_slot_{name}` for each
 optimizer slot of a split stack ([R, dim] f32, or [R] f32 when
-row-wise) and `stack{i}_step`; `stack_state(i)` bundles them as the
-lookup takes them. Tables are exported and imported as logical
-[vocab, dim] tensors in the storage dtype.
+row-wise) and `stack{i}_step`, R the rows of this rank's shard;
+`stack_state(i)` bundles them as the lookup takes them. Tables are
+exported and imported as logical [vocab, dim] tensors in the storage
+dtype.
 
 `get_config` / `from_config` round-trip the architecture (the tables and
-features); the values travel through checkpoints (training/checkpoint.py:
-the stacks' buffers are in the state_dict). Not ported yet:
-multi-device sharding, stats tracking and capacity growth
-(`record_stats` / `update_stats`).
+features, the mesh axis names, auto_grow, comm_dtype); the values travel
+through checkpoints (training/checkpoint.py: the stacks' buffers are in
+the state_dict). Capacity growth rebuilds a stack's COO shapes only:
+the tables, slots and step counters stay where they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Any, Mapping
 
 import numpy as np
@@ -54,6 +74,7 @@ from torch import nn
 
 from keras_rs_tpu_torch.convert import as_tensor
 from keras_rs_tpu_torch.core.serialization import export
+from keras_rs_tpu_torch.data.ragged import Ragged
 from keras_rs_tpu_torch.layers.embedding.config import (
     FeatureConfig,
     TableConfig,
@@ -77,6 +98,7 @@ from keras_rs_tpu_torch.layers.embedding.lookup import (
 )
 from keras_rs_tpu_torch.layers.embedding.preprocessing import (
     CooBatch,
+    InputStats,
     preprocess_stack,
 )
 from keras_rs_tpu_torch.layers.embedding.stacking import (
@@ -85,19 +107,137 @@ from keras_rs_tpu_torch.layers.embedding.stacking import (
     gather_table,
     init_stack_table,
     scatter_table,
+    shard_block,
     table_rows,
+    unshard_table,
 )
 from keras_rs_tpu_torch.ops import quant
+from keras_rs_tpu_torch.parallel import collectives, multihost
+from keras_rs_tpu_torch.parallel import mesh as mesh_lib
 from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
 
+# --- nests (the JAX package flattens feature configs with jax.tree_util:
+# dict keys sorted, lists and tuples in order, None an empty node) -----
+_LEAF = "*"
+
+
+def flatten(tree: Any, is_leaf) -> tuple[list, Any]:
+    """(leaves, structure) of a nest of dicts, lists and tuples, in
+    jax.tree_util's order (dict keys sorted); `is_leaf(x)` ends the
+    descent."""
+    leaves: list = []
+    return leaves, _walk(tree, is_leaf, leaves)
+
+
+def unflatten(structure: Any, leaves: list) -> Any:
+    """The nest of `structure` (from `flatten`) holding `leaves`."""
+    return _build(structure, iter(leaves))
+
+
+# Module-level recursion: a nested closure that calls itself is a
+# reference cycle, which would keep the leaves (activations, and through
+# their autograd nodes the stacked state) alive until a garbage
+# collection.
+def _walk(x: Any, is_leaf, leaves: list) -> Any:
+    if is_leaf(x):
+        leaves.append(x)
+        return _LEAF
+    if isinstance(x, Mapping):
+        keys = sorted(x)
+        return ("dict", tuple(keys),
+                tuple(_walk(x[k], is_leaf, leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__,
+                tuple(_walk(v, is_leaf, leaves) for v in x))
+    if x is None:
+        return ("none",)
+    leaves.append(x)
+    return _LEAF
+
+
+def _build(node: Any, it) -> Any:
+    if node == _LEAF:
+        return next(it)
+    if node[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(node[1], node[2])}
+    if node[0] == "none":
+        return None
+    items = [_build(c, it) for c in node[1]]
+    return items if node[0] == "list" else tuple(items)
+
+
+def _is_input_leaf(x: Any) -> bool:
+    return x is None or isinstance(x, (np.ndarray, torch.Tensor, Ragged))
+
+
+def _is_feature_config(x: Any) -> bool:
+    return isinstance(x, FeatureConfig)
+
+
+def flatten_features(feature_configs: Any) -> tuple[list, Any]:
+    """(FeatureConfig leaves, structure); every leaf must be a
+    FeatureConfig and feature names unique."""
+    leaves, structure = flatten(feature_configs, _is_feature_config)
+    for leaf in leaves:
+        if not isinstance(leaf, FeatureConfig):
+            raise ValueError(
+                f"Expected FeatureConfig leaves, got {type(leaf)}."
+            )
+    names = [fc.name for fc in leaves]
+    if len(set(names)) != len(names):
+        raise ValueError(f"Duplicate feature names: {names}")
+    return leaves, structure
+
+
+def match_features(feature_leaves: list, structure: Any, inputs: Any,
+                   allow_partial: bool = False) -> dict[str, Any]:
+    """Binds an input nest to the features (by name):
+      * a nest with exactly the feature configs' structure;
+      * a flat dict keyed by feature names (with `allow_partial`, e.g.
+        for weights, a subset);
+      * a bare array for a one-feature layer.
+    Anything else raises ValueError: a nest of another structure with the
+    same number of leaves must never bind features to the wrong tables.
+    """
+    names = [fc.name for fc in feature_leaves]
+    if isinstance(inputs, Mapping) and all(
+            _is_input_leaf(v) for v in inputs.values()):
+        unknown = set(inputs) - set(names)
+        missing = set(names) - set(inputs)
+        if not unknown and (not missing or allow_partial):
+            return {name: inputs.get(name) for name in names}
+        # Keys other than the feature names: a dict of the configs' own
+        # structure (configs keyed "a" / "b", named "movie" / "user")
+        # still binds below.
+    leaves, got = flatten(inputs, _is_input_leaf)
+    if got != structure and not (
+            len(names) == 1 and len(leaves) == 1 and got == _LEAF):
+        if isinstance(inputs, Mapping):
+            unknown = set(inputs) - set(names)
+            missing = set(names) - set(inputs)
+            raise ValueError(
+                "Feature inputs keyed by name do not match the layer's "
+                f"features (unknown {sorted(unknown)}, missing "
+                f"{sorted(missing)}) and their structure does not match "
+                f"feature_configs either: expected {structure}, got {got}."
+            )
+        raise ValueError(
+            "Feature inputs do not match the layer's feature_configs "
+            f"structure. Expected {structure} (or a flat dict keyed by "
+            f"feature names {names}), got {got}."
+        )
+    return dict(zip(names, leaves))
+
 
 def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
-    """The D = 1 lookup's arrays of a CooBatch (host numpy arrays, or
-    device tensors from preprocess_stack_device), flattened, on `device`:
-    the construction-order forward's fwd_slots / fwd_gains where the
-    batch has them, else the sorted forward's recv_slots.
+    """The lookup's arrays of a CooBatch (host numpy arrays, or device
+    tensors from preprocess_stack_device), flattened, on `device`: the
+    construction-order forward's fwd_slots / fwd_gains where the batch
+    has them, else the sorted forward's recv_slots. At D > 1 the
+    received buffers are the rank's recv_* (at D = 1 the send buffers
+    are what the one shard receives).
 
     Gather indices become int64 once per batch (on the device, so the
     host moves int32); `unique_slots` stays int32 for the row kernel.
@@ -109,58 +249,91 @@ def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
             a = to_device(a, device)
         return a.reshape(-1).to(device)
 
+    received = coo.recv_slots is not None
     out = {
-        "recv_segs": put(coo.send_segs).long(),
-        "recv_gains": put(coo.send_gains),
+        "recv_segs": put(coo.recv_segs if received
+                         else coo.send_segs).long(),
+        "recv_gains": put(coo.recv_gains if received else coo.send_gains),
         "entry_unique": put(coo.entry_unique).long(),
         "unique_slots": put(coo.unique_slots),
     }
     if coo.fwd_slots is None:
-        out["recv_slots"] = put(coo.send_slots).long()
+        out["recv_slots"] = put(coo.recv_slots if received
+                                else coo.send_slots).long()
     else:
         out["fwd_slots"] = put(coo.fwd_slots).long()
         out["fwd_gains"] = put(coo.fwd_gains)
     return out
 
 
+def _not_sharded(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} of a layer sharded over more than one rank is not ported "
+        "to keras_rs_tpu_torch yet (ROADMAP A10, second half)."
+    )
+
+
 @export("keras_rs_tpu_torch.layers.DistributedEmbedding")
 class DistributedEmbedding(nn.Module):
     def __init__(
         self,
-        feature_configs: Mapping[str, FeatureConfig],
+        feature_configs: Any,
         *,
         generator: torch.Generator | None = None,
         device: Any = None,
+        mesh: mesh_lib.Mesh | None = None,
+        axis_name: mesh_lib.AxisName = mesh_lib.DATA_AXIS,
+        auto_grow: bool = True,
+        comm_dtype: str | None = None,
     ) -> None:
         super().__init__()
-        self._keys = list(feature_configs)
-        leaves = list(feature_configs.values())
-        for leaf in leaves:
-            if not isinstance(leaf, FeatureConfig):
-                raise ValueError(
-                    f"Expected FeatureConfig values, got {type(leaf)}."
-                )
-        names = [fc.name for fc in leaves]
-        if len(set(names)) != len(names):
-            raise ValueError(f"Duplicate feature names: {names}")
-        self._feature_leaves = leaves
-        self.device = resolve_device(device)
+        self._feature_leaves, self._feature_structure = flatten_features(
+            feature_configs)
+        leaves = self._feature_leaves
+        if comm_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"Unsupported comm_dtype: {comm_dtype!r} (use "
+                "None/'float32' or 'bfloat16')."
+            )
+        #: "bfloat16" sends the lookup's reduce-scatter and all-gather in
+        #: bf16 (D > 1; local sums stay f32).
+        self.comm_dtype = comm_dtype
+        #: When True, `preprocess(..., training=True)` (and
+        #: `preprocess_on_device(..., training=True)`) merges the batch's
+        #: stats across processes, grows every stack whose capacities
+        #: it exceeded and redoes that stack: no id is dropped. False
+        #: warns and drops (then `update_stats` / `rebuild_capacities`).
+        self.auto_grow = bool(auto_grow)
+        if mesh is None:
+            mesh = mesh_lib.create_mesh(device, axis_name)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.device = (mesh.device if device is None
+                       else resolve_device(device))
+        #: Shards of every stack (the mesh axis's size), this rank's
+        #: shard, and the axis's process group (None at D = 1).
+        self.num_shards = mesh_lib.axis_size(mesh, axis_name)
+        self.shard = mesh.index(axis_name)
+        self._group = mesh.group(axis_name)
 
-        # Placement on one device: "auto" resolves to default_device,
-        # as in the JAX package with a one-device mesh.
+        # Placement: "auto" is sharded when the mesh has more than one
+        # shard and default_device otherwise, as in the JAX package.
         def sharded(table: TableConfig) -> bool:
-            return table.placement in ("sharded", "sparsecore")
+            if table.placement in ("sharded", "sparsecore"):
+                return True
+            return table.placement == "auto" and self.num_shards > 1
 
         sharded_fcs = [fc for fc in leaves if sharded(fc.table)]
         dense_fcs = [fc for fc in leaves if not sharded(fc.table)]
 
         self.stacks: tuple[TableStack, ...] = tuple(
-            build_stacks(sharded_fcs, 1)
+            build_stacks(sharded_fcs, self.num_shards)
         )
         table_configs = {fc.table.name: fc.table for fc in leaves}
         for i, stack in enumerate(self.stacks):
             table = init_stack_table(
-                stack, table_configs, generator, self.device
+                stack, table_configs, generator, self.device,
+                shard=self.shard,
             )
             state = init_stack_state(stack, table)
             del table
@@ -184,6 +357,8 @@ class DistributedEmbedding(nn.Module):
                     device=self.device,
                     name=t.name,
                 )
+        #: Observed preprocessing stats by stack name (this process's).
+        self._stats: dict[str, InputStats] = {}
 
     # ------------------------------------------------------------------
     def stack_state(self, i: int) -> dict[str, Any]:
@@ -201,28 +376,21 @@ class DistributedEmbedding(nn.Module):
             }
         return state
 
-    def _match_features(
-        self, structure: Mapping[str, Any], allow_partial: bool = False
-    ) -> dict[str, Any]:
-        """Binds a mapping keyed like feature_configs to feature names
-        (`allow_partial`: missing keys, e.g. of weights, give None)."""
-        unknown = set(structure) - set(self._keys)
-        missing = set(self._keys) - set(structure)
-        if unknown or (missing and not allow_partial):
-            raise ValueError(
-                "Feature inputs do not match the layer's features: unknown "
-                f"{sorted(unknown)}, missing {sorted(missing)}."
-            )
-        return {
-            fc.name: structure.get(k)
-            for k, fc in zip(self._keys, self._feature_leaves)
-        }
+    def _match_features(self, structure: Any,
+                        allow_partial: bool = False) -> dict[str, Any]:
+        return match_features(self._feature_leaves, self._feature_structure,
+                              structure, allow_partial)
+
+    def _local_rows(self, fc: FeatureConfig) -> int:
+        """This rank's rows of a feature's flattened batch."""
+        return fc.batch_size // self.num_shards
 
     def _bind(self, inputs: Any, weights: Any, host: bool) -> tuple:
         """(ids, weights) by feature name, each shaped as its feature
-        declares, leading axes flattened (weights None where not given):
-        Ragged and sparse inputs densified, then numpy arrays (`host`) or
-        tensors on the layer's device."""
+        declares (this rank's rows at D > 1), leading axes flattened
+        (weights None where not given): Ragged and sparse inputs
+        densified, then numpy arrays (`host`) or tensors on the layer's
+        device."""
         in_leaves = self._match_features(inputs)
         w_leaves = (
             self._match_features(weights, allow_partial=True)
@@ -235,17 +403,20 @@ class DistributedEmbedding(nn.Module):
                                     fc.name)
             # A densified Ragged batch keeps its own width: narrower than
             # the valence, it takes the sorted forward.
-            target = (
-                (fc.batch_size, -1) if fc.reduced else (fc.batch_size,)
-            )
+            rows = self._local_rows(fc)
+            target = (rows, -1) if fc.reduced else (rows,)
             in_leaves[fc.name] = put(ids).reshape(target)
             if w is not None:
                 w_leaves[fc.name] = put(w).reshape(target)
         return in_leaves, w_leaves
 
-    def _per_stack(self, in_leaves: dict, w_leaves: dict):
-        """(stack, its features' ids, their given weights) per stack."""
+    def _per_stack(self, in_leaves: dict, w_leaves: dict,
+                   only: set[str] | None = None):
+        """(stack, its features' ids, their given weights) per stack (of
+        `only`, where given)."""
         for stack in self.stacks:
+            if only is not None and stack.name not in only:
+                continue
             yield (
                 stack,
                 {f.name: in_leaves[f.name] for f in stack.features},
@@ -256,22 +427,72 @@ class DistributedEmbedding(nn.Module):
                 },
             )
 
-    def preprocess_host(
-        self, inputs: Any, weights: Any = None
-    ) -> dict[str, Any]:
-        """Host-side COO preprocessing (the C++ engine where it builds,
-        numpy otherwise), numpy arrays only: safe on a loader thread. Pass
-        the result through `to_device`."""
-        in_leaves, w_leaves = self._bind(inputs, weights, host=True)
-        sharded = {
-            stack.name: preprocess_stack(stack, ids, w)[0]
-            for stack, ids, w in self._per_stack(in_leaves, w_leaves)
-        }
-        dense = {
+    def _host_stacks(self, in_leaves, w_leaves, only=None):
+        coos, stats = {}, {}
+        for stack, ids, w in self._per_stack(in_leaves, w_leaves, only):
+            coos[stack.name], stats[stack.name] = preprocess_stack(
+                stack, ids, w)
+        return coos, stats
+
+    def _device_stacks(self, in_leaves, w_leaves, only=None):
+        coos, stats = {}, {}
+        for stack, ids, w in self._per_stack(in_leaves, w_leaves, only):
+            coos[stack.name], stats[stack.name] = preprocess_stack_device(
+                stack, ids, w, shard=self.shard, group=self._group)
+        return coos, stats
+
+    def _grow_and_fold(self, run, in_leaves, w_leaves, training: bool,
+                       read=lambda st: st):
+        """Runs `run` (host or device stacks) on the bound inputs; in
+        training with auto_grow, merges the stats across processes,
+        grows the stacks whose capacities they exceed and runs those
+        again (nothing of the batch is dropped, and the over-capacity
+        warnings of the first pass are not shown); in training, folds
+        this process's stats of the final pass. `read` turns a stack's
+        stats into InputStats (a host read of DeviceStats)."""
+        grow = training and self.auto_grow and bool(self.stacks)
+        with warnings.catch_warnings():
+            if grow:
+                warnings.simplefilter("ignore")
+            coos, stats = run(in_leaves, w_leaves)
+        if grow:
+            grown = self._maybe_grow({k: read(v) for k, v in stats.items()})
+            if grown:
+                new_coos, new_stats = run(in_leaves, w_leaves, grown)
+                coos.update(new_coos)
+                stats.update(new_stats)
+        if training:
+            for name, st in stats.items():
+                self._fold_stats(name, read(st))
+        return coos, stats
+
+    def _dense_inputs(self, in_leaves: dict, w_leaves: dict) -> dict:
+        return {
             name: (in_leaves[name], w_leaves[name])
             for name in self._dense_feature_to_table
         }
-        return {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+
+    def preprocess_host(
+        self, inputs: Any, weights: Any = None, training: bool = False
+    ) -> dict[str, Any]:
+        """Host-side COO preprocessing (the C++ engine where it builds,
+        numpy otherwise), numpy arrays only: safe on a loader thread
+        unless `training` grows capacities (see `auto_grow`). Pass the
+        result through `to_device`. One process only: at D > 1 the host
+        transform would need the global batch (use
+        `preprocess_on_device`)."""
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                "The host COO preprocessing needs the global batch; a rank "
+                "of a sharded layer holds its own samples: use "
+                "preprocess_on_device (as the JAX ml_perf entry point "
+                "does with more than one process)."
+            )
+        in_leaves, w_leaves = self._bind(inputs, weights, host=True)
+        sharded, _ = self._grow_and_fold(self._host_stacks, in_leaves,
+                                         w_leaves, training)
+        return {PREPROCESSED_KEY: True, "sharded": sharded,
+                "dense": self._dense_inputs(in_leaves, w_leaves)}
 
     def to_device(self, host_pre: dict[str, Any]) -> dict[str, Any]:
         """`preprocess_host`'s result on the layer's device, as
@@ -290,50 +511,199 @@ class DistributedEmbedding(nn.Module):
         return {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
 
     def preprocess(
-        self, inputs: Any, weights: Any = None
+        self, inputs: Any, weights: Any = None, training: bool = False
     ) -> dict[str, Any]:
         """Host-side COO preprocessing; returns a marker-wrapped dict of
-        device tensors to pass to `__call__`."""
-        return self.to_device(self.preprocess_host(inputs, weights))
+        device tensors to pass to `__call__`. With `training` and
+        `auto_grow`, capacities grow so that no id is dropped."""
+        return self.to_device(self.preprocess_host(inputs, weights,
+                                                   training))
 
     def preprocess_on_device(
         self,
         inputs: Any,
         weights: Any = None,
         return_stats: bool = False,
+        training: bool = False,
     ) -> Any:
         """COO preprocessing on the device, from id (and weight) tensors
         on the layer's device: the structure `preprocess` returns, with
         the same arrays, computed without a host round trip
         (device_preprocessing.py), so a training step can take raw ids.
+        At D > 1 every rank calls it on its own samples (one all_to_all
+        per stack).
 
-        Shapes are static: ids over a capacity are dropped without a
-        warning. With `return_stats=True` also returns {stack name:
-        DeviceStats} (0-d device tensors); read `dropped_ids` on the host
-        now and then to see drops.
+        Shapes are static: without `training`, ids over a capacity are
+        dropped without a warning. With `return_stats=True` also returns
+        {stack name: DeviceStats} (0-d device tensors, this rank's); read
+        them on the host now and then and pass them to `record_stats`.
+        With `training` and `auto_grow` the stats are read on the host
+        (one sync), merged across processes, and stacks over capacity
+        grow and run again, as `preprocess` does.
         """
         in_leaves, w_leaves = self._bind(inputs, weights, host=False)
-        sharded = {}
-        stats: dict[str, DeviceStats] = {}
-        for stack, ids, w in self._per_stack(in_leaves, w_leaves):
-            coo, stats[stack.name] = preprocess_stack_device(stack, ids, w)
-            sharded[stack.name] = coo_to_device(coo, self.device)
-        dense = {
-            name: (in_leaves[name], w_leaves[name])
-            for name in self._dense_feature_to_table
-        }
-        pre = {PREPROCESSED_KEY: True, "sharded": sharded, "dense": dense}
+        coos, stats = self._grow_and_fold(
+            self._device_stacks, in_leaves, w_leaves, training,
+            read=_host_stats)
+        sharded = {name: coo_to_device(coo, self.device)
+                   for name, coo in coos.items()}
+        pre = {PREPROCESSED_KEY: True, "sharded": sharded,
+               "dense": self._dense_inputs(in_leaves, w_leaves)}
         return (pre, stats) if return_stats else pre
 
-    def forward(self, inputs: Any, weights: Any = None) -> Any:
-        """Looks up embeddings; accepts raw inputs or preprocessed ones.
-        Returns the activations keyed like feature_configs."""
+    # --- input stats and capacity growth ------------------------------
+    def _fold_stats(self, stack_name: str, stats: InputStats) -> None:
+        prev = self._stats.get(stack_name)
+        if prev is None:
+            self._stats[stack_name] = stats
+        else:
+            self._stats[stack_name] = InputStats(
+                max_ids_per_bucket=max(prev.max_ids_per_bucket,
+                                       stats.max_ids_per_bucket),
+                max_unique_per_shard=max(prev.max_unique_per_shard,
+                                         stats.max_unique_per_shard),
+                dropped_ids=prev.dropped_ids + stats.dropped_ids,
+            )
+
+    @property
+    def input_stats(self) -> dict[str, InputStats]:
+        """Observed preprocessing stats by stack name (this process's;
+        `update_stats` merges them across processes)."""
+        return dict(self._stats)
+
+    def record_stats(self, stats: Mapping[str, Any]) -> None:
+        """Folds externally observed stats into the layer's stats:
+        {stack name: InputStats | DeviceStats} (DeviceStats are read on
+        the host here). For the device pipeline: pass the stats of
+        `preprocess_on_device(..., return_stats=True)` now and then, then
+        `update_stats()` / `rebuild_capacities()` work as on the host
+        path."""
+        for name, st in stats.items():
+            self._fold_stats(name, _host_stats(st))
+
+    def _maybe_grow(self, stats_by_stack: Mapping[str, InputStats]
+                    ) -> set[str]:
+        """Merges this batch's stats across processes and grows the
+        stacks they exceed; returns the names of those stacks. Every
+        process calls it on every training batch, so the merge is always
+        matched and every process grows the same way."""
+        flat: dict[str, int] = {}
+        for name, st in stats_by_stack.items():
+            flat[f"{name}\0ids"] = st.max_ids_per_bucket
+            flat[f"{name}\0unique"] = st.max_unique_per_shard
+            flat[f"{name}\0dropped"] = st.dropped_ids
+        synced = multihost.sync_max_stats(
+            flat, sum_keys=frozenset(k for k in flat
+                                     if k.endswith("\0dropped")))
+        merged = {
+            name: InputStats(
+                max_ids_per_bucket=synced[f"{name}\0ids"],
+                max_unique_per_shard=synced[f"{name}\0unique"],
+                dropped_ids=synced[f"{name}\0dropped"],
+            )
+            for name in stats_by_stack
+        }
+        exceeded = {
+            stack.name for stack in self.stacks
+            if stack.name in merged and _exceeds(stack, merged[stack.name])
+        }
+        if exceeded:
+            self._grow_stacks(merged, only=exceeded)
+        return exceeded
+
+    def update_stats(self, warn: bool = True) -> dict[str, InputStats]:
+        """The observed stats merged across processes (max of the
+        capacity watermarks, sum of the drops), warning where they exceed
+        a stack's capacities; then `rebuild_capacities(synced=...)`."""
+        synced: dict[str, InputStats] = {}
+        for stack in self.stacks:
+            # Every process joins the merge of every stack: one that saw
+            # no batch of it contributes zeros.
+            st = self._stats.get(stack.name)
+            agg = InputStats(**multihost.sync_max_stats(dataclasses.asdict(
+                st if st is not None else InputStats(0, 0, 0))))
+            if st is None and agg == InputStats(0, 0, 0):
+                continue
+            synced[stack.name] = agg
+            if warn and _exceeds(stack, agg):
+                warnings.warn(
+                    f"Stack {stack.name!r}: observed stats exceed "
+                    f"capacities (ids {agg.max_ids_per_bucket}/"
+                    f"{stack.max_ids_per_partition}, unique "
+                    f"{agg.max_unique_per_shard}/"
+                    f"{stack.max_unique_ids_per_shard - 1}, dropped "
+                    f"{agg.dropped_ids}). Call rebuild_capacities().",
+                    stacklevel=2,
+                )
+        return synced
+
+    def rebuild_capacities(
+        self,
+        margin: float = 1.25,
+        synced: Mapping[str, InputStats] | None = None,
+    ) -> bool:
+        """Grows each stack's COO capacities to the observed maxima
+        (merged across processes; pass `synced`, e.g. `update_stats()`'s
+        result, to skip the merge). Only the preprocessed arrays'
+        shapes change: tables, slots and step counters stay as they are.
+        Returns whether anything changed."""
+        if synced is None:
+            synced = self.update_stats(warn=False)
+        return self._grow_stacks(synced, margin=margin)
+
+    def _grow_stacks(self, synced: Mapping[str, InputStats],
+                     only: set[str] | None = None,
+                     margin: float = 1.25) -> bool:
+        changed = False
+        new_stacks = []
+        for stack in self.stacks:
+            st = synced.get(stack.name)
+            if st is None or (only is not None and stack.name not in only):
+                new_stacks.append(stack)
+                continue
+            C = max(stack.max_ids_per_partition,
+                    int(math.ceil(st.max_ids_per_bucket * margin)))
+            U = max(stack.max_unique_ids_per_shard,
+                    int(math.ceil(st.max_unique_per_shard * margin)) + 1)
+            if st.dropped_ids:
+                # Entries dropped before the dedup make the observed
+                # unique count an underestimate; a shard receives at most
+                # D * C entries, so one rebuild converges.
+                U = max(U, stack.num_shards * C + 1)
+            if (C, U) != (stack.max_ids_per_partition,
+                          stack.max_unique_ids_per_shard):
+                changed = True
+                stack = dataclasses.replace(
+                    stack, max_ids_per_partition=C,
+                    max_unique_ids_per_shard=U)
+            new_stacks.append(stack)
+        self.stacks = tuple(new_stacks)
+        return changed
+
+    def has_sharded_tables(self) -> bool:
+        """Whether any table resolved to the stacked (sharded) engine:
+        with "auto" placement, true once the mesh has more than one
+        shard."""
+        return bool(self.stacks)
+
+    # ------------------------------------------------------------------
+    def forward(self, inputs: Any, weights: Any = None,
+                training: bool = False) -> Any:
+        """Looks up embeddings; accepts raw inputs (preprocessed here: on
+        the host at D = 1, on the device at D > 1) or preprocessed ones.
+        Returns the activations in the nest of the feature configs (this
+        rank's rows at D > 1)."""
         if not (isinstance(inputs, dict) and PREPROCESSED_KEY in inputs):
-            inputs = self.preprocess(inputs, weights)
+            if self.num_shards > 1:
+                inputs = self.preprocess_on_device(inputs, weights,
+                                                   training=training)
+            else:
+                inputs = self.preprocess(inputs, weights, training)
         acts_by_name: dict[str, torch.Tensor] = {}
         for i, stack in enumerate(self.stacks):
             acts = stack_lookup(
-                stack, self.stack_state(i), inputs["sharded"][stack.name]
+                stack, self.stack_state(i), inputs["sharded"][stack.name],
+                self._group, self.comm_dtype,
             )
             acts_by_name.update(split_activations(stack, acts))
         for name, (ids, w) in inputs["dense"].items():
@@ -343,31 +713,33 @@ class DistributedEmbedding(nn.Module):
         outs = []
         for fc in self._feature_leaves:
             act = acts_by_name[fc.name]
-            out_shape = tuple(fc.output_shape[:-1]) + (act.shape[-1],)
+            lead = tuple(fc.output_shape[:-1])
+            out_shape = ((lead[0] // self.num_shards,) + lead[1:]
+                         + (act.shape[-1],))
             outs.append(act.reshape(out_shape))
-        return dict(zip(self._keys, outs))
+        return unflatten(self._feature_structure, outs)
 
-    def apply_cotangents(self, pre: dict[str, Any],
-                         d_acts: Mapping[str, Any]) -> None:
+    def apply_cotangents(self, pre: dict[str, Any], d_acts: Any) -> None:
         """The training update of a lookup from its activations'
         cotangent alone: what the backward of `self(pre)` does, without
         running the forward again (the JAX pipelined step's vjp,
         training/pipelined.py).
 
         `pre` is the preprocessed batch the activations were gathered for
-        and `d_acts` their cotangents, keyed like `forward`'s output (None
-        counts as zero). Each stack takes its features' cotangents in its
-        segment layout (`lookup.merge_cotangents`) and updates its state
-        in place (`stack_update`: the fused optimizer, the step counter). The dense-placement tables run
-        their lookup through autograd, so their gradients accumulate in
-        `.grad` for the dense optimizer.
+        and `d_acts` their cotangents, in the nest of `forward`'s output
+        or keyed by feature name (None counts as zero). Each stack takes
+        its features' cotangents in its segment layout
+        (`lookup.merge_cotangents`) and updates its state in place
+        (`stack_update`: the fused optimizer, the step counter). The
+        dense-placement tables run their lookup through autograd, so
+        their gradients accumulate in `.grad` for the dense optimizer.
         """
-        d_by_name = {fc.name: d_acts[k]
-                     for k, fc in zip(self._keys, self._feature_leaves)}
+        d_by_name = self._match_features(d_acts, allow_partial=True)
         for i, stack in enumerate(self.stacks):
             stack_update(stack, self.stack_state(i),
                          pre["sharded"][stack.name],
-                         merge_cotangents(stack, d_by_name, self.device))
+                         merge_cotangents(stack, d_by_name, self.device),
+                         self._group, self.comm_dtype)
         outs, grads = [], []
         with torch.enable_grad():
             for name, (ids, w) in pre["dense"].items():
@@ -384,12 +756,20 @@ class DistributedEmbedding(nn.Module):
     @torch.no_grad()
     def get_embedding_tables(self) -> dict[str, torch.Tensor]:
         """Unstacked [vocab, dim] tables by name (copies, in the storage
-        dtype)."""
+        dtype). At D > 1 every rank must call it: each table's shards
+        are all-gathered, and every rank gets the whole table."""
         out = {}
         for i, stack in enumerate(self.stacks):
             table = self.stack_state(i)["table"]
             for ts in stack.tables:
-                out[ts.name] = gather_table(stack, table, ts.name)
+                if stack.num_shards == 1:
+                    out[ts.name] = gather_table(stack, table, ts.name)
+                    continue
+                block = shard_block(stack, table, ts.name)
+                blocks = collectives.all_gather(block, self._group)
+                out[ts.name] = unshard_table(
+                    stack, ts.name,
+                    blocks.view(stack.num_shards, *block.shape))
         for name, layer in self.dense_tables.items():
             out[name] = layer.embeddings.detach().clone()
         return out
@@ -400,14 +780,16 @@ class DistributedEmbedding(nn.Module):
     ) -> None:
         """Writes [vocab, dim] values into the stacked state (table rows
         only, rounded to nearest in a bf16 table; optimizer slots are
-        untouched) and the dense tables. numpy arrays may be bf16
-        (ml_dtypes, as the JAX package exports a bf16 table)."""
+        untouched; at D > 1 this rank's rows) and the dense tables. numpy
+        arrays may be bf16 (ml_dtypes, as the JAX package exports a bf16
+        table)."""
         for i, stack in enumerate(self.stacks):
             table = self.stack_state(i)["table"]
             for ts in stack.tables:
                 if ts.name in tables:
                     scatter_table(
-                        stack, table, ts.name, as_tensor(tables[ts.name])
+                        stack, table, ts.name, as_tensor(tables[ts.name]),
+                        shard=self.shard if stack.num_shards > 1 else None,
                     )
         for name, layer in self.dense_tables.items():
             if name in tables:
@@ -425,7 +807,10 @@ class DistributedEmbedding(nn.Module):
         the JAX package's packed layouts. An int8 freeze quantizes table
         by table in row chunks straight from the stacked state, so it
         needs the int8 tables and one chunk beside the training state.
+        One shard only (D = 1).
         """
+        if self.num_shards > 1:
+            raise _not_sharded("freeze()")
         return FrozenEmbedding(self, quantize=quantize)
 
     @torch.no_grad()
@@ -437,8 +822,10 @@ class DistributedEmbedding(nn.Module):
         only table bytes and shares no stacked storage with this layer;
         its step counters are copies too. `default_device` tables share
         this layer's EmbedReduce modules. Training the copy would train
-        plain SGD from the copied tables.
+        plain SGD from the copied tables. One shard only (D = 1).
         """
+        if self.num_shards > 1:
+            raise _not_sharded("serving_copy()")
         sgd_tables: dict[str, TableConfig] = {}
 
         def to_sgd(t: TableConfig) -> TableConfig:
@@ -448,12 +835,15 @@ class DistributedEmbedding(nn.Module):
 
         new = DistributedEmbedding.__new__(DistributedEmbedding)
         nn.Module.__init__(new)
-        new._keys = list(self._keys)
         new._feature_leaves = [
             dataclasses.replace(fc, table=to_sgd(fc.table))
             for fc in self._feature_leaves
         ]
-        new.device = self.device
+        new._feature_structure = self._feature_structure
+        for attr in ("device", "mesh", "axis_name", "num_shards", "shard",
+                     "_group", "comm_dtype", "auto_grow"):
+            setattr(new, attr, getattr(self, attr))
+        new._stats = {}
         # The old grouping, pinned: regrouping by the new optimizer could
         # merge stacks and change their row layouts.
         new.stacks = tuple(
@@ -473,10 +863,11 @@ class DistributedEmbedding(nn.Module):
         return new
 
     def get_config(self) -> dict[str, Any]:
-        """The tables (shared tables once, by index) and the features, as
-        the JAX package's config holds them; its mesh entries (axis_name,
-        table_stacking, dtype, auto_grow, comm_dtype, shard_rotation)
-        have no counterpart on one device. Table values come from a
+        """The tables (shared tables once, by index), the features, and
+        the mesh axis names, auto_grow and comm_dtype, as the JAX
+        package's config holds them (its table_stacking, dtype and
+        shard_rotation have no counterpart here: the port stacks
+        automatically and always rotates). Table values come from a
         checkpoint, not from the config."""
         tables: list[TableConfig] = []
         table_index: dict[int, int] = {}
@@ -491,24 +882,53 @@ class DistributedEmbedding(nn.Module):
                 "input_shape": tuple(fc.input_shape),
                 "output_shape": tuple(fc.output_shape),
             })
-        return {"tables": [t.get_config() for t in tables],
-                "features": features}
+        axis_name = self.axis_name
+        return {
+            "tables": [t.get_config() for t in tables],
+            "features": features,
+            "axis_name": (list(axis_name) if isinstance(axis_name, tuple)
+                          else axis_name),
+            "auto_grow": self.auto_grow,
+            "comm_dtype": self.comm_dtype,
+        }
 
     @classmethod
     def from_config(cls, config: dict[str, Any]) -> "DistributedEmbedding":
-        """Rebuilds the layer (features keyed by name, tables shared as
-        the config shares them); `config` may add `generator` and
-        `device`."""
+        """Rebuilds the layer with its features as a list (tables shared
+        as the config shares them), as the JAX package does; `config`
+        may add `generator`, `device` and `mesh` (runtime state; by
+        default a mesh over the ranks with the config's axis names)."""
         tables = [TableConfig.from_config(c) for c in config["tables"]]
-        fcs = {
-            f["name"]: FeatureConfig(
+        fcs = [
+            FeatureConfig(
                 name=f["name"], table=tables[f["table_index"]],
                 input_shape=tuple(f["input_shape"]),
                 output_shape=tuple(f["output_shape"]))
             for f in config["features"]
-        }
+        ]
+        axis_name = config.get("axis_name", mesh_lib.DATA_AXIS)
+        if isinstance(axis_name, list):
+            axis_name = tuple(axis_name)
         return cls(fcs, generator=config.get("generator"),
-                   device=config.get("device"))
+                   device=config.get("device"), mesh=config.get("mesh"),
+                   axis_name=axis_name,
+                   auto_grow=config.get("auto_grow", True),
+                   comm_dtype=config.get("comm_dtype"))
+
+
+def _exceeds(stack: TableStack, st: InputStats) -> bool:
+    return (st.max_ids_per_bucket > stack.max_ids_per_partition
+            or st.max_unique_per_shard > stack.max_unique_ids_per_shard - 1
+            or st.dropped_ids > 0)
+
+
+def _host_stats(st: InputStats | DeviceStats) -> InputStats:
+    """InputStats of host ints (DeviceStats are read from the device)."""
+    if isinstance(st, InputStats):
+        return st
+    return InputStats(max_ids_per_bucket=int(st.max_ids_per_bucket),
+                      max_unique_per_shard=int(st.max_unique_per_shard),
+                      dropped_ids=int(st.dropped_ids))
 
 
 def _to_host(a: Any) -> np.ndarray:
@@ -532,7 +952,7 @@ class FrozenEmbedding(nn.Module):
 
     Takes the same raw feature structures as the training layer (id
     arrays or tensors, Ragged, sparse) and returns the same activations,
-    keyed like its feature configs, computed with one `EmbedReduce` (f32)
+    in the nest of its feature configs, computed with one `EmbedReduce` (f32)
     or `QuantizedEmbedReduce` (int8) per table: features that share a
     table share its module and its tensors. The batch axis is free: a
     feature declared (B, L) also takes (b, L') for any b (and any L'),
@@ -551,8 +971,8 @@ class FrozenEmbedding(nn.Module):
                 "'int8', 'int8_packed', or 'int8_fused')."
             )
         layout = QUANTIZE_LAYOUTS[quantize]
-        self._keys = list(layer._keys)
         self._feature_leaves = list(layer._feature_leaves)
+        self._feature_structure = layer._feature_structure
         self.device = layer.device
         tables = {fc.table.name: fc.table for fc in self._feature_leaves}
         reducers = {}
@@ -588,11 +1008,15 @@ class FrozenEmbedding(nn.Module):
         return {name: er.embeddings
                 for name, er in zip(self.table_names, self.table_reducers)}
 
-    def forward(self, inputs: Any, weights: Any = None) -> dict:
-        in_leaves = DistributedEmbedding._match_features(self, inputs)
+    def _match_features(self, structure: Any,
+                        allow_partial: bool = False) -> dict[str, Any]:
+        return match_features(self._feature_leaves, self._feature_structure,
+                              structure, allow_partial)
+
+    def forward(self, inputs: Any, weights: Any = None) -> Any:
+        in_leaves = self._match_features(inputs)
         w_leaves = (
-            DistributedEmbedding._match_features(self, weights,
-                                                 allow_partial=True)
+            self._match_features(weights, allow_partial=True)
             if weights is not None
             else {fc.name: None for fc in self._feature_leaves}
         )
@@ -610,7 +1034,7 @@ class FrozenEmbedding(nn.Module):
             )
             outs.append(act.reshape(
                 (b,) + tuple(fc.output_shape[1:-1]) + (act.shape[-1],)))
-        return dict(zip(self._keys, outs))
+        return unflatten(self._feature_structure, outs)
 
 
 def _table_rows_sources(layer: DistributedEmbedding) -> dict:

@@ -1,7 +1,12 @@
-"""Stacked embedding lookup with the fused optimizer update (D = 1).
+"""Stacked embedding lookup with the fused optimizer update.
 
-Counterpart of keras_rs_tpu/layers/embedding/lookup.py at one device, for
-both state layouts (init_stack_state).
+Counterpart of keras_rs_tpu/layers/embedding/lookup.py, for both state
+layouts (init_stack_state), on one device and, one rank per device, on
+D > 1 shards (lookup.py:128-260 forward, :322-523 backward): a rank
+holds its shard of the stack, its B / D samples and what its
+preprocessing received from every rank (device_preprocessing.py), and
+the two [., dim] exchanges run over the mesh axis's process group
+(parallel/collectives.py).
 
   forward  (`stack_gather`; construction order, lookup.py:275-302):
     gather each entry's table row (bf16 rows cast to f32), then per
@@ -27,6 +32,15 @@ both state layouts (init_stack_state).
         table alone, B4 for the table with slots) and `index_copy_` for
         each row-wise [R] slot.
 
+  at D > 1 the forward is the sorted one over all D * S_l global
+  segments (partial sums of this shard's rows for every rank's
+  samples), then `reduce_scatter` to this rank's [S_l, dim]; the
+  backward starts with `all_gather` of the [S_l, dim] cotangents to
+  [D * S_l, dim] and updates this rank's shard as above.
+  `comm_dtype="bfloat16"` sends only those two exchanges in bf16: the
+  partial sums are taken in f32 and cast before the reduce-scatter, the
+  gathered cotangents cast back to f32 at once (lookup.py:141-150).
+
 The update follows the Overwrite contract of the JAX package
 (training/train_state.py:30-35): the backward pass writes the new table
 and optimizer slots into the state in place and adds 1 to the stack's
@@ -43,6 +57,7 @@ from typing import Any, Mapping
 import torch
 
 from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
+from keras_rs_tpu_torch.parallel import collectives
 from keras_rs_tpu_torch.ops.quant import cast_rows_for_storage
 from keras_rs_tpu_torch.ops.row_ops import (
     FUSED_OPTIMIZERS,
@@ -104,17 +119,27 @@ def _rows(stack: TableStack, table: torch.Tensor,
 
 
 def stack_gather(stack: TableStack, state: Mapping[str, torch.Tensor],
-                 coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The lookup's forward without autograd: activations [B * F, dim]
-    (sample-major) of the stack's table for the batch of `coo`. It only
-    reads the state."""
-    return _forward(stack, state["table"], coo)
+                 coo: Mapping[str, torch.Tensor], group=None,
+                 comm_dtype: str | None = None) -> torch.Tensor:
+    """The lookup's forward without autograd: activations [Bl * F, dim]
+    (sample-major, Bl = B / D this rank's samples) of the stack's table
+    for the batch of `coo`. It only reads the state; at D > 1 every rank
+    of `group` must call it (one reduce-scatter)."""
+    return _forward(stack, state["table"], coo, group, comm_dtype)
 
 
 def _forward(stack: TableStack, table: torch.Tensor,
-             coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
+             coo: Mapping[str, torch.Tensor], group=None,
+             comm_dtype: str | None = None) -> torch.Tensor:
     if "fwd_slots" not in coo:
-        return _forward_sorted(stack, table, coo)
+        partial = _forward_sorted(stack, table, coo)
+        if stack.num_shards == 1:
+            return partial
+        # Partial sums of every rank's segments -> each rank's own, summed
+        # over the shards: a reduce-scatter.
+        if comm_dtype == "bfloat16":
+            partial = partial.to(torch.bfloat16)
+        return collectives.reduce_scatter(partial, group).float()
     B = stack.batch_size
     dim = stack.stack_dim
     rows = _rows(stack, table, coo["fwd_slots"])
@@ -134,8 +159,9 @@ def _forward(stack: TableStack, table: torch.Tensor,
 def _forward_sorted(stack: TableStack, table: torch.Tensor,
                     coo: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """The bucketed entries' rows times their (divisor-folded) gains,
-    segment-summed into the B * F sample-major segments. Padding entries
-    read the zero sink row with gain 0."""
+    segment-summed into the B * F global sample-major segments (at D > 1
+    this shard's partial sums). Padding entries read the zero sink row
+    with gain 0."""
     contrib = (_rows(stack, table, coo["recv_slots"]).float()
                * coo["recv_gains"][:, None])
     return torch.zeros(
@@ -146,17 +172,29 @@ def _forward_sorted(stack: TableStack, table: torch.Tensor,
 
 def stack_update(stack: TableStack, state: dict[str, torch.Tensor],
                  coo: Mapping[str, torch.Tensor],
-                 d_acts: torch.Tensor) -> None:
+                 d_acts: torch.Tensor, group=None,
+                 comm_dtype: str | None = None) -> None:
     """The lookup's backward: applies the stack's optimizer to `state` in
-    place from the activations' cotangent `d_acts` [B * F, dim] of the
+    place from the activations' cotangent `d_acts` [Bl * F, dim] of the
     batch of `coo`, and adds 1 to the step counter. It needs only the COO
     arrays and the cotangent, not the forward's activations, so a
-    pipelined step updates the tables without a second gather."""
-    U = stack.max_unique_ids_per_shard
+    pipelined step updates the tables without a second gather. At D > 1
+    every rank of `group` must call it (one all-gather)."""
+    # U from the batch's arrays: a batch preprocessed before its stack's
+    # capacities grew keeps its own shapes.
+    U = coo["unique_slots"].shape[0]
     dim = stack.stack_dim
+    g_all = d_acts
+    if stack.num_shards > 1:
+        # Every rank's cotangents: the entries this shard received belong
+        # to any rank's samples.
+        g_all = collectives.all_gather(
+            d_acts.to(torch.bfloat16 if comm_dtype == "bfloat16"
+                      else torch.float32), group)
     # Per-entry gradient: the cotangent of the entry's segment times its
     # (divisor-folded) gain.
-    ge = d_acts.float()[coo["recv_segs"]] * coo["recv_gains"][:, None]
+    ge = g_all.float()[coo["recv_segs"]] * coo["recv_gains"][:, None]
+    del g_all
     # Segment-sum into the unique rows. Padding and unique-capacity
     # overflow entries carry the sentinel U; index_add_ faults on an
     # out-of-range index where jax's segment_sum drops it, so sum into
@@ -192,13 +230,14 @@ def stack_update(stack: TableStack, state: dict[str, torch.Tensor],
         del new_rows, new_slots
         scatter_row_blocks_unique(table, u_slots, new_blk, n_valid)
     else:
-        _split_update(stack, state, u_slots, row_grads, n_valid)
+        _split_update(stack, state, u_slots, row_grads, n_valid,
+                      collectives.rank(group))
     step.add_(1.0)
 
 
 def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
                   u_slots: torch.Tensor, row_grads: torch.Tensor,
-                  n_valid: torch.Tensor) -> None:
+                  n_valid: torch.Tensor, shard: int = 0) -> None:
     """The split layout's update (JAX lookup.py:448-523, without the
     bit-packed branches)."""
     optimizer = stack.optimizer
@@ -212,10 +251,11 @@ def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
     del rows, slot_rows
     generator = None
     if table.dtype == torch.bfloat16:
-        # Stochastic rounding with bits seeded from the step: one host
-        # read of the step counter per bf16 stack and step.
+        # Stochastic rounding with bits seeded from the step and the
+        # shard (as the JAX package folds in both): one host read of the
+        # step counter per bf16 stack and step.
         generator = torch.Generator(device=table.device).manual_seed(
-            ROUNDING_SEED + int(step)
+            ROUNDING_SEED + int(step) + (shard << 24)
         )
     new_rows = cast_rows_for_storage(new_rows, table.dtype, generator)
     row_keys = [k for k in slots if slots[k].ndim == 2]
@@ -242,45 +282,51 @@ class _StackLookup(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, anchor, stack, state, coo):
+    def forward(ctx, anchor, stack, state, coo, group, comm_dtype):
         ctx.stack, ctx.state, ctx.coo = stack, state, coo
-        return stack_gather(stack, state, coo)
+        ctx.group, ctx.comm_dtype = group, comm_dtype
+        return stack_gather(stack, state, coo, group, comm_dtype)
 
     @staticmethod
     def backward(ctx, d_acts):
-        stack_update(ctx.stack, ctx.state, ctx.coo, d_acts)
-        return None, None, None, None
+        stack_update(ctx.stack, ctx.state, ctx.coo, d_acts, ctx.group,
+                     ctx.comm_dtype)
+        return None, None, None, None, None, None
 
 
 def stack_lookup(
     stack: TableStack,
     state: dict[str, torch.Tensor],
     coo: Mapping[str, torch.Tensor],
+    group=None,
+    comm_dtype: str | None = None,
 ) -> torch.Tensor:
-    """Differentiable lookup for one stack at D = 1.
+    """Differentiable lookup for one stack (on one rank at D > 1, with
+    the process group of the mesh axis the stack is sharded over).
 
     `coo` holds the device arrays of `DistributedEmbedding.preprocess`:
     fwd_slots (int64) and fwd_gains for the construction-order forward,
     or recv_slots (int64) for the sorted one, and recv_segs (int64),
     recv_gains, entry_unique (int64) and unique_slots (int32), all
     flattened.
-    Returns activations [B * F, dim] (sample-major). When grad mode is on,
-    the backward pass applies the stack's optimizer to `state` in place;
-    when it is off, this is `stack_gather`.
+    Returns activations [Bl * F, dim] (sample-major, Bl = B / D). When
+    grad mode is on, the backward pass applies the stack's optimizer to
+    `state` in place; when it is off, this is `stack_gather`.
     """
     if not torch.is_grad_enabled():
-        return stack_gather(stack, state, coo)
+        return stack_gather(stack, state, coo, group, comm_dtype)
     anchor = torch.zeros((), device=state["table"].device,
                          requires_grad=True)
-    return _StackLookup.apply(anchor, stack, state, coo)
+    return _StackLookup.apply(anchor, stack, state, coo, group, comm_dtype)
 
 
 def split_activations(
     stack: TableStack, acts: torch.Tensor
 ) -> dict[str, torch.Tensor]:
-    """Lookup activations -> per-feature [B, dim_f] tensors (a reshape
+    """Lookup activations -> per-feature [Bl, dim_f] tensors (a reshape
     and a static slice: segments are sample-major)."""
-    a = acts.reshape(stack.batch_size, stack.num_features, stack.stack_dim)
+    a = acts.reshape(stack.local_batch_size, stack.num_features,
+                     stack.stack_dim)
     return {
         f.name: a[:, f.feature_index, : f.embedding_dim]
         for f in stack.features
@@ -291,13 +337,14 @@ def merge_cotangents(
     stack: TableStack, d_by_name: Mapping[str, Any], device: torch.device
 ) -> torch.Tensor:
     """The inverse of `split_activations` for cotangents: per-feature
-    [B, dim_f] tensors (None counts as zero) -> the stack's
-    [B * F, stack_dim] f32 layout, zero past each feature's width."""
-    d = torch.zeros((stack.batch_size, stack.num_features, stack.stack_dim),
+    [Bl, dim_f] tensors (None counts as zero) -> the stack's
+    [Bl * F, stack_dim] f32 layout, zero past each feature's width."""
+    Bl = stack.local_batch_size
+    d = torch.zeros((Bl, stack.num_features, stack.stack_dim),
                     dtype=torch.float32, device=device)
     for f in stack.features:
         g = d_by_name[f.name]
         if g is not None:
             d[:, f.feature_index, : f.embedding_dim] = g.reshape(
-                stack.batch_size, f.embedding_dim)
+                Bl, f.embedding_dim)
     return d.reshape(-1, stack.stack_dim)

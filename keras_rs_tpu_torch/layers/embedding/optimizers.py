@@ -78,6 +78,11 @@ class EmbeddingOptimizer:
             )
         return {"learning_rate": self.learning_rate}
 
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "EmbeddingOptimizer":
+        """The optimizer of a `get_config` dict."""
+        return cls(**config)
+
 
 class SGD(EmbeddingOptimizer):
     name = "sgd"

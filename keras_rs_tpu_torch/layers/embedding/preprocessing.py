@@ -46,6 +46,12 @@ class CooBatch:
     divisors: np.ndarray
     fwd_slots: np.ndarray | None = None  # [1, N] int32, sink = invalid
     fwd_gains: np.ndarray | None = None  # [1, N] f32, divisor-folded
+    #: A rank's received buckets at D > 1 ([D, C] each: bucket (d, r) of
+    #: every source d; device_preprocessing.preprocess_stack_device with
+    #: `shard`).
+    recv_slots: np.ndarray | None = None
+    recv_segs: np.ndarray | None = None
+    recv_gains: np.ndarray | None = None
 
     def arrays(self) -> dict[str, np.ndarray]:
         return {

@@ -12,9 +12,13 @@ bit with the JAX package:
     traffic;
   * stack_dim = max table dim rounded up to a multiple of 8.
 
-The port runs at D = 1 so far; the layout keeps D so that the D > 1 path
-can reuse it. The bit-packed bf16 layout of the JAX package is not
-ported (it exists for a TPU DMA limit): a bf16 stack stores plain
+At D > 1 each rank holds one shard, the [rows_per_shard, ...] block of
+the stacked global array that the JAX package places on device r:
+`init_stack_table(..., shard=r)` materializes it, `scatter_table(...,
+shard=r)`, `shard_block` and `unshard_table` move one table's logical
+rows in and out of it. Within shard r, table t's rows sit at local slots
+offset_t + k, k = 0, 1, ..., for the logical rows k * D + (r - rot_t) %
+D. The bit-packed bf16 layout of the JAX package is not ported (it exists for a TPU DMA limit): a bf16 stack stores plain
 [R, dim] bf16 rows and keeps `rows_per_shard = offset + 1`, where the
 JAX package's bit-packed stacks (bf16, dim 128) round it to
 `round_up(offset, 2) + 2`. Logical tables agree either way.
@@ -127,6 +131,11 @@ class TableStack:
     @property
     def global_rows(self) -> int:
         return self.num_shards * self.rows_per_shard
+
+    @property
+    def local_batch_size(self) -> int:
+        """Samples of one shard's slice of the batch (B / D)."""
+        return self.batch_size // self.num_shards
 
     @property
     def num_features(self) -> int:
@@ -284,15 +293,28 @@ def _global_rows_of(stack: TableStack, t: StackedTableSpec, device,
     ) * stack.rows_per_shard + t.local_offset + r // D
 
 
+def _shard_run(stack: TableStack, t: StackedTableSpec, shard: int,
+               lo: int, hi: int) -> tuple[int, int, int]:
+    """The logical rows of [lo, hi) that live on `shard`: every D-th row
+    from lo + first, at `count` consecutive local slots from `slot`.
+    Returns (first, slot, count)."""
+    D = stack.num_shards
+    first = (shard - t.rotation - lo) % D
+    count = max(0, -(-(hi - lo - first) // D))
+    return first, t.local_offset + (lo + first) // D, count
+
+
 def init_stack_table(
     stack: TableStack,
     table_configs: dict[str, TableConfig],
     generator: torch.Generator | None = None,
     device=None,
     chunk_rows: int = INIT_CHUNK_ROWS,
+    shard: int | None = None,
 ) -> torch.Tensor:
-    """Materializes the stacked global array [D * rows_per_shard, dim] in
-    the stack's storage dtype.
+    """Materializes the stacked global array [D * rows_per_shard, dim]
+    in the stack's storage dtype, or with `shard` that shard's block
+    [rows_per_shard, dim].
 
     Each table draws from its own initializer, scaled by its true
     [vocabulary_size, embedding_dim] shape (so fan-based initializers see
@@ -302,11 +324,13 @@ def init_stack_table(
     the sink) is zero. A table takes one seed from `generator` and draws
     each INIT_DRAW_ROWS-row block from its own generator seeded from it,
     so the same rows come out for a given generator whatever chunk_rows
-    is. `generator` must live on `device`.
+    is, and every rank of a D-shard layer draws the whole logical table
+    from the same generator and keeps its rows: the logical tables do
+    not depend on D. `generator` must live on `device`.
     """
     out = torch.zeros(
-        (stack.global_rows, stack.stack_dim), dtype=stack.storage_dtype,
-        device=device,
+        (stack.global_rows if shard is None else stack.rows_per_shard,
+         stack.stack_dim), dtype=stack.storage_dtype, device=device,
     )
     gen_device = out.device if generator is None else generator.device
     chunk = max(1, chunk_rows // INIT_DRAW_ROWS) * INIT_DRAW_ROWS
@@ -331,8 +355,13 @@ def init_stack_table(
                     (n, t.embedding_dim), torch.float32, out.device,
                     block, fan_shape=fan_shape,
                 )
-            out[_global_rows_of(stack, t, out.device, lo, hi),
-                : t.embedding_dim] = values.to(out.dtype)
+            if shard is None:
+                out[_global_rows_of(stack, t, out.device, lo, hi),
+                    : t.embedding_dim] = values.to(out.dtype)
+            else:
+                first, slot, n = _shard_run(stack, t, shard, lo, hi)
+                out[slot : slot + n, : t.embedding_dim] = values[
+                    first :: stack.num_shards].to(out.dtype)
             del values
     return out
 
@@ -344,9 +373,9 @@ def table_rows(
     """Rows [lo, hi) of one table (default: all), a [hi - lo, dim] copy
     in the storage dtype.
 
-    `state_table` is [global_rows, dim] (split) or the packed 3-D
-    [global_rows, state_stride, dim] state, whose table rows are the
-    leading row of each block.
+    `state_table` is the stacked global array, [global_rows, dim] (split)
+    or the packed 3-D [global_rows, state_stride, dim] state, whose table
+    rows are the leading row of each block.
     """
     t = stack.table_spec(table_name)
     arr = state_table[:, 0] if state_table.ndim == 3 else state_table
@@ -357,8 +386,40 @@ def table_rows(
 def gather_table(
     stack: TableStack, state_table: torch.Tensor, table_name: str
 ) -> torch.Tensor:
-    """Unstacks one table back to [vocab, dim] (a copy)."""
+    """Unstacks one table of the global array back to [vocab, dim] (a
+    copy)."""
     return table_rows(stack, state_table, table_name)
+
+
+def shard_block(stack: TableStack, state_table: torch.Tensor,
+                table_name: str) -> torch.Tensor:
+    """One shard's block of a table: its [padded_vocab / D, dim] local
+    slots (padding rows included), a view of the table plane."""
+    t = stack.table_spec(table_name)
+    arr = state_table[:, 0] if state_table.ndim == 3 else state_table
+    n = t.padded_vocab // stack.num_shards
+    return arr[t.local_offset : t.local_offset + n, : t.embedding_dim]
+
+
+def unshard_table(stack: TableStack, table_name: str,
+                  blocks: torch.Tensor) -> torch.Tensor:
+    """The logical [vocab, dim] table from every shard's `shard_block`,
+    stacked [D, padded_vocab / D, dim] in shard order: logical row
+    k * D + j lives on shard (j + rotation) % D at local row k."""
+    t = stack.table_spec(table_name)
+    D = stack.num_shards
+    order = [(j + t.rotation) % D for j in range(D)]
+    return (blocks[order].transpose(0, 1)
+            .reshape(-1, blocks.shape[-1])[: t.vocabulary_size].clone())
+
+
+def shard_table(stack: TableStack, table_name: str, values: torch.Tensor,
+                shard: int) -> torch.Tensor:
+    """The logical rows of `values` [vocab, dim] that live on `shard`, in
+    local-slot order (a strided view)."""
+    t = stack.table_spec(table_name)
+    first, _, _ = _shard_run(stack, t, shard, 0, t.vocabulary_size)
+    return values[first :: stack.num_shards]
 
 
 def scatter_table(
@@ -366,16 +427,23 @@ def scatter_table(
     state_table: torch.Tensor,
     table_name: str,
     values: torch.Tensor,
+    shard: int | None = None,
 ) -> None:
-    """Writes [vocab, dim] values for one table into the stacked state,
-    in place (slot rows of a packed state are untouched)."""
+    """Writes [vocab, dim] values for one table into the stacked global
+    array, or with `shard` the rows that live there into that shard's
+    block, in place (slot rows of a packed state are untouched)."""
     t = stack.table_spec(table_name)
     if tuple(values.shape) != (t.vocabulary_size, t.embedding_dim):
         raise ValueError(
             f"Expected shape {(t.vocabulary_size, t.embedding_dim)}, got "
             f"{tuple(values.shape)}."
         )
-    idx = _global_rows_of(stack, t, state_table.device)
+    if shard is None:
+        idx = _global_rows_of(stack, t, state_table.device)
+    else:
+        _, slot, n = _shard_run(stack, t, shard, 0, t.vocabulary_size)
+        idx = slice(slot, slot + n)
+        values = shard_table(stack, table_name, values, shard)
     values = values.to(state_table.device, state_table.dtype)
     if state_table.ndim == 3:
         state_table[idx, 0, : t.embedding_dim] = values

@@ -44,8 +44,9 @@ class DLRMConfig:
     [R, dim] table with stochastically rounded updates and one f32
     accumulator per row, 260 bytes per row at dim 128 instead of 1,024,
     updated by the row scatter (kernel B3). Any optimizer of
-    layers/embedding/optimizers.py may be named. The JAX package's
-    embedding_comm_dtype (a multi-device option) is not ported."""
+    layers/embedding/optimizers.py may be named. `embedding_comm_dtype`
+    ("bfloat16") sends the sharded lookup's two exchanges in bf16 when
+    the model is sharded over more than one rank."""
 
     def __init__(
         self,
@@ -67,6 +68,7 @@ class DLRMConfig:
         compute_dtype: str | None = "bfloat16",
         embedding_optimizer: str = "adagrad",
         dense_output_dtype: str | None = "bfloat16",
+        embedding_comm_dtype: str | None = None,
     ):
         self.vocab_sizes = list(vocab_sizes)
         self.multi_hot_sizes = list(
@@ -95,6 +97,7 @@ class DLRMConfig:
             None if dense_output_dtype == "float32"
             else dense_output_dtype
         )
+        self.embedding_comm_dtype = embedding_comm_dtype
 
 
 def large_feature_configs(cfg: DLRMConfig) -> dict[str, FeatureConfig]:
@@ -129,15 +132,24 @@ def large_feature_configs(cfg: DLRMConfig) -> dict[str, FeatureConfig]:
 
 
 class DLRMDCNv2(nn.Module):
+    """The model on one device, or one rank's part of it over a `mesh`
+    (parallel/mesh.py) of D > 1 ranks: the large tables sharded, the
+    dense layers and small tables replicated (equal on every rank when
+    every rank passes a generator with the same seed), batches of B / D
+    samples (training/train_state.make_train_step averages the dense
+    gradients)."""
+
     def __init__(
         self,
         config: DLRMConfig,
         *,
         generator: torch.Generator | None = None,
         device: Any = None,
+        mesh: Any = None,
     ) -> None:
         super().__init__()
-        device = resolve_device(device)
+        device = mesh.device if device is None and mesh is not None else (
+            resolve_device(device))
         cfg = config
         self.config = cfg
         self.large_idx = [
@@ -154,7 +166,8 @@ class DLRMDCNv2(nn.Module):
         feature_configs = large_feature_configs(cfg)
         self.embedding_layer = (
             DistributedEmbedding(
-                feature_configs, generator=generator, device=device
+                feature_configs, generator=generator, device=device,
+                mesh=mesh, comm_dtype=cfg.embedding_comm_dtype,
             )
             if feature_configs
             else None

@@ -1,0 +1,97 @@
+"""The collectives of the sharded embedding, over torch.distributed.
+
+Counterpart of the JAX package's `jax.lax` collectives inside its
+`shard_map`s (keras_rs_tpu/layers/embedding/lookup.py):
+
+  JAX                        here
+  all_to_all (tiled)         all_to_all       (dist.all_to_all_single)
+  psum_scatter (tiled)       reduce_scatter   (dist.reduce_scatter_tensor)
+  all_gather (tiled)         all_gather       (dist.all_gather_into_tensor)
+  psum                       all_reduce       (dist.all_reduce)
+
+Each takes the process group of a mesh axis (`Mesh.group`); a group of
+one rank (None) makes every function the identity, so the one-device
+path runs the same code without torch.distributed. The tensors stay on
+their device: the group's backend must carry them (NCCL for CUDA
+tensors; gloo carries CPU tensors, and on a CUDA tensor either carries
+it or raises). The callers in this package look these functions up on
+the module at call time, so a script may stand in its own versions.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+import torch.distributed as dist
+
+ProcessGroup = dist.ProcessGroup
+
+# reduce_scatter_tensor and all_gather_into_tensor exist in every torch
+# this package runs on; newer versions warn on each call that they are
+# deprecated in favour of *_single names the older ones lack.
+warnings.filterwarnings(
+    "ignore", category=FutureWarning,
+    message=r"`torch\.distributed\.(reduce_scatter_tensor|"
+    r"all_gather_into_tensor)` is deprecated")
+
+
+def rank(group: ProcessGroup | None) -> int:
+    """This process's rank in `group` (0 for None)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def all_to_all(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
+    """`x` [D, ...]: block i goes to rank i; returns [D, ...] whose block
+    i came from rank i (equal blocks, so equal splits)."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor,
+                   group: ProcessGroup | None) -> torch.Tensor:
+    """`x` [D * n, ...] on every rank -> this rank's block [n, ...] of
+    the sum over ranks."""
+    if group is None:
+        return x
+    D = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((x.shape[0] // D, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
+    """`x` [n, ...] on every rank -> [D * n, ...], rank i's block i."""
+    if group is None:
+        return x
+    D = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((D * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group: ProcessGroup | None,
+               op: str = "sum") -> torch.Tensor:
+    """`x` reduced over the ranks in place ("sum" or "max"); returns
+    it."""
+    if group is not None:
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(x, op=reduce_op, group=group)
+    return x
+
+
+def broadcast(x: torch.Tensor, group: ProcessGroup | None,
+              src: int = 0) -> torch.Tensor:
+    """`x` of the group's rank `src` written into `x` on every rank, in
+    place; returns it."""
+    if group is not None:
+        dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    return x

@@ -32,8 +32,27 @@ from typing import Any, Mapping
 import torch
 
 
+def _refuse_sharded(state: Any) -> None:
+    """Raises for a state holding a DistributedEmbedding sharded over
+    more than one rank: its checkpoints are not ported yet."""
+    modules = ([state] if isinstance(state, torch.nn.Module)
+               else list(state.values()) if isinstance(state, Mapping)
+               else [])
+    for m in modules:
+        if not isinstance(m, torch.nn.Module):
+            continue
+        for sub in m.modules():
+            if getattr(sub, "num_shards", 1) > 1:
+                raise NotImplementedError(
+                    "Checkpoints of embedding state sharded over more than "
+                    "one rank are not ported to keras_rs_tpu_torch yet "
+                    "(ROADMAP A10, second half)."
+                )
+
+
 def _state_dict_of(state: Any) -> dict[str, Any]:
     """`state.state_dict()`, or {name: obj.state_dict()} of a mapping."""
+    _refuse_sharded(state)
     if hasattr(state, "state_dict"):
         return state.state_dict()
     if isinstance(state, Mapping):
@@ -83,6 +102,7 @@ def save_checkpoint(path: str, state: Any, *, force: bool = True) -> None:
 def restore_checkpoint(path: str, template: Any) -> Any:
     """Copies the checkpoint at `path` into `template`'s tensors in
     place; returns `template`."""
+    _refuse_sharded(template)
     saved = torch.load(path, map_location="cpu", weights_only=True,
                        mmap=True)
     _load_into(template, saved)

@@ -126,6 +126,12 @@ def _gather(model: nn.Module, pre: Any,
             embed_fn: Callable[[nn.Module, Any], tuple]) -> tuple:
     """(the embedding layer, the Prefetch of `pre`)."""
     layer, layer_pre = embed_fn(model, pre)
+    if getattr(layer, "num_shards", 1) > 1:
+        raise NotImplementedError(
+            "The pipelined step of an embedding sharded over more than one "
+            "rank is not ported to keras_rs_tpu_torch yet (ROADMAP A10, "
+            "second half)."
+        )
     return layer, Prefetch(layer(layer_pre), layer_pre)
 
 

@@ -8,6 +8,15 @@ A step has two halves, as in the JAX package:
     optimizer runs inside the lookup's backward pass and writes the new
     rows in place (the Overwrite contract of the JAX package,
     lookup.py's `_StackLookup`).
+
+Over a mesh of D > 1 ranks the step is data parallel in the dense
+parameters: each rank holds a replica (equal from the start: every rank
+builds the model from the same generator seed) and its B / D samples;
+the loss of the global batch is the mean of the ranks' local means, so
+each rank back-propagates its local loss / D (which is also the
+cotangent scale the sharded lookup's update needs) and the dense
+gradients are summed over the ranks in one all_reduce before the
+optimizer, which then takes the same step on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 from torch import nn
+
+from keras_rs_tpu_torch.parallel import collectives
 
 
 class DenseAdagrad:
@@ -159,24 +170,58 @@ def map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     return tree
 
 
+def sum_gradients(params: list[nn.Parameter], group) -> None:
+    """Every parameter's gradient summed over the ranks of `group`, in
+    place, in one all_reduce of the flattened gradients (a parameter
+    without a gradient counts as zeros and gets them, so every rank
+    flattens the same layout)."""
+    if not params:
+        return
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    flat = collectives.all_reduce(
+        torch.cat([g.reshape(-1) for g in grads]), group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off : off + g.numel()].view_as(g))
+        off += g.numel()
+
+
 def make_train_step(
     model: nn.Module,
     loss_fn: Callable[[nn.Module, Any], Any],
     optimizer: DenseAdagrad | DenseAdam,
     has_aux: bool = False,
+    mesh: Any = None,
 ) -> Callable[[Any], Any]:
     """`step(batch) -> loss` (detached): forward, backward (which also
     updates the stacked embedding tables in place), dense optimizer.
 
     With `has_aux`, `loss_fn` returns `(loss, aux)` and the step returns
     `(loss, aux)`, both detached, the aux as the loss function gave it
-    (no host read), as the JAX step does."""
+    (no host read), as the JAX step does.
+
+    With a `mesh` (parallel/mesh.py) of D > 1 ranks, `batch` is this
+    rank's B / D samples and `loss_fn` their mean loss: the step is data
+    parallel as the module docstring says, and returns the global
+    batch's loss (an all_reduce of the ranks' losses); the aux stays
+    this rank's."""
+    D = 1 if mesh is None else mesh.size
+    group = None if D == 1 else mesh.group(mesh.axis_names)
 
     def step(batch: Any) -> Any:
         optimizer.zero_grad()
         out = loss_fn(model, batch)
         loss = out[0] if has_aux else out
-        loss.backward()
+        if D == 1:
+            loss.backward()
+        else:
+            (loss / D).backward()
+            sum_gradients(optimizer.params, group)
+            loss = collectives.all_reduce(loss.detach().clone(), group) / D
         optimizer.step()
         if has_aux:
             return loss.detach(), map_tensors(out[1], torch.Tensor.detach)

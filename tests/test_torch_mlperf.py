@@ -110,15 +110,32 @@ def test_auc_gate_after_300_smoke_steps():
 
 
 @pytest.mark.parametrize("overrides, item", [
-    # Pipelining is ported; with it, the exchange dtype still raises.
+    # More than one process runs; what it does not run yet raises, on
+    # every rank: the pipelined step and checkpoints of sharded state.
     (dict(pipeline_embedding=True, embedding_comm_dtype="bfloat16"),
      "A10"),
-    (dict(embedding_comm_dtype="bfloat16"), "A10"),
+    (dict(embedding_comm_dtype="bfloat16", checkpoint_every=2), "A10"),
 ])
-def test_unported_options_raise(overrides, item):
-    with pytest.raises(NotImplementedError, match=item) as err:
-        mlperf.main("smoke_test", device="cpu", **overrides)
-    assert "pipelin" not in str(err.value)
+def test_unported_options_raise(overrides, item, tmp_path):
+    import torch_dist_workers as workers
+
+    if "checkpoint_every" in overrides:
+        overrides = dict(overrides, checkpoint_dir=str(tmp_path))
+    pools = workers.Pools()
+    try:
+        got = pools(2).run("mlperf_case", overrides=dict(
+            overrides, num_steps=4, device_preprocessing=True))
+    finally:
+        pools.close()
+    for err in got:
+        assert isinstance(err, str) and item in err, err
+        assert err.startswith("NotImplementedError")
+        assert ("pipelin" in err) == ("pipeline_embedding" in overrides)
+    # One process runs both (the exchange dtype has no exchange to cast).
+    r = mlperf.main("smoke_test", device="cpu", num_steps=4,
+                    **{k: v for k, v in overrides.items()
+                       if k not in ("checkpoint_every", "checkpoint_dir")})
+    assert np.isfinite(r["loss"])
 
 
 @pytest.mark.parametrize("device_preprocessing", [False, True],
@@ -296,9 +313,12 @@ def test_resumed_run_continues_the_losses(tmp_path):
 
 
 def test_more_than_one_process_raises(monkeypatch):
+    # A rank's default device is cuda:LOCAL_RANK; where it does not exist
+    # the entry point raises instead of moving to another device.
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        mlperf.main("smoke_test", device="cpu")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(RuntimeError, match="does not exist|No CUDA"):
+        mlperf.main("smoke_test")
 
 
 def test_cli_flags():

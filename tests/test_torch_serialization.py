@@ -106,8 +106,7 @@ CASES = {
         lambda: DistributedEmbedding(_tables(config, init_lib, opt_lib),
                                      device="cpu"),
         _jax_de, CPU,
-        ("axis_name", "table_stacking", "dtype", "auto_grow", "comm_dtype",
-         "shard_rotation")),
+        ("table_stacking", "dtype", "shard_rotation")),
     "BruteForceRetrieval": (
         lambda: retrieval.BruteForceRetrieval(k=7, return_scores=False),
         lambda: jret.BruteForceRetrieval(k=7, return_scores=False), {}, ()),
