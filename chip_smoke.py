@@ -262,27 +262,33 @@ Phases (any failure raises, so the exit code is not 0):
                    step 6", finite losses).
  33. probe         two ranks on cuda:0 in one gloo group: each
                    collective of parallel/collectives.py on CUDA tensors
-                   of the types the path gives it, checked; any that
-                   gloo does not carry is staged through host memory in
-                   this script's ranks (host_staged), never in the
-                   package;
+                   of the types the path gives it, checked; one that
+                   gloo does not carry, or carries wrong, fails;
  34. sharded       MLPerf widths and batch 16,384 over the two ranks
      mlperf        (8,192 each): with vocabularies capped at 500k, an f32
-                   dense stack and a D = 1 copy in each rank from the
-                   same seed: the rank's device COO bit-exact with the
-                   one-process transform at D = 2 (its send row and
-                   received column), activations, logits, 2 steps'
-                   losses, the all-gathered tables and the dense
-                   parameters within 1e-4 x max(1, |D = 1|), and
-                   comm_dtype="bfloat16" for one step within
-                   tests/test_comm_dtype.py's bounds; then
+                   dense stack, learning rate 0.05 and a D = 1 copy in
+                   each rank from the same seed: the rank's device COO
+                   bit-exact with the one-process transform at D = 2
+                   (its send row and received column); activations and
+                   logits within 1e-4 x max(1, |D = 1|); one cotangent
+                   through apply_cotangents, each table element's change
+                   within 1e-3 of the table's largest change plus 4 ulp
+                   (1e-4 in relative L2); one training step's change of
+                   the tables and of the dense parameters within 1e-2
+                   in relative L2, and the loss's fall over it within
+                   1e-2; comm_dtype="bfloat16" for the same steps
+                   against the f32 exchange (first loss within 1e-2,
+                   changes within 0.25 in relative L2 and not equal,
+                   their norms and the loss's fall within 2e-2); an
+                   update that changed nothing fails each of these; then
                    main("full_criteo") at the 4M cap on each rank
                    (device COO, 8 steps and the chained device timing of
-                   2 blocks of 3 steps, B1 once per step, its first 3
-                   calls held to the plain version), peak memory; then
-                   the ms of each exchange of one step at its shapes
-                   (all_to_all, reduce-scatter and all-gather in f32 and
-                   bf16, the dense gradients' all_reduce);
+                   2 blocks of 3 steps, B1 once per step, every B1 call
+                   of the 8 steps held to the plain version, the timing
+                   blocks not), peak memory; then the ms of each
+                   exchange of one step at its shapes (all_to_all,
+                   reduce-scatter and all-gather in f32 and bf16, the
+                   dense gradients' all_reduce);
  35. sharded       bf16 + row-wise Adagrad at the 4M cap over the two
      split         ranks: 3 steps on one batch (the global loss falls),
                    B3 once per step on each shard, each held to the
@@ -3160,9 +3166,9 @@ GRU4REC_PROFILE_PARTS = [
 
 
 @contextlib.contextmanager
-def b1_held_to_plain(first: int | None = None):
-    """While open, every B1 call of the embedding backward (with `first`,
-    the first `first` calls) also runs the plain version
+def b1_held_to_plain():
+    """While open, every B1 call of the embedding backward also runs the
+    plain version
     (apply_scatter_row_blocks_reference, uncounted, with the same
     optimizer, schedule included) on a copy of the blocks it updates,
     and compares the live blocks after the kernel with it at phase 2's
@@ -3178,8 +3184,6 @@ def b1_held_to_plain(first: int | None = None):
     calls: list[dict] = []
 
     def held(packed, idx, grads, scalars, optimizer, n_valid):
-        if first is not None and len(calls) >= first:
-            return launch(packed, idx, grads, scalars, optimizer, n_valid)
         n = idx.shape[0]
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)  # the check's own work
@@ -4478,16 +4482,46 @@ SHARD_RANKS = 2
 #: vocabulary capped here (a D = 1 copy beside the two shards of each
 #: rank); the timed run keeps VOCAB_CAP.
 SHARD_COMPARE_CAP = 500_000
-SHARD_COMPARE_STEPS = 2
-#: f32 bound of the D = 2 run against D = 1 (activations, logits,
-#: losses, tables, dense parameters): |d| <= 1e-4 * max(1, |D = 1|).
-#: The exchanges and the gradient all_reduce add in another order.
+#: The comparison's learning rate: one step moves every table by far
+#: more than its f32 spacing (the config's 0.0034 moves the large
+#: tables' rows by less than one ulp).
+SHARD_COMPARE_LR = 0.05
+#: f32 bound of the D = 2 forward against D = 1 (activations, logits):
+#: |d| <= 1e-4 * max(1, |D = 1|). The exchanges add in another order.
 SHARD_F32_BOUND = 1e-4
+#: Bounds of what one cotangent changes (Δ = after - before) through
+#: apply_cotangents at D = 2 against D = 1: per element 1e-3 of the
+#: table's largest |Δ| plus 4 ulp of the value, and 1e-4 in relative
+#: L2 over all the tables (plus 1 ulp of each value that differs). A
+#: row's gradient adds its few terms in another order; an update that
+#: did nothing is off by 1, one that lost a rank's samples by ~0.7.
+SHARD_DELTA_RTOL = 1e-3
+SHARD_DELTA_L2 = 1e-4
+SHARD_ULPS = 4
+#: A whole training step's Δ against D = 1's, over all the tables and
+#: over all the dense parameters, in relative L2: the dense stack sums
+#: in another order at half the batch, which flips the ReLUs of the few
+#: samples whose pre-activation is ~0, and their gradients (each row
+#: hit by them, each dense parameter's sum) move by a few %.
+SHARD_STEP_L2 = 1e-2
+#: comm_dtype="bfloat16" rounds every exchanged value by up to 2^-9,
+#: and the DCN stack of a random model turns that into a change of the
+#: whole step's direction by ~8% in relative L2 (the bottom MLP's step,
+#: which no bf16 exchange reaches in the backward, moves as much):
+#: the gap of its Δ to the f32 exchange's within SHARD_BF16_L2 in
+#: relative L2 over the tables and over the dense parameters (a step
+#: that did nothing is off by 1); the norms of its
+#: changes and the loss's fall within SHARD_BF16_RTOL
+#: (tests/test_comm_dtype.py's rtol).
+SHARD_BF16_L2 = 0.25
+SHARD_BF16_RTOL = 2e-2
+#: The loss's fall in one step at D = 2 against D = 1: 1e-2 of it plus
+#: SHARD_ULPS ulp of the loss; D = 1's must exceed 64 ulp.
+SHARD_LOSS_RTOL = 1e-2
 SHARD_MLPERF_STEPS = 8
 #: The entry point's chained device timing in the ranks: 2 blocks of 3
 #: steps after a warm-up block (utils/timing.measure_step_time).
 SHARD_TIMING = {"iters": 3, "blocks": 2}
-SHARD_HELD_CALLS = 3
 SHARD_SPLIT_STEPS = 3
 RANK_TIMEOUT_S = 420
 #: What the probe runs on CUDA tensors under gloo, by the package's
@@ -4592,33 +4626,6 @@ class Ranks:
             fail("a rank outlived its phase")
 
 
-def host_staged(name: str, collective):
-    """`collective` (of parallel/collectives.py) with CUDA tensors
-    copied to host memory around it: for a collective that gloo does not
-    carry on CUDA tensors, in this script's ranks only."""
-    def staged(x, group, *args):
-        if group is None or x.device.type != "cuda":
-            return collective(x, group, *args)
-        if name == "all_reduce":
-            h = x.cpu()
-            collective(h, group, *args)
-            return x.copy_(h)
-        return collective(x.cpu(), group, *args).to(x.device)
-
-    staged.__name__ = f"host_staged_{name}"
-    return staged
-
-
-def stage(staged: list[str]) -> None:
-    """Installs host_staged versions of the named collectives (once)."""
-    from keras_rs_tpu_torch.parallel import collectives
-
-    for name in staged:
-        fn = getattr(collectives, name)
-        if not fn.__name__.startswith("host_staged_"):
-            setattr(collectives, name, host_staged(name, fn))
-
-
 def rank_probe(rank: int, world: int) -> dict[str, str]:
     """Phase 33: each collective of the path on CUDA tensors under gloo,
     its result checked: "ok", or what it raised or returned."""
@@ -4663,17 +4670,20 @@ def _rank_rows(batch: dict, rank: int, world: int) -> dict:
     return {k: v[rank * n : (rank + 1) * n] for k, v in batch.items()}
 
 
-def rank_compare(rank: int, world: int, seed: int,
-                 staged: list[str]) -> dict:
+def rank_compare(rank: int, world: int, seed: int) -> dict:
     """Phase 34, first part: the MLPerf DLRM-DCNv2 at full widths and
-    batch (vocabularies capped at SHARD_COMPARE_CAP, f32 dense stack)
-    sharded over the ranks against the same model at D = 1 in this rank,
-    from the same seed and global batches: the rank's device COO against
-    the single-process global transform at D = 2 (bit for bit),
-    activations and logits, SHARD_COMPARE_STEPS steps' losses, the
-    all-gathered tables and the dense parameters after each (within
-    SHARD_F32_BOUND); and comm_dtype="bfloat16" for one step against the
-    same, within tests/test_comm_dtype.py's bounds."""
+    batch (vocabularies capped at SHARD_COMPARE_CAP, f32 dense stack,
+    learning rate SHARD_COMPARE_LR) sharded over the ranks against the
+    same model at D = 1 in this rank, from the same seed and global
+    batch: the rank's device COO against the single-process global
+    transform at D = 2 (bit for bit), activations and logits (within
+    SHARD_F32_BOUND); the sharded backward alone, one cotangent through
+    apply_cotangents, held per element by what it changed in every
+    all-gathered table (delta_errs, SHARD_DELTA_RTOL / SHARD_DELTA_L2);
+    one training step held by what it changed in the tables and the
+    dense parameters (SHARD_STEP_L2) and a second for the loss's fall
+    (SHARD_LOSS_RTOL); and comm_dtype="bfloat16" for the same two steps
+    against the f32 exchange (SHARD_BF16_L2, SHARD_BF16_RTOL)."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
@@ -4689,10 +4699,10 @@ def rank_compare(rank: int, world: int, seed: int,
         make_train_step,
     )
 
-    stage(staged)
     dev = torch.device("cuda", 0)
     cfg = configs.full_criteo(vocab_sizes=[
-        min(v, SHARD_COMPARE_CAP) for v in CRITEO_VOCAB_SIZES])
+        min(v, SHARD_COMPARE_CAP) for v in CRITEO_VOCAB_SIZES],
+        learning_rate=SHARD_COMPARE_LR)
     meshes = {world: mesh_lib.create_mesh(dev),
               1: mesh_lib.Mesh(("data",), (1,), dev)}
 
@@ -4705,14 +4715,13 @@ def rank_compare(rank: int, world: int, seed: int,
             device=dev, mesh=meshes[D])
 
     ref, m2 = build(1), build(world)
-    source = CriteoDataset(
+    host = next(CriteoDataset(
         None, global_batch_size=cfg.global_batch_size,
         vocab_sizes=cfg.vocab_sizes,
         multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(
-            SHARD_COMPARE_STEPS, seed=seed + 5)
-    host = list(source)
-    glob = [ref.to_device(b) for b in host]
-    loc = [m2.to_device(_rank_rows(b, rank, world)) for b in host]
+            1, seed=seed + 5))
+    glob = [ref.to_device(host)]
+    loc = [m2.to_device(_rank_rows(host, rank, world))]
     n = cfg.global_batch_size // world
     rows = slice(rank * n, (rank + 1) * n)
 
@@ -4750,11 +4759,12 @@ def rank_compare(rank: int, world: int, seed: int,
         return float(d.max())
 
     errs: dict[str, float] = {}
+    pre1 = ref.embedding_layer.preprocess_on_device(
+        {k: glob[0][k] for k in large})
+    pre2 = m2.embedding_layer.preprocess_on_device(
+        {k: loc[0][k] for k in large})
     with torch.no_grad():
-        a1 = ref.embedding_layer(ref.embedding_layer.preprocess_on_device(
-            {k: glob[0][k] for k in large}))
-        a2 = m2.embedding_layer(m2.embedding_layer.preprocess_on_device(
-            {k: loc[0][k] for k in large}))
+        a1, a2 = ref.embedding_layer(pre1), m2.embedding_layer(pre2)
         errs["activations"] = max(err(a2[k], a1[k][rows]) for k in large)
         del a1, a2
         errs["logits"] = err(m2(m2.preprocess_on_device(loc[0])),
@@ -4764,86 +4774,195 @@ def rank_compare(rank: int, world: int, seed: int,
         from keras_rs_tpu_torch.models.dlrm import bce_loss
         return bce_loss(m, m.preprocess_on_device(b))
 
-    step1 = make_train_step(ref, loss_fn, DenseAdagrad(ref.parameters(),
-                                                       cfg.learning_rate))
-    step2 = make_train_step(m2, loss_fn, DenseAdagrad(m2.parameters(),
-                                                      cfg.learning_rate),
-                            mesh=meshes[world])
-    losses = {"d1": [], "d2": []}
-    bf16 = {}
-    for i in range(SHARD_COMPARE_STEPS):
-        losses["d1"].append(float(step1(glob[i])))
-        losses["d2"].append(float(step2(loc[i])))
-        want = ref.embedding_layer.get_embedding_tables()
-        got = m2.embedding_layer.get_embedding_tables()
-        errs[f"tables after step {i + 1}"] = max(
-            err(got[k], want[k]) for k in want)
-        del got
-        errs[f"dense after step {i + 1}"] = max(
-            err(p2, p1) for p1, p2 in zip(ref.parameters(),
-                                          m2.parameters()))
-        if i == 0:
-            # comm_dtype="bfloat16": the same first step, within
-            # tests/test_comm_dtype.py's bounds of the f32 result.
-            mb = build(world, "bfloat16")
-            stepb = make_train_step(mb, loss_fn, DenseAdagrad(
-                mb.parameters(), cfg.learning_rate), mesh=meshes[world])
-            lb = float(stepb(loc[0]))
-            tb = mb.embedding_layer.get_embedding_tables()
-            worst = 0.0
-            for k in want:
-                d = (tb[k] - want[k]).abs()
-                if bool((d > 2e-4 + 2e-2 * want[k].abs()).any()):
-                    fail(f"rank {rank}: bf16 exchange table {k} over "
-                         "rtol 2e-2 / atol 2e-4")
-                worst = max(worst, float(d.max()))
-            rel = abs(lb - losses["d1"][0]) / abs(losses["d1"][0])
-            if rel >= 1e-2:
-                fail(f"rank {rank}: bf16 exchange loss {lb} against "
-                     f"{losses['d1'][0]}")
-            bf16 = {"loss": lb, "loss_rel": rel, "tables_max_abs": worst}
-            del mb, stepb, tb
-        del want
-        torch.cuda.empty_cache()
-    for a, b in zip(losses["d2"], losses["d1"]):
-        if abs(a - b) > SHARD_F32_BOUND * max(1.0, abs(b)):
-            fail(f"rank {rank}: losses {losses}")
+    def fit(m, mesh=None):
+        return make_train_step(m, loss_fn, DenseAdagrad(m.parameters(),
+                                                        cfg.learning_rate),
+                               mesh=mesh)
+
+    def state(m, dense=True):
+        """The all-gathered tables and (with `dense`) the dense
+        parameters, copied."""
+        out = dict(m.embedding_layer.get_embedding_tables())
+        if dense:
+            out.update((f"dense {n}", p.detach().clone())
+                       for n, p in m.named_parameters())
+        return out
+
+    def ulp(x):
+        a = x.abs()
+        return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+    def delta_errs(b_got, a_got, b_want, a_want, rtol, l2) -> dict:
+        """What one update changed, Δ = after - before, against the
+        reference's. Over all the tables together, and over all the
+        dense parameters, the gap within `l2` of the reference's |Δ| in
+        L2 (plus 1 ulp of each value that differs: the rounding of a
+        sum that moved across a rounding boundary); every tensor's
+        reference Δ nonzero; with `rtol`, each element within rtol of
+        its tensor's largest reference |Δ| plus SHARD_ULPS ulp of the
+        value, the reference's Δ larger than that somewhere (so an
+        update that changed nothing fails). Returns, for the tables and
+        the dense parameters, the relative L2 gap, its share of the
+        bound, the norm ratio |Δ| / |reference Δ| and, with `rtol`, the
+        worst per-element share."""
+        out: dict[str, float] = {}
+        sums: dict[str, list[float]] = {}
+        for k in a_want:
+            d_want = a_want[k] - b_want[k]
+            d_got = a_got[k] - b_got[k]
+            spacing = SHARD_ULPS * ulp(a_want[k])
+            gap = (d_got - d_want).abs()
+            part = "dense" if k.startswith("dense ") else "tables"
+            if not bool((d_want != 0).any()):
+                fail(f"rank {rank}: {k}: the reference update left it as "
+                     "it was")
+            if rtol is not None:
+                bound = rtol * float(d_want.abs().max()) + spacing
+                if not bool((d_want.abs() > bound).any()):
+                    fail(f"rank {rank}: {k}: the reference update's change "
+                         f"is within the bound everywhere (largest "
+                         f"{float(d_want.abs().max())!r})")
+                share = float((gap / bound).max())
+                if share > 1.0:
+                    fail(f"rank {rank}: {k}: the change differs from the "
+                         f"reference's by {float(gap.max())!r} ({share!r} "
+                         f"of the bound)")
+                out[f"{part} elem/bound"] = max(
+                    out.get(f"{part} elem/bound", 0.0), share)
+            acc = sums.setdefault(part, [0.0, 0.0, 0.0, 0.0])
+            for j, t in enumerate((gap, d_want, d_got,
+                                   torch.where(gap > 0, ulp(a_want[k]),
+                                               0.0))):
+                acc[j] += float(torch.linalg.vector_norm(t)) ** 2
+        for part, (gap2, want2, got2, spacing2) in sums.items():
+            bound = l2 * math.sqrt(want2) + math.sqrt(spacing2)
+            out[f"{part} l2"] = math.sqrt(gap2 / want2)
+            out[f"{part} l2/bound"] = math.sqrt(gap2) / bound
+            out[f"{part} norm ratio"] = math.sqrt(got2 / want2)
+            if out[f"{part} l2/bound"] > 1.0:
+                fail(f"rank {rank}: the {part}' change differs from the "
+                     f"reference's by {out[f'{part} l2']!r} in relative L2 "
+                     f"(bound {l2} + 1 ulp of each value that differs)")
+        return out
+
+    # The sharded backward alone, row by row: the same cotangent of the
+    # global batch's activations (normal / B from the seed) through
+    # apply_cotangents at D = 1 and, each rank its rows, at D = 2. Every
+    # row gathers the same at most few terms, so each element of what
+    # it changed is held to SHARD_DELTA_RTOL.
+    rng = np.random.default_rng(seed + 7)
+    d_acts = {k: torch.from_numpy(rng.standard_normal(
+        (cfg.global_batch_size, cfg.embedding_dim), dtype=np.float32)
+        / cfg.global_batch_size).to(dev) for k in large}
+    d_rows = {k: v[rows].clone() for k, v in d_acts.items()}
+    before1, before2 = state(ref, False), state(m2, False)
+    ref.embedding_layer.apply_cotangents(pre1, d_acts)
+    m2.embedding_layer.apply_cotangents(pre2, d_rows)
+    cotangent = delta_errs(before2, state(m2, False), before1,
+                           state(ref, False), SHARD_DELTA_RTOL,
+                           SHARD_DELTA_L2)
+    del pre1, pre2, d_acts, before1, before2
+    torch.cuda.empty_cache()
+
+    # One training step at D = 1 and D = 2, held by what it changed (a
+    # later step would start from this one's rounding and ReLU flips),
+    # then a second whose loss is the one after the first on the same
+    # batch: the loss's fall.
+    step1, step2 = fit(ref), fit(m2, meshes[world])
+    before1, before2 = state(ref), state(m2)
+    losses = {"d1": [float(step1(glob[0]))], "d2": [float(step2(loc[0]))]}
+    after2 = state(m2)
+    moved = delta_errs(before2, after2, before1, state(ref), None,
+                       SHARD_STEP_L2)
+    del before1
+    losses["d1"].append(float(step1(glob[0])))
+    losses["d2"].append(float(step2(loc[0])))
+    # comm_dtype="bfloat16": the same two steps from the same state (the
+    # cotangent applied), held against the f32 exchange's at D = 2: the
+    # first loss, what the first step changed, the loss's fall.
+    mb = build(world, "bfloat16")
+    mb.embedding_layer.apply_cotangents(
+        mb.embedding_layer.preprocess_on_device(
+            {k: loc[0][k] for k in large}), d_rows)
+    stepb = fit(mb, meshes[world])
+    b_b = state(mb)
+    lb = [float(stepb(loc[0]))]
+    bf16 = delta_errs(b_b, state(mb), before2, after2, None, SHARD_BF16_L2)
+    lb.append(float(stepb(loc[0])))
+    del mb, stepb, b_b, before2, after2
+    torch.cuda.empty_cache()
+    loss1, loss2 = losses["d1"], losses["d2"]
+    spacing = SHARD_ULPS * float(ulp(torch.tensor(loss1[0])))
+    if abs(loss2[0] - loss1[0]) > spacing:
+        fail(f"rank {rank}: first losses {losses}")
+    fall1, fall2 = loss1[1] - loss1[0], loss2[1] - loss2[0]
+    if abs(fall1) <= 16 * spacing or abs(fall2 - fall1) > (
+            SHARD_LOSS_RTOL * abs(fall1) + spacing):
+        fail(f"rank {rank}: the step moved the loss by {fall2!r} at "
+             f"D = 2 and {fall1!r} at D = 1: {losses}")
+    # The bf16 exchange: its first loss within tests/test_comm_dtype.py's
+    # 1e-2, its changes' norms and the loss's fall within
+    # SHARD_BF16_RTOL of the f32 exchange's, its changes not equal to
+    # them.
+    fall_b = lb[1] - lb[0]
+    bf16.update(loss=lb, loss_rel=abs(lb[0] - loss2[0]) / abs(loss2[0]),
+                fall_rel=abs(fall_b - fall2) / abs(fall2))
+    ratios = [bf16["tables norm ratio"], bf16["dense norm ratio"]]
+    if (bf16["loss_rel"] >= 1e-2
+            or abs(fall_b - fall2) > SHARD_BF16_RTOL * abs(fall2) + spacing
+            or any(abs(r - 1) > SHARD_BF16_RTOL for r in ratios)
+            or bf16["tables l2"] == 0.0 or bf16["dense l2"] == 0.0):
+        fail(f"rank {rank}: the bf16 exchange's step against the f32 "
+             f"one: {bf16}; f32 losses {loss2}")
     dense_params = sum(p.numel() for p in m2.parameters())
-    out = {"ids": n_ids, "errs": errs, "losses": losses, "bf16": bf16,
+    out = {"ids": n_ids, "errs": errs, "cotangent": cotangent,
+           "moved": moved, "losses": losses, "bf16": bf16,
            "dense_params": dense_params, "S_l": stack.local_batch_size
            * stack.num_features, "C": stack.max_ids_per_partition}
     rlog(rank, f"[compare] D = {world} against D = 1 at cap "
-         f"{SHARD_COMPARE_CAP}: COO bit-exact ({n_ids} ids sent); max abs "
-         f"errors {errs}; losses {losses}; bf16 exchange {bf16}")
-    del ref, m2, step1, step2, glob, loc
+         f"{SHARD_COMPARE_CAP}, lr {SHARD_COMPARE_LR}: COO bit-exact "
+         f"({n_ids} ids sent); forward max abs errors {errs}; the "
+         f"cotangent's change of the tables against D = 1's {cotangent}; "
+         f"the step's change against D = 1's {moved}; losses {losses}; "
+         f"bf16 exchange against f32 {bf16}")
+    del ref, m2, step1, step2, glob, loc, d_rows
     torch.cuda.empty_cache()
     return out
 
 
-def rank_mlperf(rank: int, world: int, seed: int,
-                staged: list[str]) -> dict:
+def rank_mlperf(rank: int, world: int, seed: int) -> dict:
     """Phase 34, second part: the ml_perf entry point on this rank,
     main("full_criteo") at the 4M cap with device preprocessing and the
-    chained device timing (SHARD_TIMING); launches counted from 0, the
-    first SHARD_HELD_CALLS B1 calls held to the plain version, peak
-    memory."""
-    import functools
-
+    chained device timing (SHARD_TIMING); launches counted from 0, every
+    B1 call of the SHARD_MLPERF_STEPS training steps held to the plain
+    version (the timing blocks run the kernel alone: the check would
+    distort their time), peak memory. The end-to-end examples/s include
+    the check."""
     import torch
 
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.layers.embedding import lookup
     from keras_rs_tpu_torch.utils import timing
 
-    stage(staged)
     dev = torch.device("cuda", 0)
     capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
     measure = timing.measure_step_time
-    timing.measure_step_time = functools.partial(measure, **SHARD_TIMING)
+    launch = lookup.apply_scatter_row_blocks
+
+    def unheld_timing(*args, **kwargs):
+        held = lookup.apply_scatter_row_blocks
+        lookup.apply_scatter_row_blocks = launch
+        try:
+            return measure(*args, **SHARD_TIMING, **kwargs)
+        finally:
+            lookup.apply_scatter_row_blocks = held
+
+    timing.measure_step_time = unheld_timing
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
     try:
-        with b1_held_to_plain(first=SHARD_HELD_CALLS) as calls:
+        with b1_held_to_plain() as calls:
             r = mlperf.main("full_criteo", device=dev,
                             num_steps=SHARD_MLPERF_STEPS,
                             vocab_sizes=capped, device_preprocessing=True,
@@ -4860,7 +4979,8 @@ def rank_mlperf(rank: int, world: int, seed: int,
     if counts != want:
         fail(f"rank {rank}: sharded mlperf launches {counts}, expected "
              f"{want}")
-    if len(calls) != SHARD_HELD_CALLS or any(bool(c["bad"]) for c in calls):
+    if len(calls) != SHARD_MLPERF_STEPS or any(bool(c["bad"])
+                                               for c in calls):
         fail(f"rank {rank}: B1 against its plain version: "
              f"{[(float(c['err']), bool(c['bad'])) for c in calls]}")
     held = [float(c["err"]) for c in calls]
@@ -4869,8 +4989,8 @@ def rank_mlperf(rank: int, world: int, seed: int,
     rlog(rank, f"[mlperf D = {world}] results {r}; {wall:.1f} s in main; "
          f"device step {r['device_step_ms']!r} ms (CUDA events, chained); "
          f"peak device memory {peak:.2f} GB; B1 launches "
-         f"{counts['apply_scatter_row_blocks']}, the first "
-         f"{SHARD_HELD_CALLS} held to the plain version: max_abs_err "
+         f"{counts['apply_scatter_row_blocks']}, the {len(held)} of the "
+         f"training steps held to the plain version: max_abs_err "
          f"{held}")
     torch.cuda.empty_cache()
     return {"results": r, "counts": counts, "peak_gb": peak,
@@ -4878,7 +4998,7 @@ def rank_mlperf(rank: int, world: int, seed: int,
 
 
 def rank_collectives(rank: int, world: int, S_l: int, C: int,
-                     dense_params: int, staged: list[str]) -> dict:
+                     dense_params: int) -> dict:
     """Phase 34, third part: the ms of each exchange of one step of the
     4M-cap sharded step at its shapes (host clock around each call
     between two synchronizes; median of 5 after 2), under gloo on one
@@ -4889,7 +5009,6 @@ def rank_collectives(rank: int, world: int, S_l: int, C: int,
 
     from keras_rs_tpu_torch.parallel import collectives
 
-    stage(staged)
     dev = torch.device("cuda", 0)
     group = torch.distributed.group.WORLD
     cases = {
@@ -4924,8 +5043,7 @@ def rank_collectives(rank: int, world: int, S_l: int, C: int,
     return {"ms": ms, "bytes": nbytes, "f32_step_ms": f32_step}
 
 
-def rank_split(rank: int, world: int, seed: int,
-               staged: list[str]) -> dict:
+def rank_split(rank: int, world: int, seed: int) -> dict:
     """Phase 35: the split layout at D = 2: bf16 tables with row-wise
     Adagrad at the 4M cap, device preprocessing, SHARD_SPLIT_STEPS
     data-parallel steps on one batch (the global loss falls), every
@@ -4942,7 +5060,6 @@ def rank_split(rank: int, world: int, seed: int,
         make_train_step,
     )
 
-    stage(staged)
     dev = torch.device("cuda", 0)
     mesh = mesh_lib.create_mesh(dev)
     cfg = slice_config(table_dtype="bfloat16",
@@ -4989,8 +5106,7 @@ def rank_split(rank: int, world: int, seed: int,
     return {"losses": losses, "counts": counts, "peak_gb": peak}
 
 
-def rank_autogrow(rank: int, world: int, seed: int,
-                  staged: list[str]) -> dict:
+def rank_autogrow(rank: int, world: int, seed: int) -> dict:
     """Phase 36: a skewed batch over capacity through
     preprocess_on_device(training=True) at D = 2 (both ranks grow the
     same way, the merged stats show no drop, the activations equal a
@@ -5009,7 +5125,6 @@ def rank_autogrow(rank: int, world: int, seed: int,
     )
     from keras_rs_tpu_torch.parallel import mesh as mesh_lib
 
-    stage(staged)
     dev = torch.device("cuda", 0)
     mesh = mesh_lib.create_mesh(dev)
     B, L, V = 4096, 8, 100_000
@@ -5109,19 +5224,18 @@ def run_sharded(seed: int) -> dict[str, int]:
         for key in probe[0]:
             log(f"[probe] gloo on CUDA tensors, {key}: "
                 f"{[p[key] for p in probe]}")
-        staged = sorted({key.split(":")[0] for p in probe
+        broken = sorted({key for p in probe
                          for key, v in p.items() if v != "ok"})
-        if staged:
-            log(f"[probe] gloo does not carry {staged} on CUDA tensors: "
-                "this script's ranks stage them through host memory "
-                "(host_staged)")
-        cmp = ranks.run("rank_compare", seed=seed, staged=staged)
-        ml = ranks.run("rank_mlperf", seed=seed, staged=staged)
+        if broken:
+            fail(f"gloo does not carry {broken} on CUDA tensors: "
+                 f"{probe}")
+        cmp = ranks.run("rank_compare", seed=seed)
+        ml = ranks.run("rank_mlperf", seed=seed)
         coll = ranks.run("rank_collectives", S_l=ml_shapes(cmp)[0],
                          C=ml_shapes(cmp)[1],
-                         dense_params=cmp[0]["dense_params"], staged=staged)
-        split = ranks.run("rank_split", seed=seed, staged=staged)
-        grow = ranks.run("rank_autogrow", seed=seed, staged=staged)
+                         dense_params=cmp[0]["dense_params"])
+        split = ranks.run("rank_split", seed=seed)
+        grow = ranks.run("rank_autogrow", seed=seed)
     finally:
         ranks.close()
     losses = [r["results"]["loss"] for r in ml]

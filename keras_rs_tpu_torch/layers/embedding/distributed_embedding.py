@@ -50,9 +50,13 @@ packed [R, stride, dim] f32 state, or the split layout's [R, dim] table
 in its storage dtype, f32 or bf16), `stack{i}_slot_{name}` for each
 optimizer slot of a split stack ([R, dim] f32, or [R] f32 when
 row-wise) and `stack{i}_step`, R the rows of this rank's shard;
-`stack_state(i)` bundles them as the lookup takes them. Tables are
-exported and imported as logical [vocab, dim] tensors in the storage
-dtype.
+`stack_state(i)` bundles them as the lookup takes them.
+`stack{i}_layout` (int64, 0-dim) is the CRC-32 of the stack's table
+order, offsets and rotations: loading a state_dict whose layout
+differs, or that has none (a checkpoint from before nests sorted their
+dict keys), raises instead of restoring rows into the wrong tables.
+Tables are exported and imported as logical [vocab, dim] tensors in the
+storage dtype.
 
 `get_config` / `from_config` round-trip the architecture (the tables and
 features, the mesh axis names, auto_grow, comm_dtype); the values travel
@@ -66,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+import zlib
 from typing import Any, Mapping
 
 import numpy as np
@@ -341,6 +346,8 @@ class DistributedEmbedding(nn.Module):
             for name, slot in state.get("slots", {}).items():
                 self.register_buffer(f"stack{i}_slot_{name}", slot)
             self.register_buffer(f"stack{i}_step", state["step"])
+            self.register_buffer(f"stack{i}_layout",
+                                 _layout_code(stack, self.device))
 
         self.dense_tables = nn.ModuleDict()
         self._dense_feature_to_table: dict[str, str] = {}
@@ -858,9 +865,27 @@ class DistributedEmbedding(nn.Module):
                 f"stack{i}_table",
                 table.clone(memory_format=torch.contiguous_format))
             new.register_buffer(f"stack{i}_step", state["step"].clone())
+            new.register_buffer(f"stack{i}_layout",
+                                _layout_code(stack, new.device))
         new.dense_tables = nn.ModuleDict(dict(self.dense_tables))
         new._dense_feature_to_table = dict(self._dense_feature_to_table)
         return new
+
+    def _load_from_state_dict(self, state_dict, prefix, *args) -> None:
+        """Refuses a state whose stacks hold their tables in another
+        order (see `stack{i}_layout`) before any row is copied."""
+        for i, stack in enumerate(self.stacks):
+            key = f"{prefix}stack{i}_layout"
+            want = int(_layout_code(stack))
+            got = state_dict.get(key)
+            if got is None or int(got) != want:
+                raise ValueError(
+                    f"The state for {key} has another stack layout "
+                    f"({'none' if got is None else int(got)}, this layer "
+                    f"{want}: tables {[t.name for t in stack.tables]}); "
+                    "its rows would land in other tables."
+                )
+        super()._load_from_state_dict(state_dict, prefix, *args)
 
     def get_config(self) -> dict[str, Any]:
         """The tables (shared tables once, by index), the features, and
@@ -914,6 +939,15 @@ class DistributedEmbedding(nn.Module):
                    axis_name=axis_name,
                    auto_grow=config.get("auto_grow", True),
                    comm_dtype=config.get("comm_dtype"))
+
+
+def _layout_code(stack: TableStack, device: Any = "cpu") -> torch.Tensor:
+    """CRC-32 of the stack's table order, local offsets and rotations,
+    as a 0-dim int64 tensor (the layout a checkpoint must match)."""
+    text = ";".join(f"{t.name}@{t.local_offset}r{t.rotation}"
+                    for t in stack.tables)
+    return torch.tensor(zlib.crc32(f"{stack.name}:{text}".encode()),
+                        dtype=torch.int64, device=device)
 
 
 def _exceeds(stack: TableStack, st: InputStats) -> bool:

@@ -4,9 +4,10 @@ One process per device, joined by `torch.distributed`. `initialize`
 starts the process group from the launcher's environment (torchrun sets
 RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT) or from explicit
 arguments; the backend is named, never switched: NCCL for a CUDA device
-unless the caller names another (gloo carries two ranks on one card),
-gloo for the CPU. On one process every helper is the identity, so the
-same script runs on one device and on several.
+(cuda:0 when no device is given, as everywhere in the port) unless the
+caller names another (gloo carries two ranks on one card), gloo for the
+CPU. On one process every helper is the identity, so the same script
+runs on one device and on several.
 """
 
 from __future__ import annotations
@@ -19,15 +20,16 @@ import torch
 import torch.distributed as dist
 
 from keras_rs_tpu_torch.parallel import collectives
-from keras_rs_tpu_torch.utils.device import to_device
+from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 
-def default_backend(device: Any) -> str:
-    """NCCL for a CUDA device, gloo otherwise."""
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+def default_backend(device: Any = None) -> str:
+    """NCCL for a CUDA device, gloo otherwise; `device` None is cuda:0
+    (resolve_device: raises where CUDA is unavailable)."""
+    return "nccl" if resolve_device(device).type == "cuda" else "gloo"
 
 
-def initialize(device: Any = "cpu", backend: str | None = None,
+def initialize(device: Any = None, backend: str | None = None,
                init_method: str | None = None, rank: int | None = None,
                world_size: int | None = None) -> bool:
     """Starts the default process group where more than one process

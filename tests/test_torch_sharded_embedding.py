@@ -348,6 +348,26 @@ def test_parallel_helpers_match_the_jax_layout(ranks, D):
                                   "data_group_size": 2}
 
 
+def test_default_backend_is_nccl_on_cuda0():
+    """No device given means cuda:0 and NCCL, as everywhere in the port:
+    without CUDA that raises rather than starting a gloo group."""
+    import torch.distributed as dist
+
+    from keras_rs_tpu_torch.parallel import multihost
+
+    assert multihost.default_backend("cuda:1") == "nccl"
+    assert multihost.default_backend("cpu") == "gloo"
+    if torch.cuda.is_available():
+        assert multihost.default_backend() == "nccl"
+        return
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        multihost.default_backend()
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        multihost.initialize(world_size=2, rank=0,
+                             init_method="tcp://localhost:1")
+    assert not dist.is_initialized()
+
+
 def test_one_process_helpers_are_the_identity():
     from keras_rs_tpu.parallel import multihost as jmulti
     from keras_rs_tpu_torch.parallel import mesh as mesh_lib
@@ -357,7 +377,8 @@ def test_one_process_helpers_are_the_identity():
     assert mesh.size == 1 and mesh.group("data") is None
     assert mesh.index("data") == 0
     assert multihost.initialize("cpu") is False
-    stats = {"max_ids": 3, "dropped_ids": 2}
+    assert multihost.initialize() is False  # one process: nothing starts
+    stats ={"max_ids": 3, "dropped_ids": 2}
     assert multihost.sync_max_stats(stats) == jmulti.sync_max_stats(stats)
     a = np.arange(3)
     np.testing.assert_array_equal(multihost.process_allgather(a),

@@ -139,6 +139,45 @@ def _layer(seed):
                                 generator=torch.Generator().manual_seed(seed))
 
 
+def _two_table_layer(first: str, seed: int = 0):
+    """Tables "a" and "b" in one stack; dict keys sort, so the feature
+    that reads `first` stacks its table first."""
+    tables = {n: TableConfig(
+        name=n, vocabulary_size=97, embedding_dim=8, placement="sharded",
+        optimizer="adagrad", max_ids_per_partition=64,
+        max_unique_ids_per_partition=64) for n in ("a", "b")}
+    second = "b" if first == "a" else "a"
+    fcs = {k: FeatureConfig(name=k, table=tables[t], input_shape=(16, 2),
+                            output_shape=(16, 8))
+           for k, t in (("f0", first), ("f1", second))}
+    return DistributedEmbedding(fcs, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+
+
+def test_checkpoint_of_another_stack_layout_is_refused(tmp_path):
+    """A stack's table order is part of its state: a checkpoint whose
+    stacks hold the tables in another order, or that names no layout,
+    raises instead of restoring rows into the wrong tables."""
+    path = str(tmp_path / "ckpt")
+    layer = _two_table_layer("a")
+    assert [t.name for t in layer.stacks[0].tables] == ["a", "b"]
+    checkpoint.save_checkpoint(path, layer)
+    same = checkpoint.restore_checkpoint(path, _two_table_layer("a", seed=3))
+    for k, v in layer.state_dict().items():
+        assert torch.equal(v, same.state_dict()[k]), k
+    swapped = _two_table_layer("b", seed=3)
+    assert [t.name for t in swapped.stacks[0].tables] == ["b", "a"]
+    before = swapped.stack_state(0)["table"].clone()
+    with pytest.raises(ValueError, match="another stack layout"):
+        checkpoint.restore_checkpoint(path, swapped)
+    assert torch.equal(swapped.stack_state(0)["table"], before)
+    old = {k: v for k, v in layer.state_dict().items()
+           if not k.endswith("_layout")}
+    torch.save(old, path)
+    with pytest.raises(ValueError, match="another stack layout"):
+        checkpoint.restore_checkpoint(path, _two_table_layer("a"))
+
+
 def test_checkpoint_resume_continuity_with_embedding_slots(tmp_path):
     """JAX tests/test_training.py::test_checkpoint_resume_training_
     continuity: 5 steps, checkpoint, 5 more in memory vs restored into a
