@@ -329,8 +329,10 @@ import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -4930,14 +4932,15 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
     return out
 
 
-def rank_mlperf(rank: int, world: int, seed: int) -> dict:
-    """Phase 34, second part: the ml_perf entry point on this rank,
-    main("full_criteo") at the 4M cap with device preprocessing and the
-    chained device timing (SHARD_TIMING); launches counted from 0, every
-    B1 call of the SHARD_MLPERF_STEPS training steps held to the plain
-    version (the timing blocks run the kernel alone: the check would
-    distort their time), peak memory. The end-to-end examples/s include
-    the check."""
+def rank_mlperf(rank: int, world: int, seed: int,
+                pipeline_embedding: bool = False) -> dict:
+    """Phase 34, second part (and phase 37 with `pipeline_embedding`):
+    the ml_perf entry point on this rank, main("full_criteo") at the 4M
+    cap with device preprocessing and the chained device timing
+    (SHARD_TIMING); launches counted from 0, every B1 call of the
+    SHARD_MLPERF_STEPS training steps held to the plain version (the
+    timing blocks run the kernel alone: the check would distort their
+    time), peak memory. The end-to-end examples/s include the check."""
     import torch
 
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
@@ -4966,7 +4969,8 @@ def rank_mlperf(rank: int, world: int, seed: int) -> dict:
             r = mlperf.main("full_criteo", device=dev,
                             num_steps=SHARD_MLPERF_STEPS,
                             vocab_sizes=capped, device_preprocessing=True,
-                            honest_timing=True)
+                            honest_timing=True,
+                            pipeline_embedding=pipeline_embedding)
     finally:
         timing.measure_step_time = measure
     wall = time.perf_counter() - t
@@ -4986,7 +4990,8 @@ def rank_mlperf(rank: int, world: int, seed: int) -> dict:
     held = [float(c["err"]) for c in calls]
     if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
         fail(f"rank {rank}: results {r}")
-    rlog(rank, f"[mlperf D = {world}] results {r}; {wall:.1f} s in main; "
+    label = "pipelined mlperf" if pipeline_embedding else "mlperf"
+    rlog(rank, f"[{label} D = {world}] results {r}; {wall:.1f} s in main; "
          f"device step {r['device_step_ms']!r} ms (CUDA events, chained); "
          f"peak device memory {peak:.2f} GB; B1 launches "
          f"{counts['apply_scatter_row_blocks']}, the {len(held)} of the "
@@ -5210,10 +5215,449 @@ def rank_autogrow(rank: int, world: int, seed: int) -> dict:
     return {"grown": grown, "structure": str(structure)}
 
 
+# --- phases 37-42: the sharded path's second half over two ranks ---------
+
+#: Phase 40's vocabulary cap: a D = 1 copy of the model and a D = 1
+#: freeze beside the D = 2 ones in each rank (full widths: 26 features,
+#: dim 128).
+SHARD_FREEZE_CAP = 1_000_000
+#: Phase 41: candidates x dim (f32), queries, k.
+SHARDED_RETRIEVAL = (10_000_000, 128, 256, 10)
+
+
+def state_digest(tensors) -> tuple[int, int]:
+    """(sum, position-weighted sum) of the bytes of `tensors`, in int64
+    that wraps, in chunks on their device: equal states give equal
+    digests, and a changed, moved or swapped byte changes them."""
+    import torch
+
+    total = weighted = 0
+    pos = 0
+    for t in tensors:
+        flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        for lo in range(0, flat.numel(), 1 << 26):
+            b = flat[lo : lo + (1 << 26)].long()
+            idx = torch.arange(pos + lo, pos + lo + b.numel(),
+                               device=b.device)
+            total += int(b.sum())
+            weighted = (weighted + int((b * idx).sum())) % (1 << 63)
+        pos += flat.numel()
+    return total, weighted
+
+
+def model_digest(model, optimizer) -> tuple[int, int]:
+    """state_digest of a model's parameters and buffers (the stacked
+    tables, slots and step counters) and the dense optimizer's state."""
+    return state_digest([*model.state_dict().values(),
+                         *optimizer.accumulators])
+
+
+def rank_pipelined_step0(rank: int, world: int, seed: int) -> dict:
+    """Phase 37, first part: the ml_perf entry point's model at the 4M
+    cap (packed, full widths, batch 16,384 as 2 x 8,192): one
+    unpipelined data-parallel step, then a model built again from the
+    same seed takes pipelined step 0 on the same batch (its prefetch
+    the next batch). Deterministic algorithms on: the losses equal and
+    the whole state (tables, slots, step counters, dense parameters, the
+    dense optimizer) digests equal. Both steps' B1 calls are held to the
+    plain version."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import bce_loss
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training import pipelined as pipelining
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
+    cfg = mlperf.CONFIGS["full_criteo"](vocab_sizes=capped,
+                                        device_preprocessing=True)
+    raws = list(CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size, vocab_sizes=capped,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(2, seed=seed))
+
+    def fresh():
+        model = mlperf.build_model(cfg, dev, mesh)
+        return model, DenseAdagrad(model.parameters(), cfg.learning_rate)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with b1_held_to_plain() as calls:
+            model, opt = fresh()
+            batches = [model.to_device(_rank_rows(r, rank, world))
+                       for r in raws]
+            step = make_train_step(model, mlperf.make_loss_fn(True), opt,
+                                   mesh=mesh)
+            plain = float(step(batches[0]))
+            want = model_digest(model, opt)
+            del model, opt, step
+            torch.cuda.empty_cache()
+            model, opt = fresh()
+            embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+            state = pipelining.create_pipelined_train_state(
+                model, opt, get_pre(batches[0]), embed_fn)
+            pstep = pipelining.make_pipelined_train_step(
+                bce_loss, opt, embed_fn, get_pre, inject, mesh=mesh)
+            piped = float(pstep(state, batches[0], get_pre(batches[1]))[1])
+            got = model_digest(model, opt)
+            del model, opt, state, pstep, batches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    held = [float(c["err"]) for c in calls]
+    if (plain != piped or want != got or len(calls) != 2
+            or any(bool(c["bad"]) for c in calls)):
+        fail(f"rank {rank}: pipelined step 0 at D = {world}: loss {piped!r} "
+             f"against the unpipelined {plain!r}, state digest {got} "
+             f"against {want}; B1 held {held}")
+    rlog(rank, f"[pipelined step 0 D = {world}] loss {piped!r} equals the "
+         f"unpipelined step's; whole state digest {got} equal; both B1 "
+         f"calls held to the plain version, max_abs_err {held}")
+    return {"loss": piped}
+
+
+def rank_pipelined_split(rank: int, world: int, seed: int) -> dict:
+    """Phase 38: the split layout (bf16 tables, row-wise Adagrad, 4M
+    cap) in the pipelined step at D = 2, device preprocessing: one batch
+    SHARD_SPLIT_STEPS times (its own prefetch target), the global loss
+    falls, every row scatter (B3 on the rank's shard) held to its plain
+    version on a copy of the whole shard, B3 once per step."""
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2, bce_loss
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training import pipelined as pipelining
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    cfg = slice_config(table_dtype="bfloat16",
+                       embedding_optimizer="rowwise_adagrad")
+    cfg.max_ids_per_partition //= world
+    cfg.max_unique_ids_per_partition //= world
+    torch.cuda.reset_peak_memory_stats()
+    model = DLRMDCNv2(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev, mesh=mesh)
+    raw = next(CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size,
+        vocab_sizes=cfg.vocab_sizes,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(1, seed=seed))
+    batch = model.to_device(_rank_rows(raw, rank, world))
+    opt = DenseAdagrad(model.parameters(), cfg.learning_rate)
+    embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+    state = pipelining.create_pipelined_train_state(model, opt,
+                                                    get_pre(batch), embed_fn)
+    pstep = pipelining.make_pipelined_train_step(
+        bce_loss, opt, embed_fn, get_pre, inject, mesh=mesh)
+    reset_launch_counts()
+    with scatter_held_to_plain() as calls:
+        losses = [float(pstep(state, batch, get_pre(batch))[1])
+                  for _ in range(SHARD_SPLIT_STEPS)]
+    counts = launch_counts()
+    differ = [int(c) for c in calls]
+    want = {k: SHARD_SPLIT_STEPS if k == "scatter_rows" else 0
+            for k in counts}
+    if counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS:
+        fail(f"rank {rank}: pipelined split launches {counts} (expected "
+             f"{want}), elements differing from the plain scatter {differ}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"rank {rank}: pipelined split losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rlog(rank, f"[pipelined split D = {world}] losses {losses}; B3 "
+         f"launches {counts['scatter_rows']}, each held to the plain "
+         f"scatter on a copy of the shard (elements differing {differ}); "
+         f"peak device memory {peak:.2f} GB")
+    del model, opt, state, pstep, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "counts": counts}
+
+
+def rank_checkpoint(rank: int, world: int, seed: int, path: str) -> dict:
+    """Phase 39: a sharded checkpoint of the entry point's model at full
+    widths (packed, at the 4M cap where the disk under `path` holds
+    both ranks' files with a quarter to spare, else at
+    SHARD_FREEZE_CAP): one data-parallel step, save_checkpoint of the
+    model and the dense optimizer (each rank its file), the next step;
+    then a model holding other values restores it (the digest of its
+    whole state equals the saved one) and takes the same next step
+    (loss and digest equal). Deterministic algorithms on; every B1 call held.
+    Reports GB, s and GB/s of each rank's save and restore."""
+    import shutil
+
+    import torch
+
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training import checkpoint
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    full = mlperf.CONFIGS["full_criteo"]()
+    large = [v for v in CRITEO_VOCAB_SIZES if v >= full.embedding_threshold]
+    # Packed f32 Adagrad: 2 x 128 f32 per row, each rank 1 / D of them.
+    need = sum(min(v, VOCAB_CAP) for v in large) * 1024 * 1.25
+    free = shutil.disk_usage(path).free
+    cap = VOCAB_CAP if free > need else SHARD_FREEZE_CAP
+    capped = [min(v, cap) for v in CRITEO_VOCAB_SIZES]
+    cfg = mlperf.CONFIGS["full_criteo"](vocab_sizes=capped,
+                                        device_preprocessing=True)
+    raws = list(CriteoDataset(
+        None, global_batch_size=cfg.global_batch_size, vocab_sizes=capped,
+        multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(2, seed=seed))
+    target = os.path.join(path, "state")
+
+    def fresh(other):
+        model = mlperf.build_model(cfg, dev, mesh)
+        opt = DenseAdagrad(model.parameters(), cfg.learning_rate)
+        if other:  # other values everywhere, for the restore to replace
+            with torch.no_grad():
+                for t in [*model.parameters(), *model.buffers(),
+                          *opt.accumulators]:
+                    if t.is_floating_point():
+                        t.add_(1.0)
+        return model, opt, make_train_step(
+            model, mlperf.make_loss_fn(True), opt, mesh=mesh)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with b1_held_to_plain() as calls:
+            model, opt, step = fresh(False)
+            batches = [model.to_device(_rank_rows(r, rank, world))
+                       for r in raws]
+            step(batches[0])
+            saved = model_digest(model, opt)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            checkpoint.save_checkpoint(target, {"model": model,
+                                                "optimizer": opt})
+            save_s = time.perf_counter() - t
+            loss_a = float(step(batches[1]))
+            after_a = model_digest(model, opt)
+            del model, opt, step
+            torch.cuda.empty_cache()
+            model, opt, step = fresh(True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            checkpoint.restore_checkpoint(target, {"model": model,
+                                                   "optimizer": opt})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            restored = model_digest(model, opt)
+            loss_b = float(step(batches[1]))
+            after_b = model_digest(model, opt)
+            del model, opt, step, batches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    nbytes = os.path.getsize(os.path.join(
+        target, f"rank{rank}-of-{world}.pt"))
+    files = sorted(os.listdir(target))
+    if (restored != saved or loss_a != loss_b or after_a != after_b
+            or any(bool(c["bad"]) for c in calls) or len(calls) != 3):
+        fail(f"rank {rank}: sharded checkpoint: digest {restored} against "
+             f"{saved}, next loss {loss_b!r} against {loss_a!r}, after "
+             f"{after_b} against {after_a}; B1 calls {len(calls)}")
+    gb = nbytes / 1e9
+    rlog(rank, f"[checkpoint D = {world}] cap {cap:,} rows ({free / 1e9:.1f}"
+         f" GB free under the directory, {need / 1e9:.1f} GB needed for "
+         f"4M); files {files}; this rank's file {gb:.3f} GB saved in "
+         f"{save_s:.2f} s ({gb / save_s:.3f} GB/s), restored in "
+         f"{restore_s:.2f} s ({gb / restore_s:.3f} GB/s); restored digest "
+         f"equal; the next step's loss {loss_b!r} and state equal")
+    return {"cap": cap, "gb": gb, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def rank_freeze(rank: int, world: int, seed: int) -> dict:
+    """Phase 40: freeze() and serving_copy() at D = 2 of the entry
+    point's model at full widths, vocabularies capped at
+    SHARD_FREEZE_CAP: the D = 2 freeze (f32 and int8) equals, tensor for
+    tensor and on a serving batch, the freeze of a D = 1 model built in
+    this rank from the same seed (the same logical tables); the serving
+    copy answers a batch as the training layer does, holds no slot and
+    copies its own shard. Reports the freeze's s and bytes."""
+    import torch
+
+    from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    one_cfg = slice_config(vocab_cap=SHARD_FREEZE_CAP)
+    cfg = slice_config(vocab_cap=SHARD_FREEZE_CAP)
+    cfg.max_ids_per_partition //= world
+    cfg.max_unique_ids_per_partition //= world
+
+    def build(c, m):
+        return DLRMDCNv2(
+            c, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev, mesh=m)
+
+    model = build(cfg, mesh)
+    one = build(one_cfg, mesh_lib.Mesh((mesh_lib.DATA_AXIS,), (1,), dev))
+    layer, layer1 = model.embedding_layer, one.embedding_layer
+    raw = dlrm_batch(cfg, seed)
+    ids = {f"cat_{i}": torch.from_numpy(raw[f"cat_{i}"]).to(dev)
+           for i in model.large_idx}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.no_grad():
+            for q in (None, "int8"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                frozen = layer.freeze(quantize=q)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t
+                want = layer1.freeze(quantize=q)
+                a, b = frozen.state_dict(), want.state_dict()
+                same = sorted(a) == sorted(b) and all(
+                    torch.equal(a[k], b[k]) for k in a)
+                ga, gb = frozen(ids), want(ids)
+                same_acts = all(torch.equal(ga[k], gb[k]) for k in gb)
+                if not (same and same_acts):
+                    fail(f"rank {rank}: freeze({q!r}) at D = {world} differs "
+                         f"from D = 1 (tensors {same}, activations "
+                         f"{same_acts})")
+                out[str(q)] = {"s": seconds, "bytes": module_bytes(frozen)}
+                del frozen, want, a, b, ga, gb
+                torch.cuda.empty_cache()
+            del one, layer1
+            torch.cuda.empty_cache()
+            local = _rank_rows(ids, rank, world)
+            copy = layer.serving_copy()
+            got = copy(copy.preprocess_on_device(local))
+            want = layer(layer.preprocess_on_device(local))
+            buffers = dict(copy.named_buffers())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    slots = [k for k in buffers if "slot" in k]
+    shared = {t.data_ptr() for t in layer.buffers()} & {
+        t.data_ptr() for t in buffers.values()}
+    if (not all(torch.equal(got[k], want[k]) for k in want) or slots
+            or shared or copy.num_shards != world):
+        fail(f"rank {rank}: serving_copy at D = {world}: slots {slots}, "
+             f"shared storage {len(shared)}")
+    copy_bytes, train_bytes = module_bytes(copy), module_bytes(layer)
+    rlog(rank, f"[freeze D = {world}] cap {SHARD_FREEZE_CAP:,}: f32 freeze "
+         f"{out['None']['bytes']} B in {out['None']['s']:.3f} s, int8 "
+         f"{out['int8']['bytes']} B in {out['int8']['s']:.3f} s, each equal "
+         f"to the D = 1 freeze (tensors and a batch of "
+         f"{len(raw['label'])}); serving_copy {copy_bytes} B of this "
+         f"rank's shard (training layer {train_bytes} B), no slot, no "
+         "shared storage, its forward equal to the training layer's")
+    del model, layer, copy
+    torch.cuda.empty_cache()
+    return {"freeze": out, "copy_bytes": copy_bytes}
+
+
+def rank_retrieval(rank: int, world: int, seed: int) -> dict:
+    """Phase 41: ShardedBruteForceRetrieval over SHARDED_RETRIEVAL's
+    candidates (f32 gaussians drawn on the card from `seed`, every rank
+    the same, each keeping its half) against the port's one-device
+    BruteForceRetrieval in this rank: the ids equal, the scores within
+    1e-5 relative; ms of each (host clock around a call between two
+    synchronizes, median of 5 after 1)."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.retrieval.retrieval import (
+        BruteForceRetrieval,
+    )
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.parallel.sharded_retrieval import (
+        ShardedBruteForceRetrieval,
+    )
+
+    dev = torch.device("cuda", 0)
+    mesh = mesh_lib.create_mesh(dev)
+    n, dim, b, k = SHARDED_RETRIEVAL
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cands = torch.randn((n, dim), generator=g, device=dev)
+    queries = torch.randn((b, dim), generator=g, device=dev)
+    sharded = ShardedBruteForceRetrieval(cands, k=k, mesh=mesh)
+    one = BruteForceRetrieval(cands, k=k)
+
+    def timed(fn):
+        times, out = [], None
+        for i in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(queries)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times), out
+
+    with torch.no_grad():
+        ms, (s, top) = timed(sharded)
+        one_ms, (s1, top1) = timed(one)
+    if not (torch.equal(top, top1)
+            and torch.allclose(s, s1, rtol=1e-5, atol=0)):
+        fail(f"rank {rank}: sharded retrieval differs from one device: "
+             f"{int((top != top1).sum())} ids")
+    rlog(rank, f"[sharded retrieval D = {world}] {n:,} x {dim} f32, {b} "
+         f"queries, k = {k}: {ms!r} ms (one device {one_ms!r} ms); ids "
+         "equal to the one-device BruteForceRetrieval")
+    del cands, sharded, one
+    torch.cuda.empty_cache()
+    return {"ms": ms, "one_ms": one_ms}
+
+
+def rank_examples(rank: int, world: int) -> dict:
+    """Phase 42: examples/data_parallel_retrieval.py and
+    examples/ann_retrieval.py at D = 2, and dryrun_multichip(2)."""
+    import torch
+
+    from keras_rs_tpu_torch.examples import ann_retrieval
+    from keras_rs_tpu_torch.examples import data_parallel_retrieval
+    from keras_rs_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    dp = data_parallel_retrieval.main(device=dev)
+    dp_s = time.perf_counter() - t
+    if not (all(map(math.isfinite, dp["loss"]))
+            and dp["loss"][-1] < dp["loss"][0] and dp["recall"] > 0):
+        fail(f"rank {rank}: data_parallel_retrieval {dp}")
+    t = time.perf_counter()
+    ann = ann_retrieval.main(device=dev)
+    ann_s = time.perf_counter() - t
+    exact = ann["brute force"]["ids"]
+    name = f"sharded exact x{world}"
+    if not (ann[name]["recall"] == 1.0
+            and np.array_equal(ann[name]["ids"], exact)):
+        fail(f"rank {rank}: ann_retrieval's sharded engine: "
+             f"recall {ann[name]['recall']}")
+    t = time.perf_counter()
+    dry = dryrun_multichip(world, dev)
+    dry_s = time.perf_counter() - t
+    rlog(rank, f"[examples D = {world}] data_parallel_retrieval losses "
+         f"{dp['loss'][0]:.4f} -> {dp['loss'][-1]:.4f}, recall@10 "
+         f"{dp['recall']:.3f} ({dp_s:.1f} s); ann_retrieval ms "
+         f"{ {k: round(v['ms'], 3) for k, v in ann.items()} }, recall "
+         f"{ {k: v['recall'] for k, v in ann.items()} } ({ann_s:.1f} s); "
+         f"dryrun_multichip({world}) {dry} ({dry_s:.1f} s)")
+    return {"dp_loss": dp["loss"][-1], "dry": dry}
+
+
 def run_sharded(seed: int) -> dict[str, int]:
-    """Phases 33-36 on SHARD_RANKS spawned ranks; returns the launches
-    of B1 (phase 34's entry point run) and B3 (phase 35), summed over
-    the ranks."""
+    """Phases 33-42 on SHARD_RANKS spawned ranks; returns the launches
+    of B1 (the entry point runs of phases 34 and 37) and B3 (phases 35
+    and 38), summed over the ranks."""
     import torch
 
     torch.cuda.empty_cache()
@@ -5236,6 +5680,18 @@ def run_sharded(seed: int) -> dict[str, int]:
                          dense_params=cmp[0]["dense_params"])
         split = ranks.run("rank_split", seed=seed)
         grow = ranks.run("rank_autogrow", seed=seed)
+        t1 = time.perf_counter()
+        step0 = ranks.run("rank_pipelined_step0", seed=seed)
+        piped = ranks.run("rank_mlperf", seed=seed, pipeline_embedding=True)
+        piped_split = ranks.run("rank_pipelined_split", seed=seed)
+        ck_dir = tempfile.mkdtemp(prefix="sharded_ckpt_")
+        try:
+            ck = ranks.run("rank_checkpoint", seed=seed, path=ck_dir)
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        frz = ranks.run("rank_freeze", seed=seed)
+        ret = ranks.run("rank_retrieval", seed=seed)
+        ex = ranks.run("rank_examples")
     finally:
         ranks.close()
     losses = [r["results"]["loss"] for r in ml]
@@ -5246,17 +5702,39 @@ def run_sharded(seed: int) -> dict[str, int]:
         fail(f"ranks grew differently: {[g['grown'] for g in grow]}")
     if len({tuple(s["losses"]) for s in split}) != 1:
         fail(f"ranks disagree on the split layout's losses")
+    for label, runs in (("pipelined step 0", [[r["loss"]] for r in step0]),
+                        ("pipelined mlperf",
+                         [[r["results"]["loss"]] for r in piped]),
+                        ("pipelined split", [r["losses"] for r in piped_split]),
+                        ("data_parallel_retrieval",
+                         [[r["dp_loss"]] for r in ex])):
+        if len({tuple(r) for r in runs}) != 1:
+            fail(f"ranks disagree on the {label} losses: {runs}")
     step_ms = [r["results"]["device_step_ms"] for r in ml]
     log(f"[sharded] D = {SHARD_RANKS} on one card, gloo: device step ms "
         f"{step_ms}; end to end examples/s "
         f"{[r['results']['throughput'] for r in ml]}; ms in the exchanges "
         f"of one f32 step {[c['f32_step_ms'] for c in coll]}; peak GB "
         f"{[r['peak_gb'] for r in ml]}; phases 33-36 took "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{t1 - t0:.1f} s")
+    card = nvidia_smi_line()
+    log(f"[sharded] ({card}) pipelined D = {SHARD_RANKS}: device step ms "
+        f"{[r['results']['device_step_ms'] for r in piped]}, end to end "
+        f"examples/s {[r['results']['throughput'] for r in piped]}, peak GB "
+        f"{[r['peak_gb'] for r in piped]}; checkpoint per rank GB "
+        f"{[c['gb'] for c in ck]} at cap {ck[0]['cap']:,}, save s "
+        f"{[c['save_s'] for c in ck]}, restore s "
+        f"{[c['restore_s'] for c in ck]}; freeze s "
+        f"{[f['freeze']['None']['s'] for f in frz]} (f32), "
+        f"{[f['freeze']['int8']['s'] for f in frz]} (int8) at cap "
+        f"{SHARD_FREEZE_CAP:,}; sharded retrieval ms {[r['ms'] for r in ret]}"
+        f" (one device {[r['one_ms'] for r in ret]}); phases 37-42 took "
+        f"{time.perf_counter() - t1:.1f} s")
     return {
         "apply_scatter_row_blocks": sum(
-            r["counts"]["apply_scatter_row_blocks"] for r in ml),
-        "scatter_rows": sum(s["counts"]["scatter_rows"] for s in split),
+            r["counts"]["apply_scatter_row_blocks"] for r in ml + piped),
+        "scatter_rows": sum(s["counts"]["scatter_rows"]
+                            for s in split + piped_split),
     }
 
 

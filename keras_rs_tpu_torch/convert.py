@@ -17,7 +17,13 @@ The caller hands over numpy arrays (this module never imports JAX):
     them (`layer.state.value`): {"table", "step"} and, for a split
     stack, "slots" {name: [R, dim] or [R]}. They are copied where the
     layouts match: the same shapes, which is every stack but the JAX
-    package's bit-packed bf16 dim-128 stacks (those take `tables`).
+    package's bit-packed bf16 dim-128 stacks (those take `tables`). A
+    state may name its layout, "layout": [(table name, local offset,
+    rotation), ...] as the JAX stack's table specs hold them (its
+    `table_stacking` and `shard_rotation`); a port stack laid out
+    otherwise raises instead of taking rows into the wrong tables. The
+    JAX arrays are global: a port layer sharded over D ranks takes its
+    rank's block of D * R rows.
 
 `load_params` also carries the TwoTower, BasicRanking and GRU4Rec
 models, the GRU, full-rank and low-rank FeatureCross layers and Dense /
@@ -121,6 +127,18 @@ def load_params(
         for stack_name, value in states.items():
             layer, i = stacks[stack_name]
             state = layer.stack_state(i)
+            stack = layer.stacks[i]
+            want = [(t.name, t.local_offset, t.rotation)
+                    for t in stack.tables]
+            got = value.get("layout")
+            if got is not None and [tuple(x) for x in got] != want:
+                raise ValueError(
+                    f"{stack_name}: the state is laid out as {list(got)}, "
+                    f"the port's stack as {want} (another table_stacking "
+                    "or shard_rotation): pass the logical tables instead."
+                )
+            value = _rank_block(value, stack.rows_per_shard,
+                                stack.num_shards, layer.shard)
             if set(value.get("slots", {})) != set(state.get("slots", {})):
                 raise ValueError(
                     f"{stack_name}: slots {sorted(value.get('slots', {}))} "
@@ -130,6 +148,27 @@ def load_params(
             _copy(state["step"], value["step"], f"{stack_name}.step")
             for k, slot in state.get("slots", {}).items():
                 _copy(slot, value["slots"][k], f"{stack_name}.slots.{k}")
+
+
+def _rank_block(value: Mapping[str, Any], rows: int, D: int,
+                rank: int) -> dict[str, Any]:
+    """A stack state's arrays of D * rows rows cut to rank's block of
+    `rows` (the JAX global array's rows on device `rank`); at D = 1, or
+    for arrays of another length, the state as it is."""
+    if D == 1:
+        return dict(value)
+
+    def cut(a: Any) -> Any:
+        a = as_tensor(a)
+        if a.ndim and a.shape[0] == D * rows:
+            return a[rank * rows : (rank + 1) * rows]
+        return a
+
+    out = {k: v for k, v in value.items() if k not in ("table", "slots")}
+    out["table"] = cut(value["table"])
+    if "slots" in value:
+        out["slots"] = {k: cut(v) for k, v in value["slots"].items()}
+    return out
 
 
 def load_kmeans_index(layer: Any, index: Mapping[str, Any]) -> None:

@@ -88,8 +88,8 @@ class ExperimentConfig:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1000
     #: "bfloat16" halves the bytes of the multi-device embedding
-    #: exchange. Not ported yet (ROADMAP A10): main.py raises unless
-    #: None.
+    #: exchange: the lookup's reduce-scatter and all-gather run in bf16
+    #: (DistributedEmbedding's comm_dtype; one process sends nothing).
     embedding_comm_dtype: str | None = None
     #: "bfloat16" keeps dense-stack activations resident in bf16
     #: between matmuls (parameters and accumulation stay f32), the JAX

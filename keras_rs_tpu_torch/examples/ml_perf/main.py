@@ -30,14 +30,16 @@ rank AUC cross-check runs with one process only (main.py:425-440). Rank
 r runs on cuda:LOCAL_RANK unless `--device` names another device, and
 the process group's backend is NCCL on CUDA unless `--dist_backend`
 names another: two ranks on one card need `--device cuda:0
---dist_backend gloo`. The pipelined step and checkpoints of sharded
-state are not ported yet and raise (ROADMAP A10, second half).
+--dist_backend gloo`. `--pipeline_embedding` and `checkpoint_dir` work
+at D > 1 too: the pipelined step is data parallel like the plain one
+(training/pipelined.py), and each rank saves its shards beside rank 0's
+dense state in one directory per step (training/checkpoint.py).
 
 With `checkpoint_dir`, every `checkpoint_every` steps the model (its
 stacked tables, slots and step counters included) and the dense
 optimizer are saved (training/checkpoint.py), and a rerun resumes from
-the latest step, logging "resumed from checkpoint step N" as the JAX
-entry point does. `--profile` (or KRT_PROFILE_DIR) traces steps 10-20
+the latest complete step, logging "resumed from checkpoint step N" (on
+every rank) as the JAX entry point does. `--profile` (or KRT_PROFILE_DIR) traces steps 10-20
 with torch.profiler into `profile_dir` (`--profile_dir`; by default
 `keras_rs_tpu_profile` under TMPDIR). `--pipeline_embedding` trains
 with one-step-stale lookups (training/pipelined.py): the lookup of the
@@ -103,25 +105,6 @@ def binary_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return float(
         (ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
     )
-
-
-def rank_device(device: Any = None) -> torch.device:
-    """This process's device: `device` where given, else cuda:LOCAL_RANK
-    under a launcher with more than one process, else cuda:0
-    (utils/device.py). A CUDA device that does not exist raises."""
-    if device is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                         "0")))
-    device = resolve_device(device)
-    if device.type == "cuda" and not (
-            torch.cuda.is_available()
-            and (device.index or 0) < torch.cuda.device_count()):
-        raise RuntimeError(
-            f"{device} does not exist on this machine "
-            f"({torch.cuda.device_count()} CUDA device(s)); name another "
-            "with --device."
-        )
-    return device
 
 
 def capacities(cfg: ExperimentConfig, D: int = 1) -> tuple[int, int]:
@@ -238,7 +221,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     process group starts here with `dist_backend`, by default NCCL on
     CUDA; parallel/multihost.py)."""
     cfg = CONFIGS[config_name](**overrides)
-    device = rank_device(device)
+    device = multihost.rank_device(device)
     started_group = not dist.is_initialized() and multihost.initialize(
         device, dist_backend)
     mesh = mesh_lib.create_mesh(device)
@@ -292,7 +275,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
         state = pipelining.create_pipelined_train_state(
             model, optimizer, get_pre(next_batch), embed_fn)
         pipelined_step = pipelining.make_pipelined_train_step(
-            bce_loss, optimizer, embed_fn, get_pre, inject)
+            bce_loss, optimizer, embed_fn, get_pre, inject, mesh=mesh)
 
         def step_fn(batch: dict, next_pre: Any) -> torch.Tensor:
             return pipelined_step(state, batch, next_pre)[1]

@@ -5,13 +5,14 @@ any nest of feature configs (a dict, nested dicts, a list, one bare
 config; activations come back in the same nest), per-table placement
 ("sharded" tables go to the stacked engine of lookup.py,
 "default_device" tables to EmbedReduce; "auto" is sharded when the mesh
-has more than one shard), table sharing by TableConfig identity, auto
-table stacking, COO preprocessing on the host (`preprocess`, or
-`preprocess_host` + `to_device` where a loader thread does the host
-part) or on the device (`preprocess_on_device`), Ragged and sparse
-inputs, table import/export, input stats with capacity growth
-(`auto_grow`, `record_stats`, `update_stats`, `rebuild_capacities`),
-and the serving forms: `freeze()` (a slot-free `FrozenEmbedding`, f32 or
+has more than one shard), table sharing by TableConfig identity, table
+stacking ("auto", "never" or explicit groups, `table_stacking`) with or
+without shard rotation (`shard_rotation`), COO preprocessing on the
+host (`preprocess`, or `preprocess_host` + `to_device` where a loader
+thread does the host part) or on the device (`preprocess_on_device`),
+Ragged and sparse inputs, table import/export, input stats with capacity
+growth (`auto_grow`, `record_stats`, `update_stats`,
+`rebuild_capacities`), and the serving forms: `freeze()` (a slot-free `FrozenEmbedding`, f32 or
 int8 in three layouts) and `serving_copy()` (a slot-free stacked twin).
 
 Usage:
@@ -35,7 +36,11 @@ runs on the device (`preprocess_on_device`: the rank's buckets go to
 their shards in one all_to_all); the host `preprocess` needs the global
 batch and raises. `get_embedding_tables` all-gathers the logical tables
 and `set_embedding_tables` keeps each rank's rows. `comm_dtype=
-"bfloat16"` sends the lookup's two [., dim] exchanges in bf16.
+"bfloat16"` sends the lookup's two [., dim] exchanges in bf16. At D > 1
+`freeze()` all-gathers each table in row chunks and gives every rank
+the FrozenEmbedding a one-device freeze of the same tables gives;
+`serving_copy()` keeps each rank's shard (its table plane, copied, no
+gather) in a slot-free twin on the same mesh.
 
 Feature inputs are id arrays shaped as the feature declares, `Ragged`
 batches (data/ragged.py) or sparse id matrices (data/sparse_utils.py),
@@ -52,14 +57,16 @@ optimizer slot of a split stack ([R, dim] f32, or [R] f32 when
 row-wise) and `stack{i}_step`, R the rows of this rank's shard;
 `stack_state(i)` bundles them as the lookup takes them.
 `stack{i}_layout` (int64, 0-dim) is the CRC-32 of the stack's table
-order, offsets and rotations: loading a state_dict whose layout
-differs, or that has none (a checkpoint from before nests sorted their
-dict keys), raises instead of restoring rows into the wrong tables.
+order, offsets and rotations (so `shard_rotation` and `table_stacking`
+change it): loading a state_dict whose layout differs, or that has none
+(a checkpoint from before nests sorted their dict keys), raises instead
+of restoring rows into the wrong tables.
 Tables are exported and imported as logical [vocab, dim] tensors in the
 storage dtype.
 
 `get_config` / `from_config` round-trip the architecture (the tables and
-features, the mesh axis names, auto_grow, comm_dtype); the values travel
+features, the mesh axis names, table_stacking, dtype, auto_grow,
+comm_dtype, shard_rotation); the values travel
 through checkpoints (training/checkpoint.py: the stacks' buffers are in
 the state_dict). Capacity growth rebuilds a stack's COO shapes only:
 the tables, slots and step counters stay where they are.
@@ -109,7 +116,6 @@ from keras_rs_tpu_torch.layers.embedding.preprocessing import (
 from keras_rs_tpu_torch.layers.embedding.stacking import (
     TableStack,
     build_stacks,
-    gather_table,
     init_stack_table,
     scatter_table,
     shard_block,
@@ -271,13 +277,6 @@ def coo_to_device(coo: CooBatch, device: Any) -> dict[str, torch.Tensor]:
     return out
 
 
-def _not_sharded(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} of a layer sharded over more than one rank is not ported "
-        "to keras_rs_tpu_torch yet (ROADMAP A10, second half)."
-    )
-
-
 @export("keras_rs_tpu_torch.layers.DistributedEmbedding")
 class DistributedEmbedding(nn.Module):
     def __init__(
@@ -288,13 +287,35 @@ class DistributedEmbedding(nn.Module):
         device: Any = None,
         mesh: mesh_lib.Mesh | None = None,
         axis_name: mesh_lib.AxisName = mesh_lib.DATA_AXIS,
+        table_stacking: Any = "auto",
+        dtype: Any = "float32",
         auto_grow: bool = True,
         comm_dtype: str | None = None,
+        shard_rotation: bool = True,
     ) -> None:
         super().__init__()
         self._feature_leaves, self._feature_structure = flatten_features(
             feature_configs)
         leaves = self._feature_leaves
+        #: "auto", "never" or explicit groups of table names (stacking.py).
+        self._table_stacking = (
+            table_stacking if table_stacking is None
+            or isinstance(table_stacking, str)
+            else [list(g) for g in table_stacking])
+        #: The JAX layer's state dtype, by name. Tables take their
+        #: storage type from their TableConfig; the port keeps optimizer
+        #: state in f32, so only "float32" is accepted.
+        self._dtype_str = _dtype_name(dtype)
+        if self._dtype_str != "float32":
+            raise ValueError(
+                f"dtype {self._dtype_str!r}: the stacked state is float32 "
+                "(a TableConfig with dtype='bfloat16' stores that table in "
+                "bf16)."
+            )
+        #: Rotated MOD sharding (stacking.py): table t of a stack starts
+        #: at shard t % D. The layouts differ, so checkpoints of one do
+        #: not load into the other (`stack{i}_layout`).
+        self.shard_rotation = bool(shard_rotation)
         if comm_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
                 f"Unsupported comm_dtype: {comm_dtype!r} (use "
@@ -332,7 +353,10 @@ class DistributedEmbedding(nn.Module):
         dense_fcs = [fc for fc in leaves if not sharded(fc.table)]
 
         self.stacks: tuple[TableStack, ...] = tuple(
-            build_stacks(sharded_fcs, self.num_shards)
+            build_stacks(sharded_fcs, self.num_shards,
+                         stacking=table_stacking,
+                         shard_rotation=self.shard_rotation)
+            if sharded_fcs else ()
         )
         table_configs = {fc.table.name: fc.table for fc in leaves}
         for i, stack in enumerate(self.stacks):
@@ -764,22 +788,11 @@ class DistributedEmbedding(nn.Module):
     def get_embedding_tables(self) -> dict[str, torch.Tensor]:
         """Unstacked [vocab, dim] tables by name (copies, in the storage
         dtype). At D > 1 every rank must call it: each table's shards
-        are all-gathered, and every rank gets the whole table."""
-        out = {}
-        for i, stack in enumerate(self.stacks):
-            table = self.stack_state(i)["table"]
-            for ts in stack.tables:
-                if stack.num_shards == 1:
-                    out[ts.name] = gather_table(stack, table, ts.name)
-                    continue
-                block = shard_block(stack, table, ts.name)
-                blocks = collectives.all_gather(block, self._group)
-                out[ts.name] = unshard_table(
-                    stack, ts.name,
-                    blocks.view(stack.num_shards, *block.shape))
-        for name, layer in self.dense_tables.items():
-            out[name] = layer.embeddings.detach().clone()
-        return out
+        are all-gathered in chunks of GATHER_CHUNK_ROWS rows, and every
+        rank gets the whole table."""
+        configs = {fc.table.name: fc.table for fc in self._feature_leaves}
+        return {name: _whole_table(rows_of, configs[name], self.device)
+                for name, rows_of in _table_rows_sources(self).items()}
 
     @torch.no_grad()
     def set_embedding_tables(
@@ -814,10 +827,14 @@ class DistributedEmbedding(nn.Module):
         the JAX package's packed layouts. An int8 freeze quantizes table
         by table in row chunks straight from the stacked state, so it
         needs the int8 tables and one chunk beside the training state.
-        One shard only (D = 1).
+
+        At D > 1 every rank must call it: each table's shards are
+        all-gathered table by table in chunks of `GATHER_CHUNK_ROWS`
+        logical rows (only table planes cross, never slots), and
+        every rank gets the FrozenEmbedding that a one-device freeze of
+        the same logical tables gives, bit for bit (its whole tables,
+        not shards).
         """
-        if self.num_shards > 1:
-            raise _not_sharded("freeze()")
         return FrozenEmbedding(self, quantize=quantize)
 
     @torch.no_grad()
@@ -829,10 +846,12 @@ class DistributedEmbedding(nn.Module):
         only table bytes and shares no stacked storage with this layer;
         its step counters are copies too. `default_device` tables share
         this layer's EmbedReduce modules. Training the copy would train
-        plain SGD from the copied tables. One shard only (D = 1).
+        plain SGD from the copied tables.
+
+        At D > 1 the copy is on the same mesh and axis, and each rank
+        copies its own shard's table plane: nothing is gathered. It
+        serves through `preprocess_on_device` + forward like this layer.
         """
-        if self.num_shards > 1:
-            raise _not_sharded("serving_copy()")
         sgd_tables: dict[str, TableConfig] = {}
 
         def to_sgd(t: TableConfig) -> TableConfig:
@@ -848,11 +867,14 @@ class DistributedEmbedding(nn.Module):
         ]
         new._feature_structure = self._feature_structure
         for attr in ("device", "mesh", "axis_name", "num_shards", "shard",
-                     "_group", "comm_dtype", "auto_grow"):
+                     "_group", "comm_dtype", "auto_grow", "_dtype_str",
+                     "shard_rotation"):
             setattr(new, attr, getattr(self, attr))
         new._stats = {}
         # The old grouping, pinned: regrouping by the new optimizer could
         # merge stacks and change their row layouts.
+        new._table_stacking = [[t.name for t in s.tables]
+                               for s in self.stacks] or "never"
         new.stacks = tuple(
             dataclasses.replace(s, optimizer=SGD(), packed_state=False)
             for s in self.stacks
@@ -889,11 +911,9 @@ class DistributedEmbedding(nn.Module):
 
     def get_config(self) -> dict[str, Any]:
         """The tables (shared tables once, by index), the features, and
-        the mesh axis names, auto_grow and comm_dtype, as the JAX
-        package's config holds them (its table_stacking, dtype and
-        shard_rotation have no counterpart here: the port stacks
-        automatically and always rotates). Table values come from a
-        checkpoint, not from the config."""
+        the mesh axis names, table_stacking, dtype, auto_grow, comm_dtype
+        and shard_rotation, as the JAX package's config holds them.
+        Table values come from a checkpoint, not from the config."""
         tables: list[TableConfig] = []
         table_index: dict[int, int] = {}
         features = []
@@ -913,8 +933,11 @@ class DistributedEmbedding(nn.Module):
             "features": features,
             "axis_name": (list(axis_name) if isinstance(axis_name, tuple)
                           else axis_name),
+            "table_stacking": self._table_stacking,
+            "dtype": self._dtype_str,
             "auto_grow": self.auto_grow,
             "comm_dtype": self.comm_dtype,
+            "shard_rotation": self.shard_rotation,
         }
 
     @classmethod
@@ -937,8 +960,11 @@ class DistributedEmbedding(nn.Module):
         return cls(fcs, generator=config.get("generator"),
                    device=config.get("device"), mesh=config.get("mesh"),
                    axis_name=axis_name,
+                   table_stacking=config.get("table_stacking", "auto"),
+                   dtype=config.get("dtype", "float32"),
                    auto_grow=config.get("auto_grow", True),
-                   comm_dtype=config.get("comm_dtype"))
+                   comm_dtype=config.get("comm_dtype"),
+                   shard_rotation=config.get("shard_rotation", True))
 
 
 def _layout_code(stack: TableStack, device: Any = "cpu") -> torch.Tensor:
@@ -948,6 +974,16 @@ def _layout_code(stack: TableStack, device: Any = "cpu") -> torch.Tensor:
                     for t in stack.tables)
     return torch.tensor(zlib.crc32(f"{stack.name}:{text}".encode()),
                         dtype=torch.int64, device=device)
+
+
+def _dtype_name(dtype: Any) -> str:
+    """"float32" for torch.float32, np.float32 or "float32" (the JAX
+    layer's `np.dtype(dtype).name`)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str):
+        return dtype
+    return np.dtype(dtype).name
 
 
 def _exceeds(stack: TableStack, st: InputStats) -> bool:
@@ -1071,20 +1107,60 @@ class FrozenEmbedding(nn.Module):
         return unflatten(self._feature_structure, outs)
 
 
+#: Logical rows per chunk of get_embedding_tables and freeze (512 MB
+#: of f32 at dim 128): at D > 1 one all_gather each, every rank sending
+#: 1 / D of them.
+GATHER_CHUNK_ROWS = 1 << 20
+
+
 def _table_rows_sources(layer: DistributedEmbedding) -> dict:
     """{table name: rows_of(lo, hi)}, rows [lo, hi) of each table of the
     layer (stacked or dense) in its storage dtype, read without a copy of
-    the whole table."""
+    the whole table. At D > 1 a call is collective: every rank must make
+    the same calls in the same order."""
     out = {}
     for i, stack in enumerate(layer.stacks):
         state_table = layer.stack_state(i)["table"]
         for ts in stack.tables:
-            out[ts.name] = (
-                lambda lo, hi, stack=stack, n=ts.name, t=state_table:
-                table_rows(stack, t, n, lo, hi)
-            )
+            if stack.num_shards == 1:
+                out[ts.name] = (
+                    lambda lo, hi, stack=stack, n=ts.name, t=state_table:
+                    table_rows(stack, t, n, lo, hi)
+                )
+            else:
+                out[ts.name] = (
+                    lambda lo, hi, stack=stack, n=ts.name, t=state_table:
+                    _gathered_rows(stack, t, n, lo, hi, layer._group)
+                )
     for name, er in layer.dense_tables.items():
         out[name] = lambda lo, hi, e=er: e.embeddings.detach()[lo:hi]
+    return out
+
+
+def _gathered_rows(stack: TableStack, state_table: torch.Tensor,
+                   table_name: str, lo: int, hi: int, group) -> torch.Tensor:
+    """Logical rows [lo, hi) of a table sharded over D ranks (a
+    collective): each rank sends the local rows that hold rows [lo, hi)
+    of its shard, one all_gather stacks them, `unshard_table`
+    interleaves them."""
+    D = stack.num_shards
+    block = shard_block(stack, state_table, table_name)[lo // D : -(-hi // D)]
+    blocks = collectives.all_gather(block, group).view(D, *block.shape)
+    return unshard_table(stack, table_name, blocks, lo, hi)
+
+
+def _whole_table(rows_of, table: TableConfig,
+                 device: torch.device) -> torch.Tensor:
+    """A table's [vocab, dim] rows in its storage dtype (a copy),
+    assembled from `rows_of` in chunks of GATHER_CHUNK_ROWS rows."""
+    V = table.vocabulary_size
+    out = None
+    for lo in range(0, V, GATHER_CHUNK_ROWS):
+        rows = rows_of(lo, min(V, lo + GATHER_CHUNK_ROWS))
+        if out is None:
+            out = torch.empty((V, table.embedding_dim), dtype=rows.dtype,
+                              device=device)
+        out[lo : lo + rows.shape[0]] = rows
     return out
 
 

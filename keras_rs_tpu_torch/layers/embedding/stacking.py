@@ -6,7 +6,8 @@ bit with the JAX package:
 
   * each table's vocabulary is padded up to a multiple of D (shards);
   * global row r of table t lives on shard `(r + rot_t) % D` at local
-    slot `offset_t + r // D`, rot_t = the table's index in its stack;
+    slot `offset_t + r // D`, rot_t = the table's index in its stack
+    (mod D), or 0 for every table with `shard_rotation=False`;
   * per-shard blocks of all tables in the stack are concatenated, plus
     one trailing sink row (`rows_per_shard - 1`) that absorbs padding
     traffic;
@@ -18,7 +19,8 @@ the stacked global array that the JAX package places on device r:
 shard=r)`, `shard_block` and `unshard_table` move one table's logical
 rows in and out of it. Within shard r, table t's rows sit at local slots
 offset_t + k, k = 0, 1, ..., for the logical rows k * D + (r - rot_t) %
-D. The bit-packed bf16 layout of the JAX package is not ported (it exists for a TPU DMA limit): a bf16 stack stores plain
+D. The bit-packed bf16 layout of the JAX package is not ported (it
+exists for a TPU DMA limit): a bf16 stack stores plain
 [R, dim] bf16 rows and keeps `rows_per_shard = offset + 1`, where the
 JAX package's bit-packed stacks (bf16, dim 128) round it to
 `round_up(offset, 2) + 2`. Logical tables agree either way.
@@ -165,13 +167,27 @@ def _optimizer_key(table: TableConfig) -> str:
 
 
 def build_stacks(
-    feature_configs: Sequence[FeatureConfig], num_shards: int
+    feature_configs: Sequence[FeatureConfig],
+    num_shards: int,
+    *,
+    stacking: str | Sequence[Sequence[str]] = "auto",
+    shard_rotation: bool = True,
 ) -> list[TableStack]:
-    """Groups tables into stacks and computes the sharded layout.
+    """Groups tables into stacks and computes the sharded layout, as the
+    JAX package's build_stacks does.
 
-    Tables with the same optimizer, padded dim and dtype share a stack
-    (the JAX package's "auto" stacking); table t's rows are rotated by
-    its index in the stack.
+    `stacking`:
+      * "auto": tables with the same optimizer, padded dim and dtype
+        share a stack;
+      * "never": one stack per table;
+      * explicit: a list of lists of table names, one stack each (a
+        table not listed gets its own stack); every table of a group
+        must share the optimizer and the dtype.
+
+    `shard_rotation`: table t's rows are rotated by its index in the
+    stack (mod D), so the head rows of stacked vocabularies spread over
+    the shards; False is plain MOD sharding (rotation 0). The layouts
+    differ, so a state of one does not load into the other.
     """
     tables: list[TableConfig] = []
     table_features: dict[int, list[FeatureConfig]] = {}
@@ -186,16 +202,43 @@ def build_stacks(
     if len(set(names)) != len(names):
         raise ValueError(f"Duplicate table names: {names}")
 
-    groups: dict[str, list[TableConfig]] = {}
-    for t in tables:
-        key = (
-            f"{_optimizer_key(t)}|dim{_round_up(t.embedding_dim, 8)}"
-            f"|{t.dtype}"
+    groups: list[list[TableConfig]]
+    if stacking == "never":
+        groups = [[t] for t in tables]
+    elif stacking == "auto":
+        by_key: dict[str, list[TableConfig]] = {}
+        for t in tables:
+            key = (
+                f"{_optimizer_key(t)}|dim{_round_up(t.embedding_dim, 8)}"
+                f"|{t.dtype}"
+            )
+            by_key.setdefault(key, []).append(t)
+        groups = list(by_key.values())
+    elif isinstance(stacking, str):
+        raise ValueError(
+            f"Unknown stacking {stacking!r}: use 'auto', 'never' or a list "
+            "of lists of table names."
         )
-        groups.setdefault(key, []).append(t)
+    else:
+        explicit = {name: i for i, g in enumerate(stacking) for name in g}
+        grouped: dict[int | str, list[TableConfig]] = {}
+        for t in tables:
+            grouped.setdefault(explicit.get(t.name, f"solo_{t.name}"),
+                               []).append(t)
+        groups = list(grouped.values())
 
     stacks = []
-    for group in groups.values():
+    for group in groups:
+        if len({_optimizer_key(t) for t in group}) != 1:
+            raise ValueError(
+                "All tables in a stack must share the same optimizer; got "
+                f"{[t.name for t in group]}."
+            )
+        if len({t.dtype for t in group}) != 1:
+            raise ValueError(
+                "All tables in a stack must share the same dtype; got "
+                f"{[t.name for t in group]}."
+            )
         stack_dim = max(_round_up(t.embedding_dim, 8) for t in group)
         specs: list[StackedTableSpec] = []
         offset = 0
@@ -209,7 +252,7 @@ def build_stacks(
                     padded_vocab=padded,
                     local_offset=offset,
                     combiner=t.combiner,
-                    rotation=ti % num_shards,
+                    rotation=(ti % num_shards) if shard_rotation else 0,
                 )
             )
             offset += padded // num_shards
@@ -401,16 +444,19 @@ def shard_block(stack: TableStack, state_table: torch.Tensor,
     return arr[t.local_offset : t.local_offset + n, : t.embedding_dim]
 
 
-def unshard_table(stack: TableStack, table_name: str,
-                  blocks: torch.Tensor) -> torch.Tensor:
-    """The logical [vocab, dim] table from every shard's `shard_block`,
-    stacked [D, padded_vocab / D, dim] in shard order: logical row
-    k * D + j lives on shard (j + rotation) % D at local row k."""
+def unshard_table(stack: TableStack, table_name: str, blocks: torch.Tensor,
+                  lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Logical rows [lo, hi) (default: the whole vocabulary) of a table
+    from every shard's `shard_block` rows lo // D onwards, stacked
+    [D, n, dim] in shard order: logical row k * D + j lives on shard
+    (j + rotation) % D at local row k."""
     t = stack.table_spec(table_name)
     D = stack.num_shards
+    hi = t.vocabulary_size if hi is None else hi
     order = [(j + t.rotation) % D for j in range(D)]
-    return (blocks[order].transpose(0, 1)
-            .reshape(-1, blocks.shape[-1])[: t.vocabulary_size].clone())
+    rows = blocks[order].transpose(0, 1).reshape(-1, blocks.shape[-1])
+    first = lo - (lo // D) * D
+    return rows[first : first + hi - lo]
 
 
 def shard_table(stack: TableStack, table_name: str, values: torch.Tensor,

@@ -7,8 +7,8 @@ explicit chunk size, the chunked path streams the candidates instead of
 forming the [B, N] scores; it scores by dot product, so a subclass that
 overrides `compute_score` stays on the direct path under "auto" and raises
 with an explicit chunk size. `recall_target` is accepted and the chunked
-path selects exactly (ops/topk.py). The mesh-sharded variant is not
-ported.
+path selects exactly (ops/topk.py). The mesh-sharded variant is
+parallel/sharded_retrieval.py.
 """
 
 from __future__ import annotations

@@ -137,7 +137,8 @@ class DLRMDCNv2(nn.Module):
     dense layers and small tables replicated (equal on every rank when
     every rank passes a generator with the same seed), batches of B / D
     samples (training/train_state.make_train_step averages the dense
-    gradients)."""
+    gradients). `axis_name` names the mesh axis (or tuple of axes) the
+    large tables shard over, as in the JAX package."""
 
     def __init__(
         self,
@@ -146,6 +147,7 @@ class DLRMDCNv2(nn.Module):
         generator: torch.Generator | None = None,
         device: Any = None,
         mesh: Any = None,
+        axis_name: Any = "data",
     ) -> None:
         super().__init__()
         device = mesh.device if device is None and mesh is not None else (
@@ -167,7 +169,8 @@ class DLRMDCNv2(nn.Module):
         self.embedding_layer = (
             DistributedEmbedding(
                 feature_configs, generator=generator, device=device,
-                mesh=mesh, comm_dtype=cfg.embedding_comm_dtype,
+                mesh=mesh, axis_name=axis_name,
+                comm_dtype=cfg.embedding_comm_dtype,
             )
             if feature_configs
             else None

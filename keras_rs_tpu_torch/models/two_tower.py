@@ -3,7 +3,8 @@ keras_rs_tpu/models/two_tower.py).
 
 A query tower and a candidate tower, each an `EmbedReduce` table with an
 optional MLP head, whose dot product scores candidates; trained with the
-in-batch softmax and served by brute-force top-k over every candidate.
+in-batch softmax (over the global batch when data parallel over ranks)
+and served by brute-force top-k over every candidate.
 Parameter names follow the reference's attributes
 (`query_embedding.embeddings`, `candidate_mlp.layers.0.kernel`, ...), so
 its arrays load one to one through `convert.load_params`.
@@ -21,6 +22,7 @@ from keras_rs_tpu_torch.layers.embedding.embed_reduce import EmbedReduce
 from keras_rs_tpu_torch.layers.retrieval.retrieval import (
     BruteForceRetrieval,
 )
+from keras_rs_tpu_torch.parallel import collectives
 from keras_rs_tpu_torch.utils.device import resolve_device
 
 
@@ -93,11 +95,28 @@ def in_batch_softmax_loss(
     query_ids: torch.Tensor,
     candidate_ids: torch.Tensor,
     sampling_probability: torch.Tensor | None = None,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """In-batch sampled softmax, positives on the diagonal, with the logQ
-    correction when the candidates' sampling probabilities are given."""
-    scores = model.in_batch_scores(query_ids, candidate_ids)
+    correction when the candidates' sampling probabilities are given.
+
+    With a `mesh` of D > 1 ranks (data parallel, make_train_step(mesh=))
+    the ids are this rank's b = B / D rows and the loss is the JAX
+    step's over the global batch: every query scores against all B
+    candidates (all-gathered, their gradients summed back into the
+    owning rank), its positive at column rank * b + i, and the rank
+    returns the mean over its queries, whose mean over the ranks
+    (make_train_step's average) is the global mean."""
+    axes = None if mesh is None else mesh.axis_names
+    group = None if mesh is None else mesh.group(axes)
+    q = model.query_tower(query_ids)
+    c = collectives.all_gather_with_grad(
+        model.candidate_tower(candidate_ids), group)
+    scores = torch.matmul(q, c.T)
     if sampling_probability is not None:
-        scores = scores - torch.log(
-            torch.clamp(sampling_probability, 1e-6, 1.0))
-    return -torch.log_softmax(scores, dim=-1).diagonal().mean()
+        p = collectives.all_gather(sampling_probability.contiguous(), group)
+        scores = scores - torch.log(torch.clamp(p, 1e-6, 1.0))
+    b = q.shape[0]
+    rows = torch.arange(b, device=q.device)
+    first = 0 if mesh is None else mesh.index(axes) * b
+    return -torch.log_softmax(scores, dim=-1)[rows, rows + first].mean()

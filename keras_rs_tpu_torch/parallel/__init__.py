@@ -1,6 +1,6 @@
-"""Meshes, collectives and multi-process helpers (counterpart of
-keras_rs_tpu/parallel). The JAX package's ShardedBruteForceRetrieval is
-not ported yet (ROADMAP A10)."""
+"""Meshes, collectives, multi-process helpers, row-sharded exact
+retrieval and the multi-rank dry run (counterpart of
+keras_rs_tpu/parallel and of __graft_entry__.dryrun_multichip)."""
 
 from keras_rs_tpu_torch.parallel import collectives, multihost
 from keras_rs_tpu_torch.parallel.mesh import (
@@ -12,10 +12,14 @@ from keras_rs_tpu_torch.parallel.mesh import (
     put_batch,
     replicate,
 )
+from keras_rs_tpu_torch.parallel.sharded_retrieval import (
+    ShardedBruteForceRetrieval,
+)
 
 __all__ = [
     "DATA_AXIS",
     "Mesh",
+    "ShardedBruteForceRetrieval",
     "axis_size",
     "batch_rows",
     "collectives",

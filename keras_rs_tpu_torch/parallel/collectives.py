@@ -9,6 +9,11 @@ Counterpart of the JAX package's `jax.lax` collectives inside its
   all_gather (tiled)         all_gather       (dist.all_gather_into_tensor)
   psum                       all_reduce       (dist.all_reduce)
 
+`all_gather_with_grad` is the all-gather inside a differentiated
+function (the JAX package's global-batch losses under jit): its
+backward sums each rank's gradient of the gathered rows into the rank
+that owns them (a reduce-scatter).
+
 Each takes the process group of a mesh axis (`Mesh.group`); a group of
 one rank (None) makes every function the identity, so the one-device
 path runs the same code without torch.distributed. The tensors stay on
@@ -95,3 +100,24 @@ def broadcast(x: torch.Tensor, group: ProcessGroup | None,
     if group is not None:
         dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
+
+
+class _AllGatherWithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return reduce_scatter(grad, ctx.group), None
+
+
+def all_gather_with_grad(x: torch.Tensor,
+                         group: ProcessGroup | None) -> torch.Tensor:
+    """`all_gather` whose backward reduce-scatters the gathered rows'
+    gradient: each rank's block gets the sum over the ranks of its
+    rows' gradients."""
+    if group is None:
+        return x
+    return _AllGatherWithGrad.apply(x, group)

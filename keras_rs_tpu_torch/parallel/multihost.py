@@ -53,6 +53,25 @@ def initialize(device: Any = None, backend: str | None = None,
     return True
 
 
+def rank_device(device: Any = None) -> torch.device:
+    """This process's device: `device` where given, else cuda:LOCAL_RANK
+    under a launcher with more than one process, else cuda:0
+    (utils/device.py). A CUDA device that does not exist raises."""
+    if device is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         "0")))
+    device = resolve_device(device)
+    if device.type == "cuda" and not (
+            torch.cuda.is_available()
+            and (device.index or 0) < torch.cuda.device_count()):
+        raise RuntimeError(
+            f"{device} does not exist on this machine "
+            f"({torch.cuda.device_count()} CUDA device(s)); name another "
+            "with --device."
+        )
+    return device
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

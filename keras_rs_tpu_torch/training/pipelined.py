@@ -29,6 +29,20 @@ t, at the cost of activations one update old. Per step t:
 Step 0 consumes fresh activations (`prime`), so it equals the
 unpipelined step; staleness starts at step 1.
 
+Over a mesh of D > 1 ranks (`mesh`, as make_train_step takes it) each
+rank runs the step on its B / D samples and its shard of the tables,
+and every rank issues the same collectives in the same host order: the
+prefetch's all_to_all (its COO transform, in device mode) and
+reduce-scatter (its lookup), on the side stream while it is current;
+then, on the main stream, the update's all-gather of the cotangent
+(`apply_cotangents`) before B1 / B3 on the shard, and last the dense
+gradients' all_reduce. As in make_train_step, each rank back-propagates
+its local loss / D, which is also the cotangent scale the sharded update
+needs, and the step returns the global batch's loss. The prefetch never
+grows capacities (its COO transform runs without `training`, so no
+stats merge joins the collectives): the capacities stay as built, as in
+the JAX step, whose shapes are static.
+
 The embedding half is reached through `embed_fn(model, pre) -> (layer,
 layer_pre)`: the embedding layer and its preprocessed input for the
 batch's `pre` (`get_pre(batch)`). The layer gathers with `layer(
@@ -51,7 +65,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch import nn
 
-from keras_rs_tpu_torch.training.train_state import map_tensors
+from keras_rs_tpu_torch.parallel import collectives
+from keras_rs_tpu_torch.training.train_state import (
+    map_tensors,
+    sum_gradients,
+)
 
 
 class Prefetch(NamedTuple):
@@ -126,12 +144,6 @@ def _gather(model: nn.Module, pre: Any,
             embed_fn: Callable[[nn.Module, Any], tuple]) -> tuple:
     """(the embedding layer, the Prefetch of `pre`)."""
     layer, layer_pre = embed_fn(model, pre)
-    if getattr(layer, "num_shards", 1) > 1:
-        raise NotImplementedError(
-            "The pipelined step of an embedding sharded over more than one "
-            "rank is not ported to keras_rs_tpu_torch yet (ROADMAP A10, "
-            "second half)."
-        )
     return layer, Prefetch(layer(layer_pre), layer_pre)
 
 
@@ -161,6 +173,7 @@ def make_pipelined_train_step(
     get_pre: Callable[[Any], Any],
     inject: Callable[[Any, Any], Any],
     has_aux: bool = False,
+    mesh: Any = None,
 ) -> Callable[..., tuple[PipelinedTrainState, Any]]:
     """Builds the pipelined step
 
@@ -175,9 +188,13 @@ def make_pipelined_train_step(
     the step: it names what `next_pre` is, as in the JAX package.
     `optimizer` is the dense optimizer over the model's parameters
     (DenseAdagrad, DenseAdam); the stacked tables take their own
-    optimizer in the update.
+    optimizer in the update. With a `mesh` of D > 1 ranks the step is
+    data parallel as the module docstring says; the aux stays this
+    rank's.
     """
     del get_pre  # the caller applies it to the next batch
+    D = 1 if mesh is None else mesh.size
+    group = None if D == 1 else mesh.group(mesh.axis_names)
     side_streams: dict[torch.device, torch.cuda.Stream] = {}
 
     def step(state: PipelinedTrainState, batch: Any, next_pre: Any):
@@ -207,7 +224,7 @@ def make_pipelined_train_step(
                            lambda t: t.detach().requires_grad_())
         out = loss_fn(model, inject(batch, acts))
         loss = out[0] if has_aux else out
-        loss.backward()
+        (loss if D == 1 else loss / D).backward()
         d_acts = map_tensors(acts, lambda t: t.grad)
 
         # (3) the update of batch t, after the prefetch has read the
@@ -218,6 +235,9 @@ def make_pipelined_train_step(
                 t.record_stream(main)
         layer.apply_cotangents(state.prefetched.pre, d_acts)
         del acts, d_acts
+        if D > 1:
+            sum_gradients(optimizer.params, group)
+            loss = collectives.all_reduce(loss.detach().clone(), group) / D
         optimizer.step()
 
         state.prefetched = nxt

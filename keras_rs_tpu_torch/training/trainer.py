@@ -5,10 +5,16 @@ list (nested freely) of numpy arrays or tensors; it moves to the device
 of the model's parameters before the step. `fit` adds what a production
 loop needs:
 
-  * `prefetch`: batches copied ahead on a side stream (`prefetch_to_device`);
+  * `prefetch`: batches copied ahead on a side stream (`prefetch_to_device`),
+    with `prefetch_sharding` as this rank's rows of each global batch;
   * `profile_dir`: a torch.profiler Chrome trace of `profile_steps`;
   * `validation_fn`, `checkpoint_dir` (`last` every epoch, `best` at the
     lowest validation value) and a JSONL `metrics_log`.
+
+With a `mesh` of D > 1 ranks the trainer is data parallel
+(`make_train_step(mesh=)`): each rank steps on its rows of the batch
+(`parallel.mesh.put_batch`, or `fit(prefetch_sharding=mesh)` on global
+batches) and the dense gradients are summed over the ranks.
 
 The step's loss stays on the device: the host reads it once per epoch
 (its mean) and every `log_every` steps, as the JAX loop does.
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from keras_rs_tpu_torch.parallel import mesh as mesh_lib
 from keras_rs_tpu_torch.training.checkpoint import save_checkpoint
 from keras_rs_tpu_torch.training.train_state import make_train_step
 from keras_rs_tpu_torch.utils.device import resolve_device
@@ -56,16 +63,36 @@ def batch_to_device(batch: Any, device: torch.device) -> Any:
     return _map(batch, lambda a: _as_tensor(a).to(device))
 
 
+def rank_rows(batch: Any, sharding: Any) -> Any:
+    """This rank's rows (dim 0) of every leaf of a global batch, as the
+    JAX package's batch sharding places them: `sharding` is a Mesh (rows
+    over all its axes, as make_train_step(mesh=) splits a batch) or a
+    (mesh, axis_name) pair."""
+    mesh, axes = (sharding if isinstance(sharding, tuple)
+                  else (sharding, sharding.axis_names))
+
+    def rows(a: Any) -> Any:
+        return a[mesh_lib.batch_rows(mesh, a.shape[0], axes)]
+
+    return _map(batch, rows)
+
+
 def prefetch_to_device(iterator: Iterable[Any], size: int = 2,
-                       device: Any = None) -> Iterator[Any]:
+                       device: Any = None,
+                       sharding: Any = None) -> Iterator[Any]:
     """Yields the batches of `iterator` on `device`, `size` ahead.
 
     On a CUDA device each batch is pinned and copied with non_blocking
     copies on a side stream; the consuming stream waits on the batch's
     event before it is yielded, so the copies overlap the steps before
-    it. On a CPU device the batches pass through as they are.
+    it. On a CPU device the batches pass through as they are. With
+    `sharding` (see `rank_rows`) only this rank's rows of each global
+    batch are kept, before the copy, so the prefetch does not undo the
+    data-parallel split.
     """
     device = resolve_device(device)
+    if sharding is not None:
+        iterator = (rank_rows(b, sharding) for b in iterator)
     if device.type != "cuda":
         yield from iterator
         return
@@ -109,18 +136,21 @@ class Trainer:
         loss_fn: callable (model, batch) -> scalar loss, or (loss, aux).
         has_aux: whether loss_fn returns (loss, aux); `step` then returns
             (loss, aux), and `fit` and `evaluate` read the loss from it.
+        mesh: a parallel.mesh.Mesh of D > 1 ranks makes the step data
+            parallel (make_train_step(mesh=)): each batch is this rank's
+            rows, and the step returns the global batch's loss.
     """
 
     def __init__(self, model: nn.Module, optimizer: Any,
                  loss_fn: Callable[[nn.Module, Any], Any], *,
-                 has_aux: bool = False) -> None:
+                 has_aux: bool = False, mesh: Any = None) -> None:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.has_aux = has_aux
         self.device = next(model.parameters()).device
         self._step_fn = make_train_step(model, loss_fn, optimizer,
-                                        has_aux=has_aux)
+                                        has_aux=has_aux, mesh=mesh)
 
     @property
     def state(self) -> dict[str, Any]:
@@ -143,6 +173,7 @@ class Trainer:
         profile_dir: str | None = None,
         profile_steps: tuple[int, int] = (10, 20),
         prefetch: int = 0,
+        prefetch_sharding: Any = None,
         validation_fn: Callable[[nn.Module], float] | None = None,
         checkpoint_dir: str | None = None,
         metrics_log: str | None = None,
@@ -152,6 +183,9 @@ class Trainer:
         epoch pass a callable that returns a fresh iterator per epoch.
 
         prefetch: > 0 keeps that many batches copied ahead.
+        prefetch_sharding: with `prefetch`, `data` yields global batches
+            and each is cut to this rank's rows before its copy
+            (`rank_rows`: a Mesh, or a (mesh, axis_name) pair).
         profile_dir: traces global steps profile_steps[0] to
             profile_steps[1] (inclusive) with torch.profiler and writes a
             Chrome trace there.
@@ -170,8 +204,9 @@ class Trainer:
             for epoch in range(epochs):
                 epoch_data = data() if callable(data) else data
                 if prefetch:
-                    epoch_data = prefetch_to_device(epoch_data, prefetch,
-                                                    self.device)
+                    epoch_data = prefetch_to_device(
+                        epoch_data, prefetch, self.device,
+                        sharding=prefetch_sharding)
                 losses = []
                 t0 = time.time()
                 for i, batch in enumerate(epoch_data):

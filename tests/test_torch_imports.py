@@ -75,7 +75,10 @@ def test_port_imports_without_jax():
                  "examples.listwise_ranking", "examples.multi_task",
                  "examples.deep_recommender", "examples.sas_rec",
                  "parallel", "parallel.mesh", "parallel.multihost",
-                 "parallel.collectives", "version", "utils.doc_utils",
+                 "parallel.collectives", "parallel.sharded_retrieval",
+                 "parallel.dryrun", "examples.ann_retrieval",
+                 "examples.data_parallel_retrieval", "version",
+                 "utils.doc_utils",
                  "utils.shape_utils"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent

@@ -105,8 +105,7 @@ CASES = {
     "DistributedEmbedding": (
         lambda: DistributedEmbedding(_tables(config, init_lib, opt_lib),
                                      device="cpu"),
-        _jax_de, CPU,
-        ("table_stacking", "dtype", "shard_rotation")),
+        _jax_de, CPU, ()),
     "BruteForceRetrieval": (
         lambda: retrieval.BruteForceRetrieval(k=7, return_scores=False),
         lambda: jret.BruteForceRetrieval(k=7, return_scores=False), {}, ()),

@@ -534,3 +534,376 @@ def parallel_case(rank: int, world: int) -> dict:
             "data_group_size": dist.get_world_size(two.group("data")),
         }
     return out
+
+
+# --- the sharded path's second half: retrieval, pipelined step,
+# checkpoints, serving forms, data-parallel training -------------------
+
+def retrieval_case(rank: int, world: int, cands, queries, k: int,
+                   ids=None, update_without_ids: bool = False) -> dict:
+    """ShardedBruteForceRetrieval over the world's ranks: the top-k
+    scores and rows (or ids), the rank's block and the config; with
+    `update_without_ids`, the error of an update that drops the ids."""
+    import torch
+
+    from keras_rs_tpu_torch.parallel.sharded_retrieval import (
+        ShardedBruteForceRetrieval,
+    )
+
+    layer = ShardedBruteForceRetrieval(cands, candidate_ids=ids, k=k,
+                                       mesh=_mesh(world))
+    scores, top = layer(torch.from_numpy(queries))
+    out = {"scores": _numpy(scores), "top": _numpy(top),
+           "block": _numpy(layer.candidate_embeddings),
+           "config": layer.get_config(),
+           "rows_per_shard": layer.rows_per_shard}
+    layer.return_scores = False
+    out["top_only"] = _numpy(layer(torch.from_numpy(queries)))
+    if update_without_ids:
+        try:
+            layer.update_candidates(cands)
+            out["error"] = None
+        except ValueError as e:
+            out["error"] = str(e)
+    return out
+
+
+def _dlrm_model(world: int, config: dict, params: dict, tables=None,
+                states=None, seed: int = 0):
+    import torch
+
+    from keras_rs_tpu_torch import convert
+    from keras_rs_tpu_torch.models import dlrm
+
+    mesh = _mesh(world)
+    model = dlrm.DLRMDCNv2(dlrm.DLRMConfig(**config),
+                           generator=torch.Generator().manual_seed(seed),
+                           device="cpu", mesh=mesh)
+    convert.load_params(model, params, tables, states)
+    return model, mesh
+
+
+def _dlrm_out(model, losses) -> dict:
+    return {
+        "losses": losses,
+        "params": {k: _numpy(p) for k, p in model.named_parameters()},
+        "tables": {k: _numpy(v) for k, v in
+                   model.embedding_layer.get_embedding_tables().items()},
+        "steps": [int(model.embedding_layer.stack_state(i)["step"])
+                  for i in range(len(model.embedding_layer.stacks))],
+    }
+
+
+def pipelined_case(rank: int, world: int, config: dict, params: dict,
+                   batches: list, tables=None, states=None,
+                   pipelined: bool = True) -> dict:
+    """The port's DLRM at D = world (device COO, the ml_perf entry
+    point's pipeline functions): one pipelined step per batch, each
+    prefetching the next batch's rows (the last its own), or with
+    `pipelined=False` one plain data-parallel step per batch; the
+    losses, the dense parameters and the logical tables after them."""
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models import dlrm
+    from keras_rs_tpu_torch.training import pipelined as pipelining
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    model, mesh = _dlrm_model(world, config, params, tables, states)
+    opt = DenseAdagrad(model.parameters(), config["learning_rate"])
+    local = [model.to_device(_local(b, rank, world)) for b in batches]
+    if not pipelined:
+        step = make_train_step(model, mlperf.make_loss_fn(True), opt,
+                               mesh=mesh)
+        return _dlrm_out(model, [float(step(b)) for b in local])
+    embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+    state = pipelining.create_pipelined_train_state(
+        model, opt, get_pre(local[0]), embed_fn)
+    step = pipelining.make_pipelined_train_step(
+        dlrm.bce_loss, opt, embed_fn, get_pre, inject, mesh=mesh)
+    losses = []
+    for t, b in enumerate(local):
+        nxt = local[min(t + 1, len(local) - 1)]
+        losses.append(float(step(state, b, get_pre(nxt))[1]))
+    out = _dlrm_out(model, losses)
+    out["state_step"] = state.step
+    return out
+
+
+def checkpoint_case(rank: int, world: int, config: dict, params: dict,
+                    tables: dict, batches: list, directory: str) -> dict:
+    """Sharded checkpoints of a pipelined DLRM at D = world: two steps
+    and a CheckpointManager save of step 2 (committed by
+    wait_until_finished), a restore into a fresh model of other weights
+    (compared bit for bit: every parameter and buffer, the dense
+    optimizer), then one more step of both, each re-primed from batch 2
+    as a resumed loop does."""
+    import os
+
+    import torch
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.models import dlrm
+    from keras_rs_tpu_torch.training import checkpoint
+    from keras_rs_tpu_torch.training import pipelined as pipelining
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+
+    def build(seed, logical):
+        model, mesh = _dlrm_model(world, config, params, logical, seed=seed)
+        opt = DenseAdagrad(model.parameters(), config["learning_rate"])
+        local = [model.to_device(_local(b, rank, world)) for b in batches]
+        embed_fn, get_pre, inject = mlperf.pipeline_fns(model, True)
+        state = pipelining.create_pipelined_train_state(
+            model, opt, get_pre(local[0]), embed_fn)
+        step = pipelining.make_pipelined_train_step(
+            dlrm.bce_loss, opt, embed_fn, get_pre, inject, mesh=mesh)
+        return state, step, local, embed_fn, get_pre
+
+    sa, step_a, la, embed_fn, get_pre = build(0, tables)
+    for t in range(2):
+        step_a(sa, la[t], get_pre(la[t + 1]))
+    mgr = checkpoint.CheckpointManager(directory, max_to_keep=2)
+    mgr.save(2, sa)
+    mgr.wait_until_finished()
+    sb, step_b, lb, _, _ = build(5, {k: v * 3 for k, v in tables.items()})
+    mgr.restore(None, sb)
+    equal = {k: torch.equal(v, sa.model.state_dict()[k])
+             for k, v in sb.model.state_dict().items()}
+    equal["optimizer"] = all(
+        torch.equal(x, y) for x, y in zip(sa.optimizer.accumulators,
+                                          sb.optimizer.accumulators))
+    sa.prefetched = pipelining.prime(sa.model, get_pre(la[2]), embed_fn)
+    sb.prefetched = pipelining.prime(sb.model, get_pre(lb[2]), embed_fn)
+    next_a = float(step_a(sa, la[2], get_pre(la[3]))[1])
+    next_b = float(step_b(sb, lb[2], get_pre(lb[3]))[1])
+    after = [sa.model.state_dict(), sb.model.state_dict()]
+    mgr.close()
+    return {
+        "latest": mgr.latest_step(), "step": sb.step, "equal": equal,
+        "next": (next_a, next_b),
+        "after_equal": all(torch.equal(v, after[1][k])
+                           for k, v in after[0].items()),
+        "files": sorted(os.listdir(os.path.join(directory, "step_2"))),
+    }
+
+
+def layer_checkpoint_case(rank: int, world: int, tables, features,
+                          path: str, save: bool, seed: int = 0,
+                          steps: int = 0, manager: bool = False,
+                          **kwargs) -> dict:
+    """A DistributedEmbedding at D = world (layer `kwargs`): with `save`
+    it takes `steps` steps of sum(act^2) on fixed ids and is saved to
+    `path` (save_checkpoint; with `manager`, a CheckpointManager save
+    after every step); else a layer of another seed restores from `path`
+    (the manager's latest step). Returns its all-gathered tables, step
+    counters and local tables, or the error the restore raised."""
+    import torch
+
+    from keras_rs_tpu_torch.training import checkpoint
+    from keras_rs_tpu_torch.training.train_state import (
+        DenseAdagrad,
+        make_train_step,
+    )
+
+    layer = build_layer(world, tables, features, seed=seed, **kwargs)
+    state = {"layer": layer}
+    if save:
+        rng = np.random.default_rng(seed)
+        ids = {f["name"]: rng.integers(
+            0, next(t["vocab"] for t in tables if t["name"] == f["table"]),
+            f["input_shape"]) for f in features}
+        pre = layer.preprocess_on_device(_torch_tree(_local(ids, rank,
+                                                            world)))
+        step = make_train_step(
+            layer, lambda m, p: sum((v ** 2).mean() for v in m(p).values()),
+            DenseAdagrad(layer.parameters(), 0.1), mesh=layer.mesh)
+        if manager:
+            mgr = checkpoint.CheckpointManager(path, max_to_keep=2)
+            for s in range(1, steps + 1):
+                step(pre)
+                mgr.save(s, state)
+            mgr.close()
+        else:
+            for _ in range(steps):
+                step(pre)
+            checkpoint.save_checkpoint(path, state)
+    else:
+        try:
+            if manager:
+                checkpoint.CheckpointManager(path).restore(None, state)
+            else:
+                checkpoint.restore_checkpoint(path, state)
+        except (ValueError, FileNotFoundError) as e:
+            return {"error": f"{type(e).__name__}: {e}"}
+    return {
+        "tables": {k: _numpy(v)
+                   for k, v in layer.get_embedding_tables().items()},
+        "steps": [int(layer.stack_state(i)["step"])
+                  for i in range(len(layer.stacks))],
+        "local": [_numpy(layer.stack_state(i)["table"])
+                  for i in range(len(layer.stacks))],
+    }
+
+
+def serving_case(rank: int, world: int, tables, features, logical: dict,
+                 inputs: dict, quantize: list, **kwargs) -> dict:
+    """freeze() and serving_copy() of a D = world layer holding the
+    `logical` tables: each freeze's tensors and its forward on the
+    global `inputs` (every rank serves the whole batch), and the serving
+    copy's forward on the rank's rows against the layer's own, with what
+    it holds."""
+    import torch
+
+    layer = build_layer(world, tables, features, **kwargs)
+    layer.set_embedding_tables(logical)
+    ids = _torch_tree(inputs)
+    out = {"frozen": {}}
+    with torch.no_grad():
+        for q in quantize:
+            frozen = layer.freeze(quantize=q)
+            out["frozen"][str(q)] = {
+                "state": {k: _numpy(v)
+                          for k, v in frozen.state_dict().items()},
+                "acts": {k: _numpy(v) for k, v in frozen(ids).items()},
+            }
+        copy = layer.serving_copy()
+        local = _torch_tree(_local(inputs, rank, world))
+        want = layer(layer.preprocess_on_device(local))
+        got = copy(copy.preprocess_on_device(local))
+    buffers = dict(copy.named_buffers())
+    trained = {id(t) for t in layer.buffers()}
+    ptrs = {t.data_ptr() for t in layer.buffers()}
+    out["copy"] = {
+        "equal": all(torch.equal(got[k], want[k]) for k in want),
+        "buffers": sorted(buffers),
+        "shared": any(id(t) in trained or t.data_ptr() in ptrs
+                      for k, t in buffers.items() if "table" in k),
+        "optimizers": [s.optimizer.name for s in copy.stacks],
+        "num_shards": copy.num_shards,
+        "stacking": copy.get_config()["table_stacking"],
+        "rotation": copy.shard_rotation,
+        "local": [_numpy(copy.stack_state(i)["table"])
+                  for i in range(len(copy.stacks))],
+    }
+    return out
+
+
+def placement_case(rank: int, world: int, tables, features, values: dict,
+                   states=None, **kwargs) -> dict:
+    """A D = world layer with layer `kwargs` (table_stacking,
+    shard_rotation): its stacks, its local tables after
+    set_embedding_tables(values), those of its from_config rebuild, and,
+    with `states` (the JAX layer's, through convert.load_params), its
+    local tables after loading them or the error the load raised."""
+    from keras_rs_tpu_torch import convert
+    from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
+        DistributedEmbedding,
+    )
+
+    layer = build_layer(world, tables, features, **kwargs)
+    layer.set_embedding_tables(values)
+    config = layer.get_config()
+    rebuilt = DistributedEmbedding.from_config(dict(
+        config, device="cpu", mesh=layer.mesh))
+    rebuilt.set_embedding_tables(values)
+    out = {
+        "stacks": [[(t.name, t.local_offset, t.rotation) for t in s.tables]
+                   for s in layer.stacks],
+        "rebuilt_stacks": [[(t.name, t.local_offset, t.rotation)
+                            for t in s.tables] for s in rebuilt.stacks],
+        "config": {k: v for k, v in config.items()
+                   if k in ("table_stacking", "dtype", "shard_rotation")},
+        "local": [_numpy(layer.stack_state(i)["table"])
+                  for i in range(len(layer.stacks))],
+        "rebuilt_local": [_numpy(rebuilt.stack_state(i)["table"])
+                          for i in range(len(rebuilt.stacks))],
+    }
+    if states is not None:
+        fresh = build_layer(world, tables, features, seed=9, **kwargs)
+        try:
+            convert.load_params(fresh, {}, states=states)
+            out["loaded"] = [_numpy(fresh.stack_state(i)["table"])
+                             for i in range(len(fresh.stacks))]
+        except ValueError as e:
+            out["loaded"] = str(e)
+    return out
+
+
+def data_parallel_case(rank: int, world: int, params: dict,
+                       epochs: int) -> dict:
+    """examples/data_parallel_retrieval.py at D = world from `params`,
+    and Trainer(mesh=) fed the same global batches cut by put_batch
+    instead of prefetch_sharding (the loss of each epoch)."""
+    import torch
+
+    from keras_rs_tpu_torch import convert
+    from keras_rs_tpu_torch.data import synthetic
+    from keras_rs_tpu_torch.examples import data_parallel_retrieval as ex
+    from keras_rs_tpu_torch.models.two_tower import (
+        TwoTower,
+        in_batch_softmax_loss,
+    )
+    from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+    from keras_rs_tpu_torch.training.train_state import DenseAdagrad
+    from keras_rs_tpu_torch.training.trainer import Trainer
+
+    res = ex.main(device="cpu", epochs=epochs, params=params)
+    mesh = _mesh(world)
+    model = TwoTower(ex.NUM_USERS, ex.NUM_ITEMS, 32, device="cpu")
+    convert.load_params(model, params)
+    fb = synthetic.implicit_feedback(
+        num_users=ex.NUM_USERS, num_items=ex.NUM_ITEMS, num_events=40_960,
+        seed=0)
+    train = {"user_id": fb["user_id"], "item_id": fb["item_id"]}
+    trainer = Trainer(
+        model, DenseAdagrad(model.parameters(), 0.5),
+        lambda m, b: in_batch_softmax_loss(m, b["user_id"], b["item_id"],
+                                           mesh=mesh), mesh=mesh)
+    hist = trainer.fit(
+        lambda: (mesh_lib.put_batch(mesh, b) for b in synthetic.batches(
+            train, ex.BATCH, seed=1)), epochs=epochs, log_every=0)
+    return {"example": res, "put_batch_loss": hist["loss"],
+            "kernel": torch.cat([p.detach().reshape(-1)
+                                 for p in model.parameters()]).numpy()}
+
+
+def ann_case(rank: int, world: int, num_candidates: int) -> dict:
+    """examples/ann_retrieval.py at D = world: each engine's ids and
+    recall."""
+    from keras_rs_tpu_torch.examples import ann_retrieval
+
+    res = ann_retrieval.main(num_candidates=num_candidates, device="cpu")
+    return {k: {"ids": v["ids"], "recall": v["recall"]}
+            for k, v in res.items()}
+
+
+def dryrun_case(rank: int, world: int) -> dict:
+    from keras_rs_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(world, "cpu")
+
+
+def mlperf_log_case(rank: int, world: int, overrides: dict) -> tuple:
+    """The ml_perf entry point on this rank: (its results, the messages
+    it logged)."""
+    import logging
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+
+    messages: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    log = logging.getLogger("ml_perf")
+    handler, level = Keep(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        res = mlperf.main("smoke_test", device="cpu", **overrides)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    return res, "\n".join(messages)
