@@ -19,7 +19,11 @@ from --seed:
         2) and f32 tables with Adam (packed [R, 3, 128], B2).
   * the same DLRM through the ml_perf entry point
     (keras_rs_tpu_torch/examples/ml_perf/main.py) with the COO
-    preprocessing on the device inside the step, and in host mode;
+    preprocessing on the device inside the step, and in host mode; and
+    trained from Criteo-schema TFRecord files (the reference's
+    file-batched schema, 4,096 samples per proto) that the script writes
+    with the port's writer and reads through the native reader
+    (data/native_io.py, data/criteo.py);
   * SASRec at the published ML-1M widths (models/sasrec.py defaults: 2
     blocks, 1 head, hidden 50, MLP 50, 3,706 items; Adam lr 0.005, batch
     128, f32) with the long-history context T = 1024, trained through
@@ -124,7 +128,11 @@ Phases (any failure raises, so the exit code is not 0):
                    ids) through the device COO transform (in
                    set_sync_debug_mode("error")), the numpy path and the
                    C++ engine: every array and stat bit-exact; times of
-                   each (the engine on one thread and on four);
+                   each (the engine on one thread and on four); then a
+                   weighted mean / sum / sqrtn stack at valences 100,
+                   27, 12 and a shared 1-D feature, batch 16,384: the
+                   three bit-exact, divisors and gains included, and
+                   the device transform's time;
  16. mlperf        the ml_perf entry point, main("full_criteo") with each
                    vocabulary capped at 4M rows: 70 steps with device
                    preprocessing, the device step time over chained
@@ -136,6 +144,24 @@ Phases (any failure raises, so the exit code is not 0):
                    device-mode step;
  17. auc           main("smoke_test", num_steps=300,
                    device_preprocessing=True): AUC > 0.60;
+ 17b. mlperf       8 full-width Criteo-schema files (12 protos of 4,096
+      files        samples each, 393,216 samples, ~0.7 GB, learnable)
+                   and a validation file, written with the port's
+                   writer: the reader alone (a fresh dataset's first
+                   pass: file 1 generic, every later file fixed; each
+                   file's fixed arrays equal to its generic ones; the
+                   fixed and the generic path at 1, 2 and 4 prefetch
+                   workers, examples/s and GB/s); main("full_criteo",
+                   file_pattern=...) at the 4M cap with device
+                   preprocessing three times, B1 once per step and no
+                   other kernel: 3 steps with every B1 call held to its
+                   plain version at phase 2's bound; 70 steps for
+                   end-to-end examples/s; 21 steps whose steps 10-20
+                   (main's --profile window) give the idle share of the
+                   file-fed loop; both beside phase 16's; main("smoke_test") from
+                   small learnable files, 300 steps: AUC > 0.60. No
+                   fallback to the Python reader or dummy batches; the
+                   files are deleted;
  18. retrieval     a small TwoTower with tower MLPs, 3 DenseAdagrad steps
      small         on the card and on the CPU (losses and parameters
                    within 1e-5); a cosine compute_score subclass over
@@ -306,8 +332,9 @@ every count is set to 0 just before a path's train-and-serve run and read
 just after it (B1 from the packed path and from phase 34's entry point
 on both ranks, B2 from f32 + Adam, B3 from capacity mode and from phase
 35 on both ranks, B4 from bf16 + Adagrad, B5-B7 from SASRec; the parts
-are printed on `[launches]` lines). The ml_perf path's counts (phase 16)
-and those of phases 30-32 are checked and printed on their own lines.
+are printed on `[launches]` lines). The ml_perf path's counts (phases 16
+and 17b) and those of phases 30-32 are checked and printed on their own
+lines.
 
 Output: progress lines, then the card's name and power limit
 (nvidia-smi), then one JSON line {"kernels": [...]}, then last one JSON
@@ -315,7 +342,9 @@ line {"ok": true, "device": {...}}. Without a CUDA device, or without
 the package beside it, it exits with an error and prints no result.
 
 Usage (from the repository root): python3 chip_smoke.py [--seed N]
-[--profile]
+[--profile]; `--time_coo_combiners` only times phase 15's mean / sum /
+sqrtn device transform of the package beside the script and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -856,6 +885,13 @@ def profile_steps(step, batch, steps: int = 3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
     avgs = prof.key_averages()
+    return avgs, wall_ms, device_ms(avgs) / steps
+
+
+def device_ms(avgs) -> float:
+    """The device time (ms) of a profile's kernel and copy rows."""
+    import torch
+
     cpu = torch.autograd.DeviceType.CPU
     # Operator rows also carry the device time of the kernels they
     # launch: only the kernel rows are summed for the total. A labelled
@@ -863,10 +899,8 @@ def profile_steps(step, batch, steps: int = 3):
     # the same name, which spans the range's kernels and the gaps between
     # them: the twin is no kernel.
     cpu_keys = {e.key for e in avgs if e.device_type == cpu}
-    kernel_ms = sum(e.self_device_time_total for e in avgs
-                    if e.device_type != cpu and e.key not in cpu_keys
-                    ) / 1e3 / steps
-    return avgs, wall_ms, kernel_ms
+    return sum(e.self_device_time_total for e in avgs
+               if e.device_type != cpu and e.key not in cpu_keys) / 1e3
 
 
 def phase_profile(label: str, step, batch, parts, steps: int = 3,
@@ -1813,6 +1847,146 @@ def phase_coo(seed: int) -> None:
         "one thread's rate)")
     del coo, dev_inputs
     torch.cuda.empty_cache()
+    coo_combiners(seed)
+
+
+#: Phase 15's mean / sqrtn stack: the CPU test's stack
+#: (tests/test_torch_native_preprocess.py::make_stack: a mean, a sum and
+#: a sqrtn table and a 1-D feature sharing the first) at the largest
+#: Criteo valences and vocabularies (capped at 4M), batch 16,384.
+COO_COMBINER_TABLES = (("mean", 4_000_000, 100), ("sum", 590_152, 27),
+                       ("sqrtn", 3_067_956, 12))
+
+
+def combiner_batch(seed: int):
+    """COO_COMBINER_TABLES' stack and one weighted batch of it, invalid
+    ids and zero weights among the entries: (stack, inputs, weights), the
+    batch as host arrays."""
+    from keras_rs_tpu_torch.layers.embedding.config import (
+        FeatureConfig,
+        TableConfig,
+    )
+    from keras_rs_tpu_torch.layers.embedding.stacking import build_stacks
+
+    cap = BATCH * (sum(L for _, _, L in COO_COMBINER_TABLES) + 1)
+    tables = [TableConfig(f"c{i}", vocab, 128, combiner=combiner,
+                          max_ids_per_partition=cap,
+                          max_unique_ids_per_partition=cap)
+              for i, (combiner, vocab, _) in enumerate(COO_COMBINER_TABLES)]
+    fcs = [FeatureConfig(f"c{i}", t, (BATCH, L), (BATCH, 128))
+           for i, (t, (_, _, L)) in enumerate(zip(tables,
+                                                  COO_COMBINER_TABLES))]
+    fcs.append(FeatureConfig("c_shared", tables[0], (BATCH,), (BATCH, 128)))
+    (stack,) = build_stacks(fcs, 1)
+    rng = np.random.default_rng(seed + 15)
+    inputs, weights = {}, {}
+    for f in stack.features:
+        vocab = stack.table_spec(f.table_name).vocabulary_size
+        shape = (BATCH, f.valence) if f.valence > 1 else (BATCH,)
+        inputs[f.name] = rng.integers(-2, vocab + 2, size=shape)
+        w = rng.uniform(0.1, 3.0, size=shape).astype(np.float32)
+        w[rng.random(shape) < 0.1] = 0.0
+        weights[f.name] = w
+    return stack, inputs, weights
+
+
+def time_combiner_transform(seed: int) -> tuple[list[float], float, int]:
+    """The device transform of combiner_batch(seed): ms of each of 10
+    runs after a warm-up (CUDA events, no host sync between them), and
+    of one run the kernel and copy ms and the device operations
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
+        preprocess_stack_device,
+    )
+
+    stack, inputs, weights = combiner_batch(seed)
+    dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    dev_w = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    preprocess_stack_device(stack, dev_in, dev_w)  # warm-up
+    events = []
+    for _ in range(10):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        preprocess_stack_device(stack, dev_in, dev_w)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        preprocess_stack_device(stack, dev_in, dev_w)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    n_ops = sum(1 for e in prof.events() if e.device_type != cpu)
+    del dev_in, dev_w
+    torch.cuda.empty_cache()
+    return ([a.elapsed_time(b) for a, b in events],
+            device_ms(prof.key_averages()), n_ops)
+
+
+def coo_combiners(seed: int) -> None:
+    """combiner_batch(seed) (a weighted mean / sum / sqrtn stack) through
+    the device transform in set_sync_debug_mode("error"), the numpy path
+    and the C++ engine: every array and stat bit-exact, the divisors and
+    the gains they divide included (the device sums each segment in
+    numpy's order, without atomics). Then the transform's time."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding import preprocessing
+    from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
+        preprocess_stack_device,
+    )
+
+    stack, inputs, weights = combiner_batch(seed)
+    n_ids = sum(v.size for v in inputs.values())
+    dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    dev_w = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coo, stats = preprocess_stack_device(stack, dev_in, dev_w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: v.cpu().numpy() for k, v in coo.arrays().items()}
+    got_stats = preprocessing.InputStats(*(int(x) for x in stats))
+    for backend in ("numpy", "native"):
+        want, want_stats = preprocessing.preprocess_stack(
+            stack, inputs, weights, backend=backend)
+        if got.keys() != want.arrays().keys():
+            fail(f"coo combiners: device arrays {sorted(got)} vs {backend} "
+                 f"{sorted(want.arrays())}")
+        for k, a in want.arrays().items():
+            if got[k].dtype != a.dtype or not np.array_equal(got[k], a):
+                n_bad = int((got[k] != a).sum()) if got[k].shape == a.shape \
+                    else "shape"
+                fail(f"coo combiners: device {k} differs from {backend} "
+                     f"({n_bad} elements)")
+        if got_stats != want_stats:
+            fail(f"coo combiners: device stats {got_stats} vs {backend} "
+                 f"{want_stats}")
+    if (got["divisors"] == 1.0).all():
+        fail("coo combiners: every divisor is 1: no mean or sqrtn segment")
+    log(f"[coo] mean / sum / sqrtn stack {stack.name}, {n_ids} ids "
+        f"(valences {[L for _, _, L in COO_COMBINER_TABLES]} and a shared "
+        f"1-D feature, weighted, invalid ids): device, numpy and C++ "
+        f"arrays and stats bit-exact, divisors and gains included "
+        f"({got_stats})")
+    del coo, dev_in, dev_w
+    torch.cuda.empty_cache()
+    log(f"[coo] mean / sum / sqrtn stack: "
+        f"{combiner_timing(seed, nvidia_smi_line())}")
+
+
+def combiner_timing(seed: int, card: str) -> str:
+    """time_combiner_transform(seed), as a line of the log."""
+    ms, kernel_ms, n_ops = time_combiner_transform(seed)
+    return (f"device transform median {statistics.median(ms)!r} ms "
+            f"({card}; CUDA events, 10 runs: {ms}); {n_ops} device "
+            f"operations, {kernel_ms!r} ms of kernels and copies "
+            f"(profiler, one run)")
 
 
 def run_mlperf(seed: int, profile: bool) -> dict:
@@ -1962,6 +2136,342 @@ def phase_auc() -> None:
     log(f"[auc] smoke_test, 300 steps, device preprocessing: {r}")
     if not r["auc"] > AUC_GATE:
         fail(f"auc {r['auc']} <= {AUC_GATE}")
+
+
+#: Phase 17b: Criteo-schema TFRecord files at full width (26 features,
+#: 214 ids per sample, vocabularies capped at 4M), 4,096 samples per
+#: proto as the reference's full-dataset files (configs/
+#: v6e_8_full_dataset.py:17 packs 4,224): 8 files x 12 protos =
+#: 393,216 samples = 24 batches of 16,384, ~0.7 GB; one validation file
+#: of 8 protos (2 batches).
+FILE_BATCH = 4096
+FILE_COUNT = 8
+FILE_PROTOS = 12
+FILE_VAL_PROTOS = 8
+FILE_STEPS = 70  # ~2.9 passes over the files, 60 of them timed
+FILE_HELD_STEPS = 3  # the untimed run whose every B1 call is held
+#: The profiled run: main's --profile traces steps 10-20 of 21.
+FILE_PROFILE_STEPS = 21
+FILE_PROFILE_WINDOW = 11
+FILE_WORKERS = (1, 2, 4)  # prefetch workers of the reader timings (main: 2)
+#: The smoke config's files: 4 x 10 protos of 4,096 (160 batches of
+#: 512 per pass) and a validation file of 4 protos.
+SMOKE_FILE_COUNT = 4
+SMOKE_FILE_PROTOS = 10
+SMOKE_VAL_PROTOS = 4
+FILE_MIN_FREE = 2e9  # bytes the disk must hold free before writing
+
+
+@contextlib.contextmanager
+def reader_paths():
+    """While open, counts how the Criteo dataset reads each file: the
+    fixed path's calls ("fixed") and deviations ("fixed_left"), the
+    generic native parses ("generic"); the Python reader ("python") and
+    a dummy draw ("dummy") fail the phase at once. Yields the counts."""
+    import threading
+
+    from keras_rs_tpu_torch.data import native_io
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+
+    counts = {"fixed": 0, "fixed_left": 0, "generic": 0}
+    lock = threading.Lock()
+    fixed, generic = native_io.parse_file_fixed, native_io.parse_file_batched
+    python_rows = CriteoDataset._batched_python_rows
+    dummy = CriteoDataset.dummy_batches
+
+    def counted_fixed(*args):
+        res = fixed(*args)
+        with lock:
+            counts["fixed"] += 1
+            counts["fixed_left"] += res is None
+        return res
+
+    def counted_generic(*args, **kwargs):
+        with lock:
+            counts["generic"] += 1
+        return generic(*args, **kwargs)
+
+    def refused(what):
+        def call(*args, **kwargs):
+            fail(f"mlperf files: the file path fell back to {what}")
+        return call
+
+    native_io.parse_file_fixed = counted_fixed
+    native_io.parse_file_batched = counted_generic
+    CriteoDataset._batched_python_rows = refused("the Python reader")
+    CriteoDataset.dummy_batches = refused("dummy batches")
+    try:
+        yield counts
+    finally:
+        native_io.parse_file_fixed = fixed
+        native_io.parse_file_batched = generic
+        CriteoDataset._batched_python_rows = python_rows
+        CriteoDataset.dummy_batches = dummy
+
+
+@contextlib.contextmanager
+def main_profile_window():
+    """While open, the window that main's --profile traces (steps 10-20)
+    is traced in memory by torch.profiler, between two device syncs on
+    the host clock, and no trace file is written. Yields a dict that then
+    holds the window's "wall_ms" and "busy_ms" (device time of the kernel
+    and copy rows), both per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+
+    window: dict = {}
+    start, stop = mlperf.start_profiler, mlperf.stop_profiler
+
+    def start_window(device):
+        torch.cuda.synchronize(device)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+        window["t"] = time.perf_counter()
+        return prof
+
+    def stop_window(prof, trace_dir, device):
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - window.pop("t")
+        prof.__exit__(None, None, None)
+        window["wall_ms"] = wall * 1e3 / FILE_PROFILE_WINDOW
+        window["busy_ms"] = (device_ms(prof.key_averages())
+                             / FILE_PROFILE_WINDOW)
+
+    mlperf.start_profiler, mlperf.stop_profiler = start_window, stop_window
+    try:
+        yield window
+    finally:
+        mlperf.start_profiler, mlperf.stop_profiler = start, stop
+
+
+def file_dataset(pattern: str, generic: bool = False, **kw):
+    """The ml_perf entry point's CriteoDataset over `pattern` at full
+    width; with `generic`, one that drops the learned schema before
+    every file, so every file takes the generic native path."""
+    from keras_rs_tpu_torch.data.criteo import CriteoDataset
+
+    class GenericOnly(CriteoDataset):
+        def _parse_file_arrays(self, path, keys, use_native):
+            self._fixed_schema = None
+            return super()._parse_file_arrays(path, keys, use_native)
+
+    cls = GenericOnly if generic else CriteoDataset
+    return cls(pattern, global_batch_size=BATCH,
+               vocab_sizes=[min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES],
+               multi_hot_sizes=CRITEO_MULTI_HOT_SIZES,
+               file_batch_size=FILE_BATCH, **kw)
+
+
+def read_epoch(ds, workers: int) -> tuple[int, float]:
+    """(samples, s) of one pass of ds.batches() with `workers` prefetch
+    workers."""
+    t = time.perf_counter()
+    n = sum(len(b["label"])
+            for b in ds.batches(epochs=1, file_prefetch=workers))
+    return n, time.perf_counter() - t
+
+
+def phase_reader(pattern: str, paths: list) -> None:
+    """The reader alone over every file: the first pass of a fresh
+    dataset at one worker (file 1 generic, every later file fixed); each
+    file's fixed arrays equal to its generic arrays bit for bit; then
+    examples/s and GB/s of the fixed and the generic path at 1 and 4
+    prefetch workers, in turns (fixed, generic, generic, fixed)."""
+    from keras_rs_tpu_torch.data import native_io
+
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    fixed_ds = file_dataset(pattern)
+    generic_ds = file_dataset(pattern, generic=True)
+    with reader_paths() as counts:
+        n, _ = read_epoch(fixed_ds, 1)
+    want = {"fixed": len(paths) - 1, "fixed_left": 0, "generic": 1}
+    if counts != want or fixed_ds._fixed_schema is None:
+        fail(f"mlperf files: reader paths of a first pass {counts}, "
+             f"expected {want}")
+    keys = fixed_ds._file_keys()
+    for p in paths:
+        fixed = fixed_ds._parse_file_arrays(p, keys, True)
+        generic_ds._fixed_schema = None
+        generic = generic_ds._parse_file_arrays(p, keys, True)
+        for k in generic:
+            if (fixed[k].dtype != generic[k].dtype
+                    or not np.array_equal(fixed[k], generic[k])):
+                fail(f"mlperf files: {Path(p).name} {k}: the fixed path's "
+                     "array differs from the generic path's")
+    if fixed_ds._fixed_schema is None:
+        fail("mlperf files: the fixed path left its schema")
+    rates = {}
+    for workers in FILE_WORKERS:
+        for name, ds in (("fixed", fixed_ds), ("generic", generic_ds),
+                         ("generic", generic_ds), ("fixed", fixed_ds)):
+            got, s = read_epoch(ds, workers)
+            if got != n:
+                fail(f"mlperf files: {name} pass read {got} samples, "
+                     f"expected {n}")
+            rates.setdefault((name, workers), []).append(s)
+    fixed_ds.close()
+    generic_ds.close()
+    card = nvidia_smi_line()
+    parts = []
+    for (name, workers), times in rates.items():
+        s = min(times)
+        parts.append(f"{name} at {workers} worker(s) {n / s:.0f} "
+                     f"examples/s, {nbytes / s / 1e9:.3f} GB/s (s per "
+                     f"pass {times})")
+    log(f"[mlperf files] reader alone ({card}; a host figure of the "
+        f"card's machine, {os.cpu_count()} CPUs; best of 2 passes over "
+        f"{len(paths)} files, {n} samples, {nbytes / 1e9:.3f} GB, page "
+        f"cache warm): " + "; ".join(parts))
+    log(f"[mlperf files] first pass of a fresh dataset: {counts} (every "
+        f"file after the first took the fixed path); each file's fixed "
+        f"arrays equal its generic arrays bit for bit; native reader "
+        f"available: {native_io.available()}")
+
+
+def run_mlperf_files(seed: int, unpiped: dict) -> None:
+    """Phase 17b: the ml_perf entry point trained from Criteo-schema
+    TFRecord files that it writes itself with the port's writer:
+    phase_reader, then main("full_criteo") at the 4M cap with device
+    preprocessing over the files (eval on a validation file) three
+    times, B1 once per step and no other kernel in each: FILE_HELD_STEPS
+    untimed steps with every B1 call held to its plain version;
+    FILE_STEPS steps for end-to-end examples/s; FILE_PROFILE_STEPS steps
+    whose profiled window gives the device's idle share of this loop.
+    Both beside phase 16's dummy-draw figures (`unpiped`, this call).
+    Then main("smoke_test") from small learnable files, 300 steps: AUC
+    > 0.60. Nothing may fall back to the Python reader or to dummy
+    batches. The files are deleted."""
+    import torch
+
+    from keras_rs_tpu_torch.data import native_io
+    from keras_rs_tpu_torch.data.criteo import write_batched_criteo_files
+    from keras_rs_tpu_torch.examples.ml_perf import configs
+    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+
+    if not native_io.available():
+        fail("mlperf files: the native TFRecord reader does not build")
+    t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    if free < FILE_MIN_FREE:
+        fail(f"mlperf files: {free / 1e9:.2f} GB free on the disk, "
+             f"{FILE_MIN_FREE / 1e9:.1f} GB needed")
+    capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(prefix="mlperf_files_",
+                                     dir=build) as work:
+        t = time.perf_counter()
+        paths = write_batched_criteo_files(
+            os.path.join(work, "train"), num_files=FILE_COUNT,
+            protos_per_file=FILE_PROTOS, file_batch_size=FILE_BATCH,
+            vocab_sizes=capped, multi_hot_sizes=CRITEO_MULTI_HOT_SIZES,
+            seed=seed, learnable=True)
+        write_batched_criteo_files(
+            os.path.join(work, "val"), num_files=1,
+            protos_per_file=FILE_VAL_PROTOS, file_batch_size=FILE_BATCH,
+            vocab_sizes=capped, multi_hot_sizes=CRITEO_MULTI_HOT_SIZES,
+            seed=seed + 1, learnable=True)
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        log(f"[mlperf files] wrote {len(paths)} files x {FILE_PROTOS} "
+            f"protos x {FILE_BATCH} samples ({nbytes / 1e9:.3f} GB) and a "
+            f"validation file in {time.perf_counter() - t:.1f} s; "
+            f"{free / 1e9:.1f} GB were free")
+        train = os.path.join(work, "train", "train-*.tfrecord")
+        val = os.path.join(work, "val", "train-*.tfrecord")
+        phase_reader(train, paths)
+
+        def drive(label, steps, **overrides):
+            """main from the files, launches and reader paths checked."""
+            reset_launch_counts()
+            with reader_paths() as used:
+                t = time.perf_counter()
+                r = mlperf.main(
+                    "full_criteo", device=dev, num_steps=steps,
+                    vocab_sizes=capped, global_batch_size=BATCH,
+                    device_preprocessing=True, file_pattern=train,
+                    val_file_pattern=val, file_batch_size=FILE_BATCH,
+                    **overrides)
+                wall = time.perf_counter() - t
+            counts = launch_counts()
+            log(f"[launches] phase 17b mlperf from files, {label}: {counts}")
+            want = {k: steps if k == "apply_scatter_row_blocks" else 0
+                    for k in counts}
+            if counts != want:
+                fail(f"mlperf files {label}: launches {counts}, expected "
+                     f"{want}")
+            # The first two training files may both start before a
+            # schema exists (two prefetch workers), and the final eval's
+            # dataset learns its own from the validation file; every
+            # other parse is a fixed one.
+            if (used["fixed_left"] or used["generic"] > 3
+                    or (steps > FILE_HELD_STEPS and used["fixed"] < 1)):
+                fail(f"mlperf files {label}: reader paths in main {used}")
+            if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+                fail(f"mlperf files {label}: results {r}")
+            log(f"[mlperf files] {label}: results {r}; {wall:.1f} s in "
+                f"main; reader paths {used}")
+            return r
+
+        with b1_held_to_plain() as b1_calls:
+            drive("held", FILE_HELD_STEPS)
+        b1 = [{k: float(v) for k, v in c.items()} for c in b1_calls]
+        if len(b1) != FILE_HELD_STEPS or any(c["bad"] for c in b1):
+            fail(f"mlperf files: B1 calls against the plain version: {b1}")
+        log(f"[mlperf files] held: every B1 call against its plain "
+            f"version {b1}")
+        torch.cuda.reset_peak_memory_stats()
+        r = drive("timed", FILE_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with main_profile_window() as window:
+            drive("profiled", FILE_PROFILE_STEPS, do_profile=True)
+        if set(window) != {"wall_ms", "busy_ms"}:
+            fail(f"mlperf files: main's profile window did not close: "
+                 f"{window}")
+        step_ms = BATCH / r["throughput"] * 1e3
+        card = nvidia_smi_line()
+        log(f"[mlperf files] ({card}) end to end {r['throughput']:.0f} "
+            f"examples/s from files ({step_ms!r} ms per step over "
+            f"{FILE_STEPS - 10} timed steps; peak device memory "
+            f"{peak:.2f} GB) against {unpiped['throughput']:.0f} from the "
+            f"dummy draw (phase 16, this call, {unpiped['step_ms']!r} ms)")
+        log(f"[mlperf files] ({card}) device idle "
+            f"{1 - window['busy_ms'] / window['wall_ms']:.1%} of main's "
+            f"loop from files: {window['busy_ms']!r} ms of kernels and "
+            f"copies in {window['wall_ms']!r} ms of wall time per step "
+            f"(torch.profiler over steps 10-20 of the profiled run); "
+            f"{1 - window['busy_ms'] / step_ms:.1%} against the timed "
+            f"run's step. Dummy draw (phase 16): "
+            f"{1 - unpiped['busy_ms'] / unpiped['step_ms']:.1%} "
+            f"({unpiped['busy_ms']!r} ms of kernels and copies per whole "
+            f"step, profiled apart from main, against main's step)")
+        torch.cuda.empty_cache()
+
+        smoke = configs.smoke_test()
+        for sub, n_files, protos, s in (
+                ("smoke", SMOKE_FILE_COUNT, SMOKE_FILE_PROTOS, seed + 2),
+                ("smoke_val", 1, SMOKE_VAL_PROTOS, seed + 3)):
+            write_batched_criteo_files(
+                os.path.join(work, sub), num_files=n_files,
+                protos_per_file=protos, file_batch_size=FILE_BATCH,
+                vocab_sizes=smoke.vocab_sizes,
+                multi_hot_sizes=smoke.multi_hot_sizes, seed=s,
+                learnable=True)
+        with reader_paths() as smoke_paths:
+            rs = mlperf.main(
+                "smoke_test", device=dev, num_steps=300,
+                device_preprocessing=True, file_batch_size=FILE_BATCH,
+                file_pattern=os.path.join(work, "smoke", "train-*"),
+                val_file_pattern=os.path.join(work, "smoke_val", "train-*"))
+        log(f"[mlperf files] smoke_test from files, 300 steps, device "
+            f"preprocessing: {rs}; reader paths {smoke_paths}")
+        if not rs["auc"] > AUC_GATE:
+            fail(f"mlperf files: smoke AUC {rs['auc']} <= {AUC_GATE}")
+    log(f"[mlperf files] phase 17b took {time.perf_counter() - t0:.1f} s; "
+        f"the files are deleted")
 
 
 # Two-tower retrieval: the 1M x 128 corpus of the repo's own retrieval
@@ -5751,6 +6261,10 @@ def main() -> int:
                         help="seed of the weights and the batches")
     parser.add_argument("--profile", action="store_true",
                         help="also profile 3 training steps of each model")
+    parser.add_argument("--time_coo_combiners", action="store_true",
+                        help="only time phase 15's mean / sum / sqrtn "
+                        "device transform of the package beside this "
+                        "script (no check, no result line)")
     args = parser.parse_args()
 
     if not (ROOT / "keras_rs_tpu_torch" / "csrc").is_dir():
@@ -5768,6 +6282,10 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.cuda.set_device(torch.device("cuda", 0))
+    if args.time_coo_combiners:
+        log(f"[coo] {ROOT}: mean / sum / sqrtn stack: "
+            f"{combiner_timing(args.seed, card)}")
+        return 0
     t0 = time.perf_counter()
     phase_build()
 
@@ -5782,7 +6300,8 @@ def main() -> int:
     phase_coo(args.seed)
     unpipelined = run_mlperf(args.seed, args.profile)
     phase_auc()
-    log(f"[time] COO, ml_perf and AUC phases done at "
+    run_mlperf_files(args.seed, unpipelined)
+    log(f"[time] COO, ml_perf, AUC and file phases done at "
         f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     reset_launch_counts()

@@ -91,7 +91,14 @@ class CriteoDataset:
         self.process_index = process_index
         self.process_count = process_count
         self.file_batch_size = file_batch_size
+        self._pool = None
+        self._pool_workers = 0
         if file_batch_size is not None:
+            # The fixed path's per-file private arrays come from the
+            # reusable heap, not fresh mmaps (see native_io).
+            from keras_rs_tpu_torch.data import native_io
+
+            native_io.tune_malloc_for_large_columns()
             n_cat = len(vocab_sizes)
             if label_key == "label":
                 label_key = "clicked"
@@ -131,6 +138,12 @@ class CriteoDataset:
         self.dense_key = dense_key
         self.label_key = label_key
         self.cat_key_fmt = cat_key_fmt
+        # Fixed-width schema learned from the first file the generic
+        # native path parsed: (per-key [(kind, cell bytes)], records per
+        # file). Later files take native_io.parse_file_fixed, which
+        # writes each column straight into its final private array.
+        self._fixed_schema: tuple[list[tuple[int, int]], int] | None = (
+            None)
 
     # -- dummy mode ---------------------------------------------------------
     def dummy_batches(
@@ -215,6 +228,27 @@ class CriteoDataset:
         if use_native:
             from keras_rs_tpu_torch.data import native_io
 
+            # Steady state of the file-batched schema: once the first
+            # file has taught every key's (kind, cell width), one native
+            # pass writes each column into its final private array.
+            if (self.file_batch_size is not None
+                    and self._fixed_schema is not None):
+                schema, n_est = self._fixed_schema
+                try:
+                    res = native_io.parse_file_fixed(path, keys, schema,
+                                                     n_est)
+                except OSError:
+                    res = None
+                if res is not None:
+                    n, cols = res
+                    if not n:
+                        return None
+                    return self._batched_typed_to_arrays(cols)
+                # A deviation or a native failure: drop the schema (the
+                # generic path re-learns it from the next conforming
+                # file) and go on to the generic path.
+                self._fixed_schema = None
+
             # Column fast path: one native pass per file, then pure
             # array slicing — no per-record Python (data/native_io.py;
             # fixed-width schemas only, which Criteo's decode_raw
@@ -229,6 +263,12 @@ class CriteoDataset:
                 if self.file_batch_size is not None:
                     out = self._batched_columns_to_arrays(cols)
                     if out is not None:
+                        if self._fixed_schema is None:
+                            self._fixed_schema = (
+                                [(kind, arr.shape[1] * arr.itemsize)
+                                 for kind, arr in (cols[k] for k in keys)],
+                                n,
+                            )
                         return out
                 else:
                     return self._columns_to_arrays(cols)
@@ -254,6 +294,8 @@ class CriteoDataset:
         Returns None if widths don't match the declared schema (caller
         falls back to the per-proto Python path).
         """
+        from keras_rs_tpu_torch.data import native_io
+
         fbs = self.file_batch_size
         kind, lab = cols[self.label_key]
         if kind != 2 or lab.shape[1] != fbs:
@@ -276,11 +318,34 @@ class CriteoDataset:
             if kind != 0 or c.shape[1] != fbs * m * 8:
                 return None
             out[f"cat_{i}"] = (
-                np.ascontiguousarray(c)
+                native_io.fast_contig(c)
                 .view("<i8")
                 .reshape(-1, m)
                 .astype(np.int64, copy=False)
             )
+        return out
+
+    def _batched_typed_to_arrays(
+        self, cols: dict[str, tuple[int, np.ndarray]]
+    ) -> dict[str, np.ndarray]:
+        """Fixed-path typed columns -> flat row arrays.
+
+        `parse_file_fixed` delivered private, contiguous, typed [n,
+        elems] columns whose kinds and widths the native pass held to
+        the learned schema, so each cat column is a bytes -> i64 view
+        and a reshape; only the label cast and the [n * fbs, 13] dense
+        interleave allocate.
+        """
+        _, lab = cols[self.label_key]  # i64 [n, fbs]
+        out = {"label": lab.reshape(-1).astype(np.float32)}
+        dense_cols = [cols[k][1] for k in self.dense_keys]
+        # [n, fbs] x13 -> [n, fbs, 13] (new contiguous) -> [n*fbs, 13]
+        out["dense"] = np.stack(dense_cols, axis=-1).reshape(
+            -1, len(dense_cols))
+        for i, k in enumerate(self.cat_keys):
+            _, c = cols[k]  # uint8 [n, fbs * m * 8]
+            m = self.multi_hot_sizes[i]
+            out[f"cat_{i}"] = c.view("<i8").reshape(-1, m)
         return out
 
     def _batched_python_rows(
@@ -337,81 +402,97 @@ class CriteoDataset:
             raise ValueError(
                 "No files configured; use dummy_batches() instead."
             )
-        import concurrent.futures as cf
-
         from keras_rs_tpu_torch.data import native_io
 
         use_native = native_io.available()
         keys = self._file_keys()
         B = self.global_batch_size
         pool = (
-            cf.ThreadPoolExecutor(max_workers=file_prefetch)
+            self._prefetch_pool(max(1, file_prefetch))
             if file_prefetch and len(self.files) > 1
             else None
         )
-        try:
-            for epoch in range(epochs):
-                # The same file order for a given seed and epoch.
-                rng = np.random.default_rng(self.shuffle_seed + epoch)
-                files = list(self.files)
-                rng.shuffle(files)
-                if pool is not None:
-                    sources = _ordered_prefetch(
-                        pool,
-                        files,
-                        lambda p: self._parse_file_arrays(
-                            p, keys, use_native
-                        ),
-                        depth=file_prefetch,
-                    )
-                else:
-                    sources = (
-                        self._parse_file_arrays(p, keys, use_native)
-                        for p in files
-                    )
-                # Carry of column arrays across file boundaries. Only
-                # the BOUNDARY batch is assembled by concatenation —
-                # concatenating the pending tail with the whole next
-                # file would copy every column of every file once more.
-                pending: dict[str, np.ndarray] | None = None
-                for file_arrays in sources:
-                    if file_arrays is None:
-                        continue
-                    lo = 0
-                    n_rows = len(file_arrays["label"])
-                    if pending is not None:
-                        need = B - len(pending["label"])
-                        if n_rows < need:
-                            pending = {
-                                k: np.concatenate(
-                                    [pending[k], file_arrays[k]]
-                                )
-                                for k in file_arrays
-                            }
-                            continue
-                        yield self._host_shard({
+        for epoch in range(epochs):
+            # The same file order for a given seed and epoch.
+            rng = np.random.default_rng(self.shuffle_seed + epoch)
+            files = list(self.files)
+            rng.shuffle(files)
+            if pool is not None:
+                sources = _ordered_prefetch(
+                    pool,
+                    files,
+                    lambda p: self._parse_file_arrays(
+                        p, keys, use_native
+                    ),
+                    depth=file_prefetch,
+                )
+            else:
+                sources = (
+                    self._parse_file_arrays(p, keys, use_native)
+                    for p in files
+                )
+            # Carry of column arrays across file boundaries. Only
+            # the BOUNDARY batch is assembled by concatenation —
+            # concatenating the pending tail with the whole next
+            # file would copy every column of every file once more.
+            pending: dict[str, np.ndarray] | None = None
+            for file_arrays in sources:
+                if file_arrays is None:
+                    continue
+                lo = 0
+                n_rows = len(file_arrays["label"])
+                if pending is not None:
+                    need = B - len(pending["label"])
+                    if n_rows < need:
+                        pending = {
                             k: np.concatenate(
-                                [pending[k], file_arrays[k][:need]]
+                                [pending[k], file_arrays[k]]
                             )
                             for k in file_arrays
-                        })
-                        lo = need
-                        pending = None
-                    while n_rows - lo >= B:
-                        yield self._host_shard({
-                            k: v[lo : lo + B]
-                            for k, v in file_arrays.items()
-                        })
-                        lo += B
-                    pending = (
-                        {k: v[lo:] for k, v in file_arrays.items()}
-                        if lo < n_rows
-                        else None
-                    )
-        finally:
-            # Parses in flight when the consumer stops are dropped.
-            if pool is not None:
-                pool.shutdown(wait=False, cancel_futures=True)
+                        }
+                        continue
+                    yield self._host_shard({
+                        k: np.concatenate(
+                            [pending[k], file_arrays[k][:need]]
+                        )
+                        for k in file_arrays
+                    })
+                    lo = need
+                    pending = None
+                while n_rows - lo >= B:
+                    yield self._host_shard({
+                        k: v[lo : lo + B]
+                        for k, v in file_arrays.items()
+                    })
+                    lo += B
+                pending = (
+                    {k: v[lo:] for k, v in file_arrays.items()}
+                    if lo < n_rows
+                    else None
+                )
+
+    def _prefetch_pool(self, workers: int):
+        """The dataset's prefetch executor, kept across `batches()`
+        calls: a new executor per epoch gives every epoch new threads,
+        whose new glibc arenas and empty native_io buffers pay the
+        page-fault storm again. Parses in flight when a consumer stops
+        finish into private arrays and are dropped. `close()` ends it."""
+        import concurrent.futures as cf
+
+        if self._pool is None or self._pool_workers < workers:
+            if self._pool is not None:
+                self._pool.shutdown(wait=False)
+            self._pool = cf.ThreadPoolExecutor(max_workers=workers)
+            self._pool_workers = workers
+        return self._pool
+
+    def close(self) -> None:
+        """Shuts the prefetch executor down (parses not yet started are
+        cancelled); a later `batches()` starts a new one."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+            self._pool_workers = 0
 
     def _columns_to_arrays(
         self, cols: dict[str, tuple[int, np.ndarray]]
@@ -422,7 +503,9 @@ class CriteoDataset:
         def reinterpret(key: str, dtype: str) -> np.ndarray:
             kind, arr = cols[key]
             if kind == 0:  # decode_raw bytes
-                return np.ascontiguousarray(arr).view(dtype)
+                from keras_rs_tpu_torch.data import native_io
+
+                return native_io.fast_contig(arr).view(dtype)
             return arr
 
         dense = reinterpret(self.dense_key, "<f4")[:, :NUM_DENSE]

@@ -10,10 +10,11 @@ raw ids:
 It computes the same arrays as the numpy and C++ backends, bit for bit:
 the same bucket layout, the same stable entry order (bucket-major, slot
 ascending, then original order), the same dedup and sink contracts, the
-same drops when a capacity overflows. All-sum stacks (every DLRM stack)
-never divide, so their gains are exact too; the combiner divisors of mean
-and sqrtn stacks are sums taken with `index_add_`, whose float atomics on
-CUDA may add in another order than numpy (a few ulp).
+same drops when a capacity overflows, and the same float gains: the
+combiner divisors of mean and sqrtn stacks are summed in numpy's order
+(each segment's entries in valence order, no atomics), so they and the
+gains they divide equal numpy's bit for bit on the CPU and on CUDA.
+All-sum stacks (every DLRM stack) never divide.
 
 Every shape is static (set by the stack's capacities, not by the data),
 and no step reads a value back to the host: there is no `bincount`,
@@ -156,21 +157,27 @@ def preprocess_stack_device(
         divisors = torch.ones((n_src, S_l), dtype=torch.float32,
                               device=device)
     else:
-        div_idx = torch.where(valid, d * S_l + seg, n_src * S_l)
-        sums = torch.zeros((2, n_src * S_l + 1), dtype=torch.float32,
-                           device=device)
-        sums[0].index_add_(0, div_idx, gain)
-        sums[1].index_add_(0, div_idx, gain * gain)
-        sum_g, sum_g2 = sums[:, : n_src * S_l].reshape(2, n_src, Bl, F)
+        # A segment is one (sample, feature): the numpy path's np.add.at
+        # sums its kept entries one by one in valence order. Summing the
+        # valence columns in that order, with the dropped entries at an
+        # exact 0.0, gives the same f32 sums bit for bit (no atomics).
         divisors = torch.ones((n_src, Bl, F), dtype=torch.float32,
                               device=device)
-        for fspec in stack.features:
+        for fspec, g in zip(stack.features, gains):
             combiner = stack.table_spec(fspec.table_name).combiner
-            f = fspec.feature_index
-            if combiner == "mean":
-                divisors[:, :, f] = sum_g[:, :, f]
-            elif combiner == "sqrtn":
-                divisors[:, :, f] = torch.sqrt(sum_g2[:, :, f])
+            if combiner == "sum":
+                continue
+            g = g.view(n_in, -1)
+            if combiner == "sqrtn":
+                g = g * g
+            acc = g[:, 0]
+            for j in range(1, g.shape[1]):
+                acc = acc + g[:, j]
+            if combiner == "sqrtn":
+                # In f64, then rounded: correctly rounded as np.sqrt is
+                # (torch's f32 sqrt on an AVX-512 CPU is not).
+                acc = torch.sqrt(acc.double()).float()
+            divisors[:, :, fspec.feature_index] = acc.view(n_src, Bl)
         divisors = torch.where(divisors == 0, 1.0, divisors).view(n_src,
                                                                   S_l)
 

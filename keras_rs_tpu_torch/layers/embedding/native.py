@@ -62,6 +62,14 @@ def get_lib() -> ctypes.CDLL | None:
             _I64P,                            # stats [3]
         ]
         _lib = lib
+        # At DLRM valence the per-batch output buffers are several MB
+        # each: keep them on the reusable heap, as the file reader's
+        # columns are (idempotent; KRT_MALLOC_TUNING=0 opts out).
+        from keras_rs_tpu_torch.data.native_io import (
+            tune_malloc_for_large_columns,
+        )
+
+        tune_malloc_for_large_columns()
         return _lib
 
 

@@ -67,11 +67,22 @@ def chunked_topk_mips(
     if k > N:
         raise ValueError(f"k={k} > num candidates {N}")
     chunk = round_up(min(max(chunk_size, k), round_up(N, 128)), 128)
+    q = queries.float()
+    neg = torch.finfo(torch.float32).min
     best_s = best_i = None
     for start in range(0, N, chunk):
-        block = candidates[start : start + chunk]
-        scores = torch.matmul(queries.float(), block.float().T)
-        s, i = top_k(scores, min(k, block.shape[0]))
+        block = candidates[start : start + chunk].float()
+        n = block.shape[0]
+        if n < chunk:
+            # The reference's padding: every product has the chunk's
+            # width (a narrower one may round differently), and the
+            # padded columns are masked out of the selection.
+            block = torch.cat([block, block.new_zeros(chunk - n,
+                                                      block.shape[1])])
+        scores = torch.matmul(q, block.T)
+        if n < chunk:
+            scores[:, n:] = neg
+        s, i = top_k(scores, k)
         i = i + start
         if best_s is None:
             best_s, best_i = s, i

@@ -5,12 +5,14 @@ path, on every case of tests/test_device_preprocessing.py, and one DLRM
 training step from raw ids against the JAX model's device-preprocessing
 step.
 
-Bounds: integer arrays and stats bit-exact; send_gains, fwd_gains and
-divisors within rtol 1e-6 where a stack has a mean or sqrtn combiner
-(the divisors are sums, which the port takes with index_add_: on CUDA its
-float atomics may add in another order), and bit-exact for all-sum stacks,
-which never divide. DLRM step losses and tables within 1e-5 (f32 dense
-stack), as tests/test_torch_dlrm.py holds the host path.
+Bounds: against the port's numpy path every array and stat bit-exact
+(the device transform sums the mean and sqrtn divisors in numpy's
+order). Against the JAX device transform: integer arrays and stats
+bit-exact; send_gains, fwd_gains and divisors within rtol 1e-6 where a
+stack has a mean or sqrtn combiner (XLA's segment sums add in another
+order), and bit-exact for all-sum stacks, which never divide. DLRM step
+losses and tables within 1e-5 (f32 dense stack), as
+tests/test_torch_dlrm.py holds the host path.
 """
 
 import warnings
@@ -109,7 +111,7 @@ def _check(stacks, inputs, weights):
                            ("jax", np.asarray(jdev[k]))):
             assert v.dtype == want.dtype, (k, name)
             assert v.shape == want.shape, (k, name)
-            if k in INT_KEYS or all_sum:
+            if k in INT_KEYS or all_sum or name == "numpy":
                 np.testing.assert_array_equal(v, want,
                                               err_msg=f"{k} vs {name}")
             else:
@@ -199,6 +201,33 @@ def test_empty_shard_dedup_matches_host():
     dev, _ = preprocess_stack_device(
         stack, {k: torch.from_numpy(v) for k, v in inputs.items()})
     assert bool((dev.unique_slots[1] == stack.sink_slot).all())
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_mean_sqrtn_valence_64_bit_exact_against_numpy(D):
+    """Criteo-like valence with weights and invalid ids: the divisors
+    are sums of 64 gains (or of their squares) per segment, and the
+    device transform takes them, and the gains they divide, bit for bit
+    as the numpy path does, at one shard and at two."""
+    stack = _make_stacks(num_shards=D, batch=16,
+                         combiners=("mean", "sqrtn"), vocabs=(997, 613),
+                         max_ids=2048, max_unique=1024, valence=64)[0]
+    inputs, weights = _rand_inputs(stack, seed=11, valence=64)
+    f0 = stack.features[0].name
+    inputs[f0][2, :5] = -1
+    host, hstats = preprocessing.preprocess_stack(stack, inputs, weights,
+                                                  backend="numpy")
+    dev, dstats = preprocess_stack_device(
+        stack, {k: torch.from_numpy(v) for k, v in inputs.items()},
+        {k: torch.from_numpy(v) for k, v in weights.items()})
+    assert not (host.divisors == 1.0).all()
+    for k, want in host.arrays().items():
+        got = dev.arrays()[k].numpy()
+        assert got.dtype == want.dtype, k
+        np.testing.assert_array_equal(got, want, err_msg=k)
+    for field in ("max_ids_per_bucket", "max_unique_per_shard",
+                  "dropped_ids"):
+        assert int(getattr(dstats, field)) == getattr(hstats, field)
 
 
 @pytest.mark.parametrize("case", range(8))

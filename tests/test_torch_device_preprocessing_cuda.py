@@ -8,8 +8,9 @@ a CUDA device; imports no JAX:
         tests/test_torch_device_preprocessing_cuda.py
 
 Bounds: integer arrays and stats bit-exact; gains and divisors bit-exact
-for all-sum stacks, rtol 1e-6 for mean / sqrtn (index_add_'s float
-atomics add in another order than numpy).
+for all-sum stacks, rtol 1e-6 for mean / sqrtn in the mixed cases, and
+bit-exact for the mean / sqrtn stack at Criteo-like valence (the
+divisors are summed in numpy's order, without atomics).
 """
 
 import warnings
@@ -103,6 +104,41 @@ def test_device_transform_matches_numpy_without_syncs(cuda, case):
         else:
             np.testing.assert_allclose(v, want, rtol=1e-6, err_msg=k)
     assert preprocessing.InputStats(*(int(x) for x in stats)) == hstats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4])
+def test_mean_sqrtn_divisors_and_gains_bit_exact(cuda, D):
+    """A weighted mean and sqrtn stack at valence 64: the divisors and
+    the gains they divide equal numpy's bit for bit on the card."""
+    batch = 256
+    tables = [TableConfig(f"t{i}", v, 16, optimizer="sgd", combiner=c,
+                          max_ids_per_partition=batch * 128,
+                          max_unique_ids_per_partition=batch * 128)
+              for i, (v, c) in enumerate(((40_000, "mean"),
+                                          (9_000, "sqrtn")))]
+    fcs = [FeatureConfig(f"f{i}", t, (batch, 64), (batch, 16))
+           for i, t in enumerate(tables)]
+    (stack,) = build_stacks(fcs, D)
+    rng = np.random.default_rng(7)
+    inputs, weights = {}, {}
+    for f, t in zip(fcs, tables):
+        inputs[f.name] = rng.integers(-2, t.vocabulary_size + 2,
+                                      size=(batch, 64))
+        w = rng.uniform(0.1, 3.0, size=(batch, 64)).astype(np.float32)
+        w[rng.random(w.shape) < 0.1] = 0.0
+        weights[f.name] = w
+    host, _ = preprocessing.preprocess_stack(stack, inputs, weights,
+                                             backend="numpy")
+    coo, _ = preprocess_stack_device(
+        stack, {k: torch.from_numpy(v).to(cuda) for k, v in inputs.items()},
+        {k: torch.from_numpy(v).to(cuda) for k, v in weights.items()})
+    got = coo.arrays()
+    assert got.keys() == host.arrays().keys()
+    for k, want in host.arrays().items():
+        if k in ("divisors", "send_gains", "fwd_gains"):
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want,
+                                          err_msg=k)
 
 
 @pytest.mark.cuda

@@ -84,8 +84,11 @@ def test_gru_forward_and_gradients_match_jax(mask_name):
 
 def test_gru_masking_carries_state():
     """A mask that cuts the last steps gives the state after the prefix
-    (JAX tests/test_sequential_models.py), and a padded step leaves the
-    state bit for bit as it was."""
+    (JAX tests/test_sequential_models.py); a padded step leaves the
+    state bit for bit as it was, whatever the padded step holds; and a
+    sequence with holes gives the state of its real steps alone, within
+    the f32 rule (the input product is one matmul whose rounding may
+    depend on the number of steps)."""
     _, tgru = _gru_pair()
     x = torch.randn(2, 5, IN, generator=torch.Generator().manual_seed(1))
     mask = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 0, 0]],
@@ -95,8 +98,16 @@ def test_gru_masking_carries_state():
                                    tgru(x[:, :3], mask=mask[:, :3]).numpy(),
                                    rtol=1e-5)
         holes = torch.tensor([[1, 0, 1, 0, 0]], dtype=torch.float32)
+        padded = holes[0] == 0
+        h = tgru(x[:1], mask=holes)
+        big = 1e3 * torch.randn(1, 5, IN,
+                                generator=torch.Generator().manual_seed(2))
+        for filler in (torch.zeros_like(x[:1]), big):
+            refilled = torch.where(padded[None, :, None], filler, x[:1])
+            assert torch.equal(tgru(refilled, mask=holes), h)
         dense = torch.stack([x[0, 0], x[0, 2]])[None]
-        assert torch.equal(tgru(x[:1], mask=holes), tgru(dense))
+        np.testing.assert_allclose(h.numpy(), tgru(dense).numpy(),
+                                   rtol=1e-6, atol=1e-7)
 
 
 def test_gru_layout_and_init():

@@ -59,6 +59,25 @@ def test_chunked_equals_direct_and_jax(ties):
                                **TOL)
 
 
+@pytest.mark.parametrize("n", [129, 777, 1000])
+def test_chunked_ragged_n_with_ties(n):
+    """Ragged last chunks (1, 9 and 104 rows of 128) over tied rows: the
+    port pads each chunk to its width as the reference does, so a
+    duplicate scores alike in every chunk and the chunked top-k equals
+    the direct one and JAX's chunked result, ties included."""
+    queries, cand = _data(3, n=n, ties=True)
+    j_scores, j_idx = jtopk.chunked_topk_mips(jnp.asarray(queries),
+                                              jnp.asarray(cand), 9, 128)
+    t_scores, t_idx = ttopk.chunked_topk_mips(torch.from_numpy(queries),
+                                              torch.from_numpy(cand), 9, 128)
+    d_scores, d_idx = ttopk.top_k(
+        torch.from_numpy(queries) @ torch.from_numpy(cand).T, 9)
+    np.testing.assert_array_equal(t_idx.numpy(), d_idx.numpy())
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(t_scores.numpy(), d_scores.numpy(), **TOL)
+    assert int(t_idx.max()) < n
+
+
 def test_top_k_breaks_ties_by_lower_index():
     scores = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, 2.0]])
     values, idx = ttopk.top_k(scores, 4)

@@ -151,6 +151,44 @@ def test_rank_coo_equals_jax_global_row_and_column(ranks, D, weighted):
                           stats.max_unique_per_shard, stats.dropped_ids]
 
 
+def test_rank_coo_mean_sqrtn_valence_64_bit_exact(ranks):
+    """Each rank's transform of a mean and a sqrtn table at valence 64,
+    weighted (`shard=`, its B / D samples): its divisors and send gains
+    are row r of the port's numpy global transform and its received
+    gains column r, bit for bit."""
+    from keras_rs_tpu_torch.layers.embedding import preprocessing
+    from keras_rs_tpu_torch.layers.embedding.stacking import build_stacks
+
+    D = 2
+    tables = [dict(name="m", vocab=997, dim=16, combiner="mean",
+                   max_ids=1024, max_unique=1024),
+              dict(name="q", vocab=613, dim=16, combiner="sqrtn",
+                   max_ids=1024, max_unique=1024)]
+    features = [dict(name=t["name"] + "f", table=t["name"],
+                     input_shape=(B, 64), output_shape=(B, 16))
+                for t in tables]
+    vocab = {t["name"]: t["vocab"] for t in tables}
+    inputs = inputs_of(features, seed=5, vocab=vocab)
+    weights = weights_of(features, seed=6)
+    got = ranks(D).run("coo_case", tables=tables, features=features,
+                       inputs=inputs, weights=weights)
+    stacks = build_stacks(
+        list(workers.feature_configs(tables, features).values()), D)
+    for stack in stacks:
+        coo, _ = preprocessing.preprocess_stack(
+            stack, {f.name: inputs[f.name] for f in stack.features},
+            {f.name: weights[f.name] for f in stack.features},
+            backend="numpy")
+        for r in range(D):
+            mine = got[r][stack.name]
+            np.testing.assert_array_equal(mine["divisors"][0],
+                                          coo.divisors[r])
+            np.testing.assert_array_equal(mine["send_gains"][0],
+                                          coo.send_gains[r])
+            np.testing.assert_array_equal(mine["recv_gains"],
+                                          coo.send_gains[:, r])
+
+
 def _jax_train(layer, batch, steps):
     opt = optax.sgd(0.1)
     state = jax_training.create_train_state(layer, opt)
