@@ -68,6 +68,12 @@ from --seed:
     six walkthrough examples (basic_ranking, basic_retrieval,
     listwise_ranking, multi_task, deep_recommender, sas_rec) at their
     default sizes, which reach no kernel.
+  * the benchmark entry point (keras_rs_tpu_torch/bench.py, the port of
+    the repository's bench.py: bench.py's DLRM-DCNv2 widths, batch
+    8,192): ours (device COO, stacked lookup, B1), the dense-only step,
+    the naive dense-table baseline, the pipelined step and the flagship
+    valence (the Criteo multi-hot mix at a 1M cap, B1), and the bf16 +
+    row-wise Adagrad mix (B3).
   * the sharded embedding at D = 2 (parallel/, DistributedEmbedding over
     a mesh of ranks): two spawned ranks on cuda:0 joined by gloo (NCCL
     refuses two ranks on one device), each with its shard of the tables,
@@ -286,7 +292,24 @@ Phases (any failure raises, so the exit code is not 0):
                    resume (smoke_test: 6 steps with checkpoint_every 3,
                    then a rerun to 9 that logs "resumed from checkpoint
                    step 6", finite losses).
- 33. probe         two ranks on cuda:0 in one gloo group: each
+ 32b. bench        the benchmark entry point (keras_rs_tpu_torch/bench.py)
+                   at its default shape (batch 8,192, vocabularies 4M,
+                   2M, 2,000, 500, dim 128): one untimed step each of
+                   ours, of the pipelined variant and of the flagship
+                   variant (the Criteo mix at the 1M cap), with every B1
+                   call held to its plain version at phase 2's bound;
+                   bench.main() in this process with the pipelined and
+                   flagship variants (ours, dense-only, naive,
+                   pipelined, flagship), B1 counted to the step and no
+                   other kernel; its JSON line has every key, no error
+                   field, value > 0, mfu_dense and embedding_floor_frac
+                   in (0, 1], the floor at most 1.05 x embedding_ms
+                   before rounding and the flagship's floor below its
+                   step. Then one untimed step of the bf16 + row-wise
+                   Adagrad mix with every B3 call held bit for bit, and
+                   bench.main() in that mix without naive and flagship
+                   (B3 counted, no other kernel);
+ 33. probe        two ranks on cuda:0 in one gloo group: each
                    collective of parallel/collectives.py on CUDA tensors
                    of the types the path gives it, checked; one that
                    gloo does not carry, or carries wrong, fails;
@@ -333,7 +356,7 @@ just after it (B1 from the packed path and from phase 34's entry point
 on both ranks, B2 from f32 + Adam, B3 from capacity mode and from phase
 35 on both ranks, B4 from bf16 + Adagrad, B5-B7 from SASRec; the parts
 are printed on `[launches]` lines). The ml_perf path's counts (phases 16
-and 17b) and those of phases 30-32 are checked and printed on their own
+and 17b) and those of phases 30-32b are checked and printed on their own
 lines.
 
 Output: progress lines, then the card's name and power limit
@@ -359,7 +382,6 @@ import os
 import re
 import statistics
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -408,13 +430,6 @@ FLASH_REPLACES = {
     "flash_attention_bwd_dq": "keras_rs_tpu/ops/flash_attention.py:85",
     "flash_attention_bwd_dkv": "keras_rs_tpu/ops/flash_attention.py:116",
 }
-# H100 SXM published peaks: HBM bytes/s, and FLOP/s by input type. bf16
-# runs on the tensor cores at 989 TFLOP/s. f32 inputs: B5-B7 run each
-# product as three TF32 tensor-core products (big*big + big*small +
-# small*big, to stay within 1e-5 of f32 math), so their rate is the TF32
-# peak over three, 495 / 3 = 165 TFLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 165e12, "bfloat16": 989e12}
 
 
 def log(msg: str) -> None:
@@ -423,15 +438,6 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -545,6 +551,7 @@ def phase_kernel(unique_slots, sink: int, seed: int) -> dict:
 
     from keras_rs_tpu_torch.layers.embedding import optimizers
     from keras_rs_tpu_torch.ops import row_ops
+    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S
 
     dev = unique_slots.device
     n = unique_slots.shape[0]
@@ -648,6 +655,7 @@ def phase_scatter_kernel(name: str, shapes, unique_slots, sink: int,
     import torch
 
     from keras_rs_tpu_torch.ops import row_ops
+    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S
 
     dev = unique_slots.device
     n = unique_slots.shape[0]
@@ -875,6 +883,8 @@ def profile_steps(step, batch, steps: int = 3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from keras_rs_tpu_torch.utils.timing import device_ms
+
     step(batch)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -886,21 +896,6 @@ def profile_steps(step, batch, steps: int = 3):
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
     avgs = prof.key_averages()
     return avgs, wall_ms, device_ms(avgs) / steps
-
-
-def device_ms(avgs) -> float:
-    """The device time (ms) of a profile's kernel and copy rows."""
-    import torch
-
-    cpu = torch.autograd.DeviceType.CPU
-    # Operator rows also carry the device time of the kernels they
-    # launch: only the kernel rows are summed for the total. A labelled
-    # range (record_function) has a CPU row and a device-timeline twin of
-    # the same name, which spans the range's kernels and the gaps between
-    # them: the twin is no kernel.
-    cpu_keys = {e.key for e in avgs if e.device_type == cpu}
-    return sum(e.self_device_time_total for e in avgs
-               if e.device_type != cpu and e.key not in cpu_keys) / 1e3
 
 
 def phase_profile(label: str, step, batch, parts, steps: int = 3,
@@ -1293,6 +1288,8 @@ def flash_bound(name: str, B: int, T: int, H: int, hd: int, dtype: str,
     inputs: products over the (query, key) pairs this data needs (causal,
     real keys only), each input read once and each output written once."""
     import torch
+
+    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S, PEAK_FLOPS
 
     pairs = H * int(mask.to(torch.int64).cumsum(dim=1).sum())
     n = B * T * H * hd
@@ -1901,6 +1898,7 @@ def time_combiner_transform(seed: int) -> tuple[list[float], float, int]:
     from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
         preprocess_stack_device,
     )
+    from keras_rs_tpu_torch.utils.timing import device_ms
 
     stack, inputs, weights = combiner_batch(seed)
     dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
@@ -1939,6 +1937,7 @@ def coo_combiners(seed: int) -> None:
     from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
         preprocess_stack_device,
     )
+    from keras_rs_tpu_torch.utils.timing import card_line
 
     stack, inputs, weights = combiner_batch(seed)
     n_ids = sum(v.size for v in inputs.values())
@@ -1977,7 +1976,7 @@ def coo_combiners(seed: int) -> None:
     del coo, dev_in, dev_w
     torch.cuda.empty_cache()
     log(f"[coo] mean / sum / sqrtn stack: "
-        f"{combiner_timing(seed, nvidia_smi_line())}")
+        f"{combiner_timing(seed, card_line())}")
 
 
 def combiner_timing(seed: int, card: str) -> str:
@@ -2220,6 +2219,7 @@ def main_profile_window():
     from torch.profiler import ProfilerActivity, profile
 
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.utils.timing import device_ms
 
     window: dict = {}
     start, stop = mlperf.start_profiler, mlperf.stop_profiler
@@ -2281,6 +2281,7 @@ def phase_reader(pattern: str, paths: list) -> None:
     examples/s and GB/s of the fixed and the generic path at 1 and 4
     prefetch workers, in turns (fixed, generic, generic, fixed)."""
     from keras_rs_tpu_torch.data import native_io
+    from keras_rs_tpu_torch.utils.timing import card_line
 
     nbytes = sum(os.path.getsize(p) for p in paths)
     fixed_ds = file_dataset(pattern)
@@ -2314,7 +2315,7 @@ def phase_reader(pattern: str, paths: list) -> None:
             rates.setdefault((name, workers), []).append(s)
     fixed_ds.close()
     generic_ds.close()
-    card = nvidia_smi_line()
+    card = card_line()
     parts = []
     for (name, workers), times in rates.items():
         s = min(times)
@@ -2350,6 +2351,7 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
     from keras_rs_tpu_torch.data.criteo import write_batched_criteo_files
     from keras_rs_tpu_torch.examples.ml_perf import configs
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
+    from keras_rs_tpu_torch.utils.timing import card_line
 
     if not native_io.available():
         fail("mlperf files: the native TFRecord reader does not build")
@@ -2432,7 +2434,7 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
             fail(f"mlperf files: main's profile window did not close: "
                  f"{window}")
         step_ms = BATCH / r["throughput"] * 1e3
-        card = nvidia_smi_line()
+        card = card_line()
         log(f"[mlperf files] ({card}) end to end {r['throughput']:.0f} "
             f"examples/s from files ({step_ms!r} ms per step over "
             f"{FILE_STEPS - 10} timed steps; peak device memory "
@@ -3349,6 +3351,7 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
     import torch
 
     from keras_rs_tpu_torch import serving
+    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S, card_line
 
     dev = torch.device("cuda", 0)
     emb = model.embedding_layer
@@ -3367,7 +3370,7 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
     state_bytes = sum(t.numel() * t.element_size()
                       for n, t in emb.named_buffers()
                       if n.startswith("stack"))
-    card = nvidia_smi_line()
+    card = card_line()
     acts, logits, bound = {}, {}, None
     for q in QUANTIZE:
         torch.cuda.synchronize()
@@ -3513,6 +3516,8 @@ def phase_capacity_serve(model, cfg, seed: int) -> None:
 
     import torch
 
+    from keras_rs_tpu_torch.utils.timing import card_line
+
     dev = torch.device("cuda", 0)
     emb = model.embedding_layer
     rng = np.random.default_rng(seed + 600)
@@ -3539,7 +3544,7 @@ def phase_capacity_serve(model, cfg, seed: int) -> None:
     peak = torch.cuda.max_memory_allocated()
     if peak >= total:
         fail(f"capacity serve: freeze peak {peak} B over the card's {total}")
-    log(f"[capacity serve] ({nvidia_smi_line()}) freeze(quantize='int8') of "
+    log(f"[capacity serve] ({card_line()}) freeze(quantize='int8') of "
         f"{sum(er.input_dim for er in frozen.table_reducers)} rows in "
         f"{freeze_s:.2f} s: {module_bytes(frozen)} B "
         f"({module_bytes(frozen) / 1e9:.2f} GB) of int8 tables and scales; peak device memory {peak / 1e9:.2f} "
@@ -4987,6 +4992,154 @@ def run_walkthroughs(dev) -> None:
              f"kernel per step and stack ({rerun_to * n_stacks})")
 
 
+# --- phase 32b: the benchmark entry point --------------------------------
+
+#: bench.py's keys, and those of its pipelined and flagship variants.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms",
+              "dense_ms", "embedding_floor_ms", "mfu_dense", "embedding_ms",
+              "embedding_floor_frac")
+BENCH_PIPELINED_KEYS = ("pipelined_examples_per_sec", "pipelined_step_ms")
+BENCH_FLAGSHIP_KEYS = ("flagship_examples_per_sec", "flagship_step_ms",
+                       "flagship_entries_per_batch", "flagship_unique_rows",
+                       "flagship_embedding_floor_ms")
+#: The bf16 + row-wise Adagrad mix (kernel B3), without the naive and
+#: flagship runs.
+BENCH_CAPACITY_ENV = {"BENCH_TABLE_DTYPE": "bfloat16",
+                      "BENCH_EMB_OPTIMIZER": "rowwise_adagrad",
+                      "BENCH_SKIP_NAIVE": "1", "BENCH_FLAGSHIP": "0"}
+
+
+def bench_line(label: str, env: dict, keys, expect: dict) -> dict:
+    """keras_rs_tpu_torch.bench.main() in this process under `env`, its
+    launch counts zeroed just before and read just after (they must
+    equal `expect`); its stdout kept, its last line parsed and checked.
+    bench.py reads its knobs from os.environ."""
+    import io
+    from unittest import mock
+
+    from keras_rs_tpu_torch import bench
+
+    out = io.StringIO()
+    reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.dict(os.environ, env), contextlib.redirect_stdout(out):
+        bench.main()
+    seconds = time.perf_counter() - t
+    counts = launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[bench {label}] {line}")
+    result = json.loads(lines[-1])
+    log(f"[bench {label}] {json.dumps(result)} ({seconds:.1f} s)")
+    log(f"[launches] phase 32b bench, {label}: {counts}")
+    if counts != expect:
+        fail(f"bench {label}: launches {counts}, expected {expect}")
+    missing = [k for k in keys if k not in result]
+    errors = {k: v for k, v in result.items()
+              if k == "error" or k.endswith("_error")}
+    if missing or errors:
+        fail(f"bench {label}: missing keys {missing}, errors {errors}")
+    if not result["value"] > 0:
+        fail(f"bench {label}: value {result['value']}")
+    for k in ("mfu_dense", "embedding_floor_frac"):
+        v = result[k]
+        if not (isinstance(v, (int, float)) and 0 < v <= 1):
+            fail(f"bench {label}: {k} {v} outside (0, 1]")
+    # embedding_floor_frac is clamped to 1: a floor that counts too many
+    # bytes shows only in the raw ratio.
+    ratio = result["embedding_floor_ms"] / result["embedding_ms"]
+    if ratio > 1.05:
+        fail(f"bench {label}: embedding_floor_ms / embedding_ms = {ratio}")
+    if ("flagship_step_ms" in result and not result[
+            "flagship_embedding_floor_ms"] < result["flagship_step_ms"]):
+        fail(f"bench {label}: the flagship's floor "
+             f"{result['flagship_embedding_floor_ms']} ms is not below its "
+             f"step {result['flagship_step_ms']} ms")
+    return result
+
+
+def run_bench(dev) -> None:
+    """Phase 32b: the benchmark entry point, each kernel's calls in one
+    untimed step of every model bench.main() times with it (ours,
+    pipelined and flagship for B1; ours in the bf16 + row-wise Adagrad
+    mix for B3) held to the plain version at the shapes main gives it,
+    then bench.main() in the packed f32 + Adagrad mix with its pipelined
+    and flagship variants, and in the bf16 + row-wise Adagrad mix."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    from keras_rs_tpu_torch import bench
+    from keras_rs_tpu_torch.utils.timing import card_line
+
+    iters = int(os.environ.get("BENCH_ITERS", 20))
+    blocks = int(os.environ.get("BENCH_BLOCKS", 5))
+    ours = iters * (blocks + 1) + iters  # timed blocks + the busy block
+    expect = {k: 0 for k in launch_counts()}
+
+    def held_step(label: str, env: dict, make, held, check) -> None:
+        """One step of the model `make()` builds under `env`, the
+        kernel's calls held by `held`."""
+        with mock.patch.dict(os.environ, env):
+            step, batch = make()
+        with held() as calls:
+            step(batch)
+        torch.cuda.synchronize()
+        got = check(calls)
+        log(f"[bench held] {label}: {got}")
+        del step, batch, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def make_ours():
+        return bench.build("sharded", 8192, 4_000_000, 128, device=dev)[1:3]
+
+    def make_pipelined():
+        return bench.build_pipelined(8192, 4_000_000, 128, device=dev)
+
+    def make_flagship():
+        fv, fm, _, max_u = bench.flagship_shape(8192)
+        return bench.build("sharded", 8192, 4_000_000, 128, vocab_sizes=fv,
+                           multi_hot_sizes=fm, max_unique=max_u,
+                           device=dev)[1:3]
+
+    def b1_check(calls):
+        if len(calls) != 1 or any(bool(c["bad"]) for c in calls):
+            fail(f"bench: B1 calls of one step against the plain version: "
+                 f"{calls}")
+        return (f"{len(calls)} B1 call, max_abs_err "
+                f"{[float(c['err']) for c in calls]} (phase 2's bound)")
+
+    def b3_check(calls):
+        differing = [int(c) for c in calls]
+        if len(differing) != 1 or any(differing):
+            fail(f"bench: B3 calls of one step against the plain version: "
+                 f"elements differing {differing}")
+        return f"{len(differing)} B3 call, elements differing {differing}"
+
+    t0 = time.perf_counter()
+    for label, make in (("packed f32 + Adagrad", make_ours),
+                        ("pipelined", make_pipelined),
+                        ("flagship", make_flagship)):
+        held_step(label, {}, make, b1_held_to_plain, b1_check)
+    piped = bench_line(
+        "packed f32 + Adagrad", {"BENCH_PIPELINE": "1"},
+        BENCH_KEYS + BENCH_PIPELINED_KEYS + BENCH_FLAGSHIP_KEYS,
+        dict(expect, apply_scatter_row_blocks=(
+            ours + iters * (blocks + 1) + iters * (max(3, blocks - 2) + 1))))
+    held_step("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV, make_ours,
+              scatter_held_to_plain, b3_check)
+    capacity = bench_line("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV,
+                          BENCH_KEYS, dict(expect, scatter_rows=ours))
+    log(f"[bench] ({card_line()}) ours {piped['value']} examples/s "
+        f"({piped['step_ms']} ms), naive x{piped['vs_baseline']}, "
+        f"pipelined {piped['pipelined_step_ms']} ms, flagship "
+        f"{piped['flagship_step_ms']} ms; bf16 + row-wise "
+        f"{capacity['step_ms']} ms; phase 32b took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # --- phases 33-36: the sharded embedding over two ranks on one card ------
 
 SHARD_RANKS = 2
@@ -6170,6 +6323,8 @@ def run_sharded(seed: int) -> dict[str, int]:
     and 38), summed over the ranks."""
     import torch
 
+    from keras_rs_tpu_torch.utils.timing import card_line
+
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = Ranks(SHARD_RANKS)
@@ -6227,7 +6382,7 @@ def run_sharded(seed: int) -> dict[str, int]:
         f"of one f32 step {[c['f32_step_ms'] for c in coll]}; peak GB "
         f"{[r['peak_gb'] for r in ml]}; phases 33-36 took "
         f"{t1 - t0:.1f} s")
-    card = nvidia_smi_line()
+    card = card_line()
     log(f"[sharded] ({card}) pipelined D = {SHARD_RANKS}: device step ms "
         f"{[r['results']['device_step_ms'] for r in piped]}, end to end "
         f"examples/s {[r['results']['throughput'] for r in piped]}, peak GB "
@@ -6272,13 +6427,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    from keras_rs_tpu_torch.utils.timing import card_line
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this runs on a GPU only")
 
     # The ml_perf entry point logs its progress and results line.
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="[%(name)s] %(message)s", force=True)
-    card = nvidia_smi_line()
+    card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.cuda.set_device(torch.device("cuda", 0))
@@ -6323,6 +6480,8 @@ def main() -> int:
     run_walkthroughs(dev)
     log(f"[time] pipelined and walkthrough phases done at "
         f"{time.perf_counter() - t0:.1f} s")
+    run_bench(dev)
+    log(f"[time] bench phase done at {time.perf_counter() - t0:.1f} s")
     sharded = run_sharded(args.seed)
     for k in kernels:
         if k["name"] in sharded:

@@ -19,7 +19,6 @@ backward.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,13 +33,10 @@ def main() -> int:
 
     from keras_rs_tpu_torch.kernels import flash_compare
     from keras_rs_tpu_torch.layers.attention import MultiHeadSelfAttention
+    from keras_rs_tpu_torch.utils.timing import card_line
 
     lengths = [int(a) for a in sys.argv[1:]] or list(LENGTHS)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip(),
-        flush=True)
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     crossover = None

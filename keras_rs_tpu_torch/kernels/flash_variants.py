@@ -74,6 +74,7 @@ def main() -> int:
 
     from keras_rs_tpu_torch.kernels import flash_compare
     from keras_rs_tpu_torch.ops import flash_attention as fa
+    from keras_rs_tpu_torch.utils.timing import card_line
 
     variants = []
     for arg in sys.argv[1:]:
@@ -84,11 +85,7 @@ def main() -> int:
         return 2
     with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
         built = list(pool.map(build, variants))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip(),
-        flush=True)
+    print(card_line(), flush=True)
 
     dev = torch.device("cuda", 0)
     data = {label: flash_compare.make_inputs(*shape)

@@ -78,7 +78,7 @@ def test_port_imports_without_jax():
                  "parallel.collectives", "parallel.sharded_retrieval",
                  "parallel.dryrun", "examples.ann_retrieval",
                  "examples.data_parallel_retrieval", "version",
-                 "utils.doc_utils",
+                 "utils.doc_utils", "bench",
                  "utils.shape_utils"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
