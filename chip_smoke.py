@@ -145,8 +145,11 @@ Phases (any failure raises, so the exit code is not 0):
                    steps, the dummy eval (B1 once per step, no other
                    kernel); end-to-end examples/s and the device's idle
                    share; 16 steps in host mode (C++ engine, 4 loader
-                   threads); both modes' losses over the same 3 batches
-                   from the same weights, and the host syncs of one
+                   threads) from the config's 8,192 / 4,096, which its
+                   training passes grow (no id dropped); both modes'
+                   losses over the same 3 batches from the same weights
+                   (host mode grown, every B1 call of it held to the
+                   plain version), and the host syncs of one
                    device-mode step;
  17. auc           main("smoke_test", num_steps=300,
                    device_preprocessing=True): AUC > 0.60;
@@ -1994,9 +1997,16 @@ def run_mlperf(seed: int, profile: bool) -> dict:
     16,384), device preprocessing, learnable dummy batches: MLPERF_STEPS
     steps, the device step time over chained steps, the dummy eval. B1
     must launch once per step and no other kernel. Then host mode (C++
-    engine, 4 loader threads) for MLPERF_HOST_STEPS steps; then the two
-    modes' losses over the same 3 batches from the same weights, with
-    the syncs of one device-mode step counted, and the device's idle
+    engine, 4 loader threads) for MLPERF_HOST_STEPS steps, which starts
+    from the config's capacities (8,192 / 4,096) and grows them through
+    the model's `preprocess_host(batch, training=True)`: it prints the
+    grown capacities main returns and fails on a dropped id or on
+    capacities that did not grow to hold a batch; then the two modes'
+    losses over the same 3 batches from the same weights (the host
+    model, too, starts from the config's capacities and grows them in
+    its first `preprocess(batch, training=True)`; each of its B1 calls,
+    at the grown U, held to the plain version), with the syncs of one
+    device-mode step counted, and the device's idle
     share of main's loop: 1 - the device time of one whole device-mode
     step (torch.profiler's kernel and copy rows over 3 steps from the raw
     batch) / main's wall time per step. With `profile`, also the
@@ -2045,13 +2055,30 @@ def run_mlperf(seed: int, profile: bool) -> dict:
         f"({r['device_examples_per_sec']:.0f} examples/s on the device); "
         f"end to end {r['throughput']:.0f} examples/s ({step_ms!r} ms per "
         f"step of wall time over the {MLPERF_STEPS - 10} timed steps)")
+    cfg = configs.full_criteo(vocab_sizes=capped)
     rh = drive("host", MLPERF_HOST_STEPS, MLPERF_HOST_STEPS,
                num_loader_threads=4)
+    grown = [(name, c["max_ids_per_partition"], c["max_unique_ids_per_shard"])
+             for name, c in rh["capacities"].items()]
+    dropped = sum(c["dropped_ids"] for c in rh["capacities"].values())
+    n_ids = BATCH * sum(m for v, m in zip(cfg.vocab_sizes,
+                                          cfg.multi_hot_sizes)
+                        if v >= cfg.embedding_threshold)
+    log(f"[mlperf host] capacities grew from "
+        f"{cfg.max_ids_per_partition:,} / "
+        f"{cfg.max_unique_ids_per_partition:,} to {grown} (stack, "
+        f"max_ids_per_partition, max_unique_ids_per_shard) over "
+        f"{MLPERF_HOST_STEPS} steps on 4 loader threads; {n_ids:,} large "
+        f"ids per batch; {dropped} ids dropped")
+    if not grown or dropped or any(
+            c < n_ids or u <= cfg.max_unique_ids_per_partition
+            for _, c, u in grown):
+        fail(f"mlperf host: capacities {grown} for {n_ids} ids per batch, "
+             f"{dropped} ids dropped")
     log(f"[mlperf host] end to end {rh['throughput']:.0f} examples/s "
-        f"(C++ engine on 4 loader threads) against "
+        f"(C++ engine on 4 loader threads, grown capacities) against "
         f"{r['throughput']:.0f} with device preprocessing")
 
-    cfg = configs.full_criteo(vocab_sizes=capped)
     # The host's share of the loop: drawing a dummy batch (the loader
     # draws them one at a time, under its source lock) and copying the
     # raw batch to the card (the consuming thread).
@@ -2066,7 +2093,8 @@ def run_mlperf(seed: int, profile: bool) -> dict:
         draw_s.append(time.perf_counter() - t)
     losses = {}
     for device_preprocessing in (True, False):
-        model = mlperf.build_model(cfg, dev)
+        model = mlperf.build_model(cfg, dev,
+                                   grow=not device_preprocessing)
         step = make_train_step(
             model, mlperf.make_loss_fn(device_preprocessing),
             DenseAdagrad(model.parameters(), cfg.learning_rate))
@@ -2081,17 +2109,20 @@ def run_mlperf(seed: int, profile: bool) -> dict:
             out = []
             syncs = len(sync_sites(
                 lambda: out.append(whole_step(batches[0]))))
-            first = out[0]
             log(f"[mlperf syncs] one device-mode step (the copy of the "
                 f"raw batch, the transform, forward, backward, both "
                 f"optimizers): {syncs} host syncs")
+            losses[True] = [float(out[0])] + [
+                float(whole_step(b)) for b in batches[1:]]
         else:
             def whole_step(b, model=model, step=step):
-                return step(model.preprocess(b))
+                return step(model.preprocess(b, training=True))
 
-            first = whole_step(batches[0])
-        losses[device_preprocessing] = [float(first)] + [
-            float(whole_step(b)) for b in batches[1:]]
+            with b1_held_to_plain() as held:
+                losses[False] = [float(whole_step(b)) for b in batches]
+            host_caps = [(st.max_ids_per_partition,
+                          st.max_unique_ids_per_shard)
+                         for st in model.embedding_layer.stacks]
         if device_preprocessing:  # after the losses: it trains on
             _, _, busy_ms = profile_steps(
                 lambda b: step(model.to_device(b)), batches[0])
@@ -2115,6 +2146,16 @@ def run_mlperf(seed: int, profile: bool) -> dict:
         f"loop: {busy_ms!r} ms of kernels and copies per whole step "
         f"(profiler, 3 steps from the raw batch) against {step_ms!r} ms of "
         f"wall time per step")
+    if len(held) != len(batches) * len(host_caps) or any(
+            bool(h["bad"]) for h in held):
+        fail(f"mlperf host: {len(held)} B1 calls of the grown host model, "
+             f"errors against the plain version "
+             f"{[float(h['err']) for h in held]}")
+    log(f"[mlperf modes] the host model grew from the config's "
+        f"capacities to {host_caps}; its {len(held)} B1 calls held to the "
+        f"plain version: max_abs_err {[float(h['err']) for h in held]} "
+        f"over {[int(h['n_valid']) for h in held]} live rows of U = "
+        f"{[h['rows'] for h in held]}")
     diff = [abs(a - b) for a, b in zip(losses[True], losses[False])]
     log(f"[mlperf modes] losses device {losses[True]} host "
         f"{losses[False]}: differences {diff} (bound {MODE_LOSS_BOUND})")
@@ -3689,9 +3730,10 @@ def b1_held_to_plain():
     (apply_scatter_row_blocks_reference, uncounted, with the same
     optimizer, schedule included) on a copy of the blocks it updates,
     and compares the live blocks after the kernel with it at phase 2's
-    bound. Yields a list with one dict of 0-dim device tensors per call
-    (step, lr, err, bad), read once the steps are done: the check makes
-    no host read inside the step."""
+    bound. Yields a list with one dict per held call (0-dim device
+    tensors step, lr, err, bad, n_valid, and its rows U as an int), read
+    once the steps are done: the check makes no host read inside the
+    step."""
     import torch
 
     from keras_rs_tpu_torch.layers.embedding import lookup
@@ -3720,6 +3762,8 @@ def b1_held_to_plain():
             "err": torch.where(live, diff, 0.0).amax(),
             # Phase 2's bound: 4 f32 ulp relative, 1e-12 absolute.
             "bad": (live & (diff > 1e-12 + 4 * 2.0**-23 * want.abs())).any(),
+            "n_valid": n_valid.reshape(()).clone(),
+            "rows": n,
         })
         del rows, want, diff
         torch.cuda.set_sync_debug_mode(mode)
@@ -5358,6 +5402,7 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
         preprocess_stack_device,
     )
     from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
+    from keras_rs_tpu_torch.parallel import collectives
     from keras_rs_tpu_torch.parallel import mesh as mesh_lib
     from keras_rs_tpu_torch.training.train_state import (
         DenseAdagrad,
@@ -5535,7 +5580,9 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
     # batch: the loss's fall.
     step1, step2 = fit(ref), fit(m2, meshes[world])
     before1, before2 = state(ref), state(m2)
-    losses = {"d1": [float(step1(glob[0]))], "d2": [float(step2(loc[0]))]}
+    losses = {"d1": [float(step1(glob[0]))]}
+    with collectives.count_bytes() as step_bytes:
+        losses["d2"] = [float(step2(loc[0]))]
     after2 = state(m2)
     moved = delta_errs(before2, after2, before1, state(ref), None,
                        SHARD_STEP_L2)
@@ -5551,7 +5598,8 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
             {k: loc[0][k] for k in large}), d_rows)
     stepb = fit(mb, meshes[world])
     b_b = state(mb)
-    lb = [float(stepb(loc[0]))]
+    with collectives.count_bytes() as bf16_bytes:
+        lb = [float(stepb(loc[0]))]
     bf16 = delta_errs(b_b, state(mb), before2, after2, None, SHARD_BF16_L2)
     lb.append(float(stepb(loc[0])))
     del mb, stepb, b_b, before2, after2
@@ -5580,16 +5628,30 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
         fail(f"rank {rank}: the bf16 exchange's step against the f32 "
              f"one: {bf16}; f32 losses {loss2}")
     dense_params = sum(p.numel() for p in m2.parameters())
+    S_l = stack.local_batch_size * stack.num_features
+    C = stack.max_ids_per_partition
+    # The counter against the closed form of the port's weak-scaling tool
+    # (keras_rs_tpu_torch/tools/weak_scaling.py) at these shapes.
+    for label, got, wire in (("f32", step_bytes, 4), ("bf16", bf16_bytes, 2)):
+        want = {"all-to-all": world * 3 * C * 4,
+                "reduce-scatter": S_l * cfg.embedding_dim * wire,
+                "all-gather": world * S_l * cfg.embedding_dim * wire,
+                "all-reduce": (dense_params + 1) * 4, "broadcast": 0}
+        if got != want:
+            fail(f"rank {rank}: the {label} step's collective bytes {got}, "
+                 f"closed form {want}")
     out = {"ids": n_ids, "errs": errs, "cotangent": cotangent,
            "moved": moved, "losses": losses, "bf16": bf16,
-           "dense_params": dense_params, "S_l": stack.local_batch_size
-           * stack.num_features, "C": stack.max_ids_per_partition}
+           "dense_params": dense_params, "S_l": S_l, "C": C,
+           "bytes": {"f32": dict(step_bytes), "bf16": dict(bf16_bytes)}}
     rlog(rank, f"[compare] D = {world} against D = 1 at cap "
          f"{SHARD_COMPARE_CAP}, lr {SHARD_COMPARE_LR}: COO bit-exact "
          f"({n_ids} ids sent); forward max abs errors {errs}; the "
          f"cotangent's change of the tables against D = 1's {cotangent}; "
          f"the step's change against D = 1's {moved}; losses {losses}; "
-         f"bf16 exchange against f32 {bf16}")
+         f"bf16 exchange against f32 {bf16}; collective bytes of one "
+         f"training step, by kind: f32 {out['bytes']['f32']}, bf16 "
+         f"exchange {out['bytes']['bf16']}")
     del ref, m2, step1, step2, glob, loc, d_rows
     torch.cuda.empty_cache()
     return out
@@ -6376,13 +6438,18 @@ def run_sharded(seed: int) -> dict[str, int]:
         if len({tuple(r) for r in runs}) != 1:
             fail(f"ranks disagree on the {label} losses: {runs}")
     step_ms = [r["results"]["device_step_ms"] for r in ml]
+    card = card_line()
+    for label in ("f32", "bf16"):
+        log(f"[sharded] ({card}) collective bytes per rank of one "
+            f"full-width training step at D = {SHARD_RANKS}, {label} "
+            f"exchange (parallel/collectives.count_bytes): "
+            f"{[c['bytes'][label] for c in cmp]}")
     log(f"[sharded] D = {SHARD_RANKS} on one card, gloo: device step ms "
         f"{step_ms}; end to end examples/s "
         f"{[r['results']['throughput'] for r in ml]}; ms in the exchanges "
         f"of one f32 step {[c['f32_step_ms'] for c in coll]}; peak GB "
         f"{[r['peak_gb'] for r in ml]}; phases 33-36 took "
         f"{t1 - t0:.1f} s")
-    card = card_line()
     log(f"[sharded] ({card}) pipelined D = {SHARD_RANKS}: device step ms "
         f"{[r['results']['device_step_ms'] for r in piped]}, end to end "
         f"examples/s {[r['results']['throughput'] for r in piped]}, peak GB "

@@ -80,11 +80,16 @@ def load_params(
 ) -> None:
     """Copies `params` into every named parameter of `model` (all must be
     given, with matching shapes), `tables` into the model's
-    DistributedEmbedding layers and `states` into their stacks."""
+    DistributedEmbedding layers and `states` into their stacks. A value
+    of None is an array the JAX module holds as None, such as the bias
+    of a Dense built with use_bias=False: the port's module, built
+    alike, has no such parameter, and one that has it raises as
+    missing."""
     from keras_rs_tpu_torch.layers.embedding.distributed_embedding import (
         DistributedEmbedding,
     )
 
+    params = {k: v for k, v in params.items() if v is not None}
     named = dict(model.named_parameters())
     missing = set(named) - set(params)
     unknown = set(params) - set(named)

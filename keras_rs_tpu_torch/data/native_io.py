@@ -226,7 +226,7 @@ def _parse_raw(path: str, keys: list[str], pooled: bool = True):
 
 
 def parse_file_batched(
-    path: str, keys: list[str]
+    path: str, keys: list[str], copy_bytes: bool = False
 ) -> tuple[int, dict[str, tuple[int, np.ndarray]]] | None:
     """Whole-file COLUMN extraction for fixed-width schemas.
 
@@ -240,10 +240,11 @@ def parse_file_batched(
     per-row API).
 
     LIFETIME: float/int columns are private copies. BytesList (kind 0)
-    columns are row-strided VIEWS into the calling thread's pooled parse
-    buffer, valid only until that thread parses another file with the
-    same key set: a caller copies them out first, as data/criteo.py does
-    in the same worker call.
+    columns are, by default, row-strided VIEWS into the calling thread's
+    pooled parse buffer, valid only until that thread parses another
+    file with the same key set: a caller copies them out first, as
+    data/criteo.py does in the same worker call. `copy_bytes=True`
+    returns private kind-0 arrays instead.
     """
     n, buf, offsets, kinds = _parse_raw(path, keys)
     nk = len(keys)
@@ -270,6 +271,8 @@ def parse_file_batched(
             col = fast_contig(col).view("<f4")
         elif kind == 2:
             col = fast_contig(col).view("<i8")
+        elif copy_bytes:
+            col = fast_contig(col)
         out[key] = (kind, col)
         col_off += w
     return n, out

@@ -13,10 +13,20 @@ After training it evaluates streaming AUC and accuracy and logs the same
 
 On one device the large tables always go to the stacked engine
 (`table_placement="sharded"`; the JAX package's "auto" keeps them as
-dense tables on a one-device mesh and runs no COO path at all), and both
-modes take the worst-case capacities main.py:87-108 gives the device
-mode, where the JAX entry point's host mode takes the config's 8192 /
-4096 and grows them as batches overflow.
+dense tables on a one-device mesh and runs no COO path at all). Host
+mode builds the model with the config's capacities (8192 / 4096 in the
+MLPerf configs) and its loader threads preprocess with
+`preprocess_host(batch, training=True)`, as main.py:85-86,146-147 do:
+the embedding layer grows a stack's capacities when a batch overflows
+them and preprocesses that batch again, so no id is dropped (growth
+holds the layer's lock; a batch built before another thread's growth
+keeps its own shapes). The capacities then depend on which batch
+overflowed first, so with more than one loader thread they may differ
+from run to run, never falling. Device mode, and every rank at D > 1,
+takes the worst-case capacities main.py:87-108 gives the device mode
+(`capacities`): the device transform has static shapes and does not
+grow. At the end, `main` logs each stack's capacities and the ids the
+host mode dropped.
 
 Under torchrun (WORLD_SIZE > 1) every process is one rank of a 1-D mesh
 (parallel/): it holds its shard of the large tables, a replica of the
@@ -123,8 +133,14 @@ def capacities(cfg: ExperimentConfig, D: int = 1) -> tuple[int, int]:
     return max_ids, max_unique
 
 
-def model_config(cfg: ExperimentConfig, D: int = 1) -> DLRMConfig:
-    max_ids, max_unique = capacities(cfg, D)
+def model_config(cfg: ExperimentConfig, D: int = 1,
+                 grow: bool = False) -> DLRMConfig:
+    """The config's DLRMConfig over D shards: with `grow` (host mode)
+    the config's capacities, which training grows; else `capacities(cfg,
+    D)`, the worst case."""
+    max_ids, max_unique = (
+        (cfg.max_ids_per_partition, cfg.max_unique_ids_per_partition)
+        if grow else capacities(cfg, D))
     return DLRMConfig(
         vocab_sizes=cfg.vocab_sizes,
         multi_hot_sizes=cfg.multi_hot_sizes,
@@ -145,13 +161,14 @@ def model_config(cfg: ExperimentConfig, D: int = 1) -> DLRMConfig:
 
 
 def build_model(cfg: ExperimentConfig, device: torch.device,
-                mesh: mesh_lib.Mesh | None = None) -> DLRMDCNv2:
+                mesh: mesh_lib.Mesh | None = None,
+                grow: bool = False) -> DLRMDCNv2:
     """The config's model with its weights drawn from seed 0 (on every
     rank: the dense replicas start equal, and the logical tables are
-    those of one device)."""
+    those of one device); `grow` as in `model_config`."""
     D = 1 if mesh is None else mesh.size
     return DLRMDCNv2(
-        model_config(cfg, D),
+        model_config(cfg, D, grow),
         generator=torch.Generator(device=device).manual_seed(0),
         device=device,
         mesh=mesh,
@@ -213,6 +230,27 @@ def merge_metric(metric: Any, group) -> None:
                                   for t in state))
 
 
+def stack_capacities(model: DLRMDCNv2, grow: bool) -> dict[str, dict]:
+    """Each stack's capacities and, in host mode (`grow`), the ids its
+    training passes dropped (this process's folded stats; None in device
+    mode, which does not count them), logged and returned by stack
+    name."""
+    if model.embedding_layer is None:
+        return {}
+    stats = model.embedding_layer.input_stats
+    out = {}
+    for stack in model.embedding_layer.stacks:
+        st = stats.get(stack.name)
+        out[stack.name] = {
+            "max_ids_per_partition": stack.max_ids_per_partition,
+            "max_unique_ids_per_shard": stack.max_unique_ids_per_shard,
+            "dropped_ids": (None if not grow
+                            else 0 if st is None else st.dropped_ids),
+        }
+        logger.info("stack %s: %s", stack.name, out[stack.name])
+    return out
+
+
 def main(config_name: str = "smoke_test", *, device: Any = None,
          dist_backend: str | None = None, **overrides) -> dict:
     """Trains and evaluates the named config (with `overrides` of its
@@ -235,10 +273,15 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     logger.info("config=%s device=%s processes=%d rank=%d "
                 "device_preprocessing=%s", cfg.name, device, D, rank,
                 cfg.device_preprocessing)
-    model = build_model(cfg, device, mesh)
-    max_ids, max_unique = capacities(cfg, D)
+    # Host mode grows the config's capacities (D = 1 only: D > 1 forced
+    # device mode above).
+    grow = not cfg.device_preprocessing
+    model = build_model(cfg, device, mesh, grow)
     logger.info("capacities: max_ids_per_partition=%d "
-                "max_unique_ids_per_partition=%d", max_ids, max_unique)
+                "max_unique_ids_per_partition=%d%s",
+                model.config.max_ids_per_partition,
+                model.config.max_unique_ids_per_partition,
+                " (grown in training)" if grow else "")
 
     dataset = CriteoDataset(
         cfg.file_pattern,
@@ -258,9 +301,12 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
 
     # Workers return host arrays (the raw batch, or its host COO); the
     # consuming thread moves them to the device.
+    def preprocess_host(batch: dict) -> dict:
+        return model.preprocess_host(batch, training=True)
+
     loader = ThreadedDataLoader(
         raw_batches(),
-        _raw if cfg.device_preprocessing else model.preprocess_host,
+        _raw if cfg.device_preprocessing else preprocess_host,
         transfer_fn=model.to_device,
         num_workers=cfg.num_loader_threads,
     )
@@ -415,6 +461,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     )
     if ckpt is not None:
         ckpt.close()
+    capacities_used = stack_capacities(model, grow)
 
     device_step_ms = None
     if cfg.honest_timing and batch is not None:
@@ -448,6 +495,7 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
         "throughput": throughput,
         "accuracy": acc,
         "auc": auc,
+        "capacities": capacities_used,
     }
     if auc_curve:
         results["auc_curve"] = auc_curve

@@ -48,6 +48,7 @@ class Embedding(nn.Module):
         generator: torch.Generator | None = None,
         embeddings_initializer: Any = "random_normal",
         device: Any = None,
+        name: str | None = None,
     ) -> None:
         super().__init__()
         self.embeddings = nn.Parameter(
@@ -58,6 +59,7 @@ class Embedding(nn.Module):
         )
         self.input_dim = input_dim
         self.output_dim = output_dim
+        self.name = name or "embedding"
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         # F.embedding, not self.embeddings[ids]: its backward reduces the

@@ -39,10 +39,13 @@ def regularizers_of(**named: Any) -> dict[str, reg_lib.Regularizer]:
 
 
 class Dense(nn.Module):
-    """y = activation(x @ kernel + bias); glorot-uniform kernel, zero bias,
-    f32 parameters. `kernel_regularizer` /
-    `bias_regularizer` (names or core.regularizers objects) add their
-    penalties to `regularization_loss`."""
+    """y = activation(x @ kernel + bias), f32 parameters: the kernel from
+    `kernel_initializer` (glorot-uniform), the bias from
+    `bias_initializer` (zeros), or no bias with `use_bias=False` (then
+    `bias` is None). Initializers are names or core.initializers
+    objects. `kernel_regularizer` / `bias_regularizer` (names or
+    core.regularizers objects) add their penalties to
+    `regularization_loss`."""
 
     def __init__(
         self,
@@ -50,30 +53,36 @@ class Dense(nn.Module):
         out_features: int,
         *,
         generator: torch.Generator | None = None,
+        use_bias: bool = True,
         activation: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        kernel_initializer: Any = "glorot_uniform",
+        bias_initializer: Any = "zeros",
         kernel_regularizer: Any = None,
         bias_regularizer: Any = None,
         compute_dtype: Any = None,
         output_dtype: Any = None,
         device: Any = None,
+        name: str | None = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
-        self._regularizers = regularizers_of(kernel=kernel_regularizer,
-                                             bias=bias_regularizer)
+        self._regularizers = regularizers_of(
+            kernel=kernel_regularizer,
+            bias=bias_regularizer if use_bias else None)
         self.kernel = nn.Parameter(
-            initializers.GlorotUniform()(
+            initializers.get(kernel_initializer)(
                 (in_features, out_features), torch.float32, device, generator
             )
         )
-        self.bias = nn.Parameter(
-            initializers.Zeros()(
-                (out_features,), torch.float32, device, generator
-            )
+        self.bias = (
+            nn.Parameter(initializers.get(bias_initializer)(
+                (out_features,), torch.float32, device, generator))
+            if use_bias else None
         )
         self.activation = activation
         self.compute_dtype = _dtype(compute_dtype)
         self.output_dtype = _dtype(output_dtype)
+        self.name = name or "dense"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is not None:
@@ -82,7 +91,8 @@ class Dense(nn.Module):
             ).to(self.kernel.dtype)
         else:
             y = torch.matmul(x, self.kernel)
-        y = y + self.bias
+        if self.bias is not None:
+            y = y + self.bias
         if self.activation is not None:
             y = self.activation(y)
         if self.output_dtype is not None:
@@ -91,9 +101,10 @@ class Dense(nn.Module):
 
 
 class MLP(nn.Module):
-    """Stack of Dense layers with ReLU between them, e.g. DLRM's bottom and
-    top towers. Hidden outputs take `output_dtype`; the final output has
-    no activation and stays f32. The regularizers apply to every layer."""
+    """Stack of Dense layers, e.g. DLRM's bottom and top towers: each
+    hidden layer takes `activation` (ReLU), the last one
+    `final_activation` (none). Hidden outputs take `output_dtype`; the
+    final output stays f32. The regularizers apply to every layer."""
 
     def __init__(
         self,
@@ -101,11 +112,15 @@ class MLP(nn.Module):
         units: Sequence[int],
         *,
         generator: torch.Generator | None = None,
+        activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+        final_activation: (
+            Callable[[torch.Tensor], torch.Tensor] | None) = None,
         kernel_regularizer: Any = None,
         bias_regularizer: Any = None,
         compute_dtype: Any = None,
         output_dtype: Any = None,
         device: Any = None,
+        name: str | None = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -116,7 +131,7 @@ class MLP(nn.Module):
             layers.append(
                 Dense(
                     prev, u, generator=generator,
-                    activation=None if last else torch.relu,
+                    activation=final_activation if last else activation,
                     kernel_regularizer=kernel_regularizer,
                     bias_regularizer=bias_regularizer,
                     compute_dtype=compute_dtype,
@@ -126,6 +141,7 @@ class MLP(nn.Module):
             )
             prev = u
         self.layers = nn.ModuleList(layers)
+        self.name = name or "mlp"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:

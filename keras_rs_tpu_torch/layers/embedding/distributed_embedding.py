@@ -76,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import warnings
 import zlib
 from typing import Any, Mapping
@@ -111,6 +112,7 @@ from keras_rs_tpu_torch.layers.embedding.lookup import (
 from keras_rs_tpu_torch.layers.embedding.preprocessing import (
     CooBatch,
     InputStats,
+    build_coo,
     preprocess_stack,
 )
 from keras_rs_tpu_torch.layers.embedding.stacking import (
@@ -330,6 +332,9 @@ class DistributedEmbedding(nn.Module):
         #: it exceeded and redoes that stack: no id is dropped. False
         #: warns and drops (then `update_stats` / `rebuild_capacities`).
         self.auto_grow = bool(auto_grow)
+        #: Held across a training pass's growth check, growth, redo and
+        #: stats fold, so loader threads may preprocess with `training`.
+        self._grow_lock = threading.Lock()
         if mesh is None:
             mesh = mesh_lib.create_mesh(device, axis_name)
         self.mesh = mesh
@@ -441,13 +446,10 @@ class DistributedEmbedding(nn.Module):
                 w_leaves[fc.name] = put(w).reshape(target)
         return in_leaves, w_leaves
 
-    def _per_stack(self, in_leaves: dict, w_leaves: dict,
-                   only: set[str] | None = None):
-        """(stack, its features' ids, their given weights) per stack (of
-        `only`, where given)."""
-        for stack in self.stacks:
-            if only is not None and stack.name not in only:
-                continue
+    def _per_stack(self, in_leaves: dict, w_leaves: dict, stacks: tuple):
+        """(stack, its features' ids, their given weights) per stack of
+        `stacks`."""
+        for stack in stacks:
             yield (
                 stack,
                 {f.name: in_leaves[f.name] for f in stack.features},
@@ -458,41 +460,56 @@ class DistributedEmbedding(nn.Module):
                 },
             )
 
-    def _host_stacks(self, in_leaves, w_leaves, only=None):
+    def _host_stacks(self, in_leaves, w_leaves, stacks, quiet=False):
+        """Host COOs and stats of `stacks`; `quiet` drops ids over a
+        capacity without the warning (the pass that growth redoes)."""
+        build = build_coo if quiet else preprocess_stack
         coos, stats = {}, {}
-        for stack, ids, w in self._per_stack(in_leaves, w_leaves, only):
-            coos[stack.name], stats[stack.name] = preprocess_stack(
-                stack, ids, w)
+        for stack, ids, w in self._per_stack(in_leaves, w_leaves, stacks):
+            coos[stack.name], stats[stack.name] = build(stack, ids, w)
         return coos, stats
 
-    def _device_stacks(self, in_leaves, w_leaves, only=None):
+    def _device_stacks(self, in_leaves, w_leaves, stacks, quiet=False):
+        """Device COOs and stats of `stacks` (the device transform never
+        warns)."""
         coos, stats = {}, {}
-        for stack, ids, w in self._per_stack(in_leaves, w_leaves, only):
+        for stack, ids, w in self._per_stack(in_leaves, w_leaves, stacks):
             coos[stack.name], stats[stack.name] = preprocess_stack_device(
                 stack, ids, w, shard=self.shard, group=self._group)
         return coos, stats
 
     def _grow_and_fold(self, run, in_leaves, w_leaves, training: bool,
                        read=lambda st: st):
-        """Runs `run` (host or device stacks) on the bound inputs; in
-        training with auto_grow, merges the stats across processes,
-        grows the stacks whose capacities they exceed and runs those
-        again (nothing of the batch is dropped, and the over-capacity
-        warnings of the first pass are not shown); in training, folds
+        """Runs `run(in_leaves, w_leaves, stacks, quiet)` (host or device
+        stacks) on the bound inputs; in training with auto_grow, merges
+        the stats across processes, grows the stacks whose capacities
+        they exceed and runs those again (nothing of the batch is
+        dropped, and the first pass warns of nothing); in training, folds
         this process's stats of the final pass. `read` turns a stack's
-        stats into InputStats (a host read of DeviceStats)."""
+        stats into InputStats (a host read of DeviceStats).
+
+        Safe on several threads: the first pass runs on the stacks as
+        they were when it started, outside the layer's lock (numpy and
+        the C++ engine release the interpreter lock); the growth check,
+        the growth, the redo and the fold hold the lock. A pass that
+        overflowed capacities another thread has grown since counts as
+        exceeded (it dropped ids), so its stacks run again at the grown
+        capacities, which its stats then leave as they are: capacities
+        only rise."""
         grow = training and self.auto_grow and bool(self.stacks)
-        with warnings.catch_warnings():
+        coos, stats = run(in_leaves, w_leaves, self.stacks, grow)
+        if not training:
+            return coos, stats
+        with self._grow_lock:
             if grow:
-                warnings.simplefilter("ignore")
-            coos, stats = run(in_leaves, w_leaves)
-        if grow:
-            grown = self._maybe_grow({k: read(v) for k, v in stats.items()})
-            if grown:
-                new_coos, new_stats = run(in_leaves, w_leaves, grown)
-                coos.update(new_coos)
-                stats.update(new_stats)
-        if training:
+                grown = self._maybe_grow({k: read(v)
+                                          for k, v in stats.items()})
+                if grown:
+                    new_coos, new_stats = run(
+                        in_leaves, w_leaves,
+                        tuple(s for s in self.stacks if s.name in grown))
+                    coos.update(new_coos)
+                    stats.update(new_stats)
             for name, st in stats.items():
                 self._fold_stats(name, read(st))
         return coos, stats
@@ -507,10 +524,12 @@ class DistributedEmbedding(nn.Module):
         self, inputs: Any, weights: Any = None, training: bool = False
     ) -> dict[str, Any]:
         """Host-side COO preprocessing (the C++ engine where it builds,
-        numpy otherwise), numpy arrays only: safe on a loader thread
-        unless `training` grows capacities (see `auto_grow`). Pass the
-        result through `to_device`. One process only: at D > 1 the host
-        transform would need the global batch (use
+        numpy otherwise), numpy arrays only: safe on loader threads, also
+        with `training`, whose capacity growth (`auto_grow`) holds the
+        layer's lock. A COO built before another thread's growth stays
+        valid (the lookup takes its sizes from the COO's shapes). Pass
+        the result through `to_device`. One process only: at D > 1 the
+        host transform would need the global batch (use
         `preprocess_on_device`)."""
         if self.num_shards > 1:
             raise NotImplementedError(
@@ -673,9 +692,10 @@ class DistributedEmbedding(nn.Module):
         margin: float = 1.25,
         synced: Mapping[str, InputStats] | None = None,
     ) -> bool:
-        """Grows each stack's COO capacities to the observed maxima
-        (merged across processes; pass `synced`, e.g. `update_stats()`'s
-        result, to skip the merge). Only the preprocessed arrays'
+        """Grows each stack's COO capacities to the observed maxima times
+        `margin` (merged across processes; pass `synced`, e.g.
+        `update_stats()`'s result, to skip the merge), at most to what a
+        batch of the stack's shapes can fill. Only the preprocessed arrays'
         shapes change: tables, slots and step counters stay as they are.
         Returns whether anything changed."""
         if synced is None:
@@ -692,15 +712,25 @@ class DistributedEmbedding(nn.Module):
             if st is None or (only is not None and stack.name not in only):
                 new_stacks.append(stack)
                 continue
+            # A bucket holds at most one source's entries (its B / D
+            # samples at their valences; more where a batch came wider
+            # than its declared shape) and a shard at most D buckets:
+            # growth stops there, where the JAX layer's margin sizes
+            # past what any batch can fill (ROADMAP C4).
+            most = max(stack.local_batch_size
+                       * sum(f.valence for f in stack.features),
+                       st.max_ids_per_bucket)
             C = max(stack.max_ids_per_partition,
-                    int(math.ceil(st.max_ids_per_bucket * margin)))
+                    min(int(math.ceil(st.max_ids_per_bucket * margin)),
+                        most))
             U = max(stack.max_unique_ids_per_shard,
-                    int(math.ceil(st.max_unique_per_shard * margin)) + 1)
+                    min(int(math.ceil(st.max_unique_per_shard * margin)),
+                        stack.num_shards * most) + 1)
             if st.dropped_ids:
                 # Entries dropped before the dedup make the observed
                 # unique count an underestimate; a shard receives at most
                 # D * C entries, so one rebuild converges.
-                U = max(U, stack.num_shards * C + 1)
+                U = max(U, stack.num_shards * min(C, most) + 1)
             if (C, U) != (stack.max_ids_per_partition,
                           stack.max_unique_ids_per_shard):
                 changed = True
@@ -871,6 +901,7 @@ class DistributedEmbedding(nn.Module):
                      "shard_rotation"):
             setattr(new, attr, getattr(self, attr))
         new._stats = {}
+        new._grow_lock = threading.Lock()
         # The old grouping, pinned: regrouping by the new optimizer could
         # merge stacks and change their row layouts.
         new._table_stacking = [[t.name for t in s.tables]

@@ -152,6 +152,13 @@ class EmbedReduce(nn.Module):
             "name": self.name,
         }
 
+    @classmethod
+    def from_config(cls, config: dict[str, Any]) -> "EmbedReduce":
+        """An architecture-only rebuild from `get_config` (the weights
+        come from a checkpoint): a fresh table on `config["device"]`
+        (default cuda:0), drawn with `config["generator"]` where given."""
+        return cls(**config)
+
     @property
     def device(self) -> torch.device:
         return self.embeddings.device

@@ -348,3 +348,15 @@ def merge_cotangents(
             d[:, f.feature_index, : f.embedding_dim] = g.reshape(
                 Bl, f.embedding_dim)
     return d.reshape(-1, stack.stack_dim)
+
+
+def combine_cotangents(stack: TableStack,
+                       d_feats: Mapping[str, Any]) -> torch.Tensor:
+    """The JAX package's name for `merge_cotangents` (the inverse of
+    `split_activations`, for hand-written backward paths), on the device
+    of the given cotangents."""
+    given = [g for g in d_feats.values() if g is not None]
+    if not given:
+        raise ValueError("combine_cotangents needs at least one cotangent "
+                         "tensor to take its device from.")
+    return merge_cotangents(stack, d_feats, given[0].device)

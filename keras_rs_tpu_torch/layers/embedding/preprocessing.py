@@ -139,6 +139,7 @@ def preprocess_stack(
     inputs: Mapping[str, np.ndarray | Sequence],
     weights: Mapping[str, np.ndarray] | None = None,
     *,
+    allow_drop: bool = True,
     backend: str = "auto",
 ) -> tuple[CooBatch, InputStats]:
     """Builds the CooBatch for one stack from per-feature id matrices.
@@ -146,13 +147,44 @@ def preprocess_stack(
     `inputs[feature_name]`: int array (B,) or (B, L); ids outside
     [0, vocab) are ignored. `weights[feature_name]`: float array of the
     same shape; zeros mark padding. Ids over capacity are dropped with a
-    warning.
+    warning; with `allow_drop=False` they raise ValueError with the
+    warning's text instead, on either backend.
 
     `backend`: "numpy" runs the implementation below, "native" the C++
     engine (raises if it cannot be built), "auto" the C++ engine where
     it builds and numpy otherwise, as in the JAX package. The backends
     agree bit for bit.
     """
+    coo, stats = build_coo(stack, inputs, weights, backend=backend)
+    if stats.dropped_ids:
+        U = stack.max_unique_ids_per_shard
+        unique_overflow = max(0, stats.max_unique_per_shard - (U - 1))
+        msg = (
+            f"Stack {stack.name!r}: "
+            f"{stats.dropped_ids - unique_overflow} ids over bucket "
+            f"capacity {stack.max_ids_per_partition} (max observed "
+            f"{stats.max_ids_per_bucket}; raise max_ids_per_partition) and "
+            f"{unique_overflow} unique rows over capacity {U - 1} (max "
+            f"observed {stats.max_unique_per_shard}; raise "
+            "max_unique_ids_per_partition)."
+        )
+        if not allow_drop:
+            raise ValueError(msg)
+        warnings.warn(msg, stacklevel=2)
+    return coo, stats
+
+
+def build_coo(
+    stack: TableStack,
+    inputs: Mapping[str, np.ndarray | Sequence],
+    weights: Mapping[str, np.ndarray] | None = None,
+    *,
+    backend: str = "auto",
+) -> tuple[CooBatch, InputStats]:
+    """`preprocess_stack` without its check of dropped ids: the CooBatch
+    (construction-order arrays included) and the stats, whatever was
+    dropped. A caller that grows the capacities from the stats and
+    builds again (the layer's training pass) takes this one."""
     if backend not in ("auto", "numpy", "native"):
         raise ValueError(f"Unknown backend {backend!r}.")
     from keras_rs_tpu_torch.layers.embedding import native
@@ -161,19 +193,6 @@ def preprocess_stack(
         coo, stats = native.preprocess_stack_native(stack, inputs, weights)
     else:
         coo, stats = _preprocess_stack_numpy(stack, inputs, weights)
-    if stats.dropped_ids:
-        U = stack.max_unique_ids_per_shard
-        unique_overflow = max(0, stats.max_unique_per_shard - (U - 1))
-        warnings.warn(
-            f"Stack {stack.name!r}: "
-            f"{stats.dropped_ids - unique_overflow} ids over bucket "
-            f"capacity {stack.max_ids_per_partition} (max observed "
-            f"{stats.max_ids_per_bucket}; raise max_ids_per_partition) and "
-            f"{unique_overflow} unique rows over capacity {U - 1} (max "
-            f"observed {stats.max_unique_per_shard}; raise "
-            "max_unique_ids_per_partition).",
-            stacklevel=2,
-        )
     coo.fwd_slots, coo.fwd_gains = construction_fwd_arrays(
         stack, inputs, weights, coo.divisors
     )
@@ -185,8 +204,7 @@ def _preprocess_stack_numpy(
     inputs: Mapping[str, np.ndarray | Sequence],
     weights: Mapping[str, np.ndarray] | None,
 ) -> tuple[CooBatch, InputStats]:
-    """The numpy backend of preprocess_stack (no construction-order
-    arrays, no warning)."""
+    """The numpy backend of build_coo (no construction-order arrays)."""
     D = stack.num_shards
     C = stack.max_ids_per_partition
     U = stack.max_unique_ids_per_shard

@@ -43,6 +43,7 @@ class GRU(nn.Module):
         *,
         generator: torch.Generator | None = None,
         device: Any = None,
+        name: str | None = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -57,6 +58,7 @@ class GRU(nn.Module):
             torch.zeros(3 * units, device=device))
         self.units = units
         self.input_dim = input_dim
+        self.name = name or "gru"
 
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:

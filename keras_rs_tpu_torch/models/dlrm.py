@@ -219,12 +219,15 @@ class DLRMDCNv2(nn.Module):
         large = {f"cat_{i}": batch[f"cat_{i}"] for i in self.large_idx}
         return {k: v for k, v in batch.items() if k not in large}, large
 
-    def preprocess_host(self, batch: dict) -> dict:
-        """Host part of `preprocess` (numpy arrays only, safe on a loader
-        thread): COO-preprocess the large features."""
+    def preprocess_host(self, batch: dict, training: bool = False) -> dict:
+        """Host part of `preprocess` (numpy arrays only, safe on loader
+        threads): COO-preprocess the large features. With `training` the
+        embedding layer grows its capacities so that no id is dropped
+        (its `auto_grow`; growth holds the layer's lock)."""
         out, large = self._split(batch)
         if self.embedding_layer is not None:
-            out["large_pre"] = self.embedding_layer.preprocess_host(large)
+            out["large_pre"] = self.embedding_layer.preprocess_host(
+                large, training=training)
         return out
 
     def to_device(self, host_batch: dict) -> dict:
@@ -236,11 +239,12 @@ class DLRMDCNv2(nn.Module):
             for k, v in host_batch.items()
         }
 
-    def preprocess(self, batch: dict) -> dict:
+    def preprocess(self, batch: dict, training: bool = False) -> dict:
         """Host-side step: COO-preprocess the large features and move the
         batch to the model's device. `batch` holds numpy arrays: "dense"
-        [B, 13] f32, "cat_i" [B, L_i] ints and optionally "label" [B]."""
-        return self.to_device(self.preprocess_host(batch))
+        [B, 13] f32, "cat_i" [B, L_i] ints and optionally "label" [B].
+        `training` goes to the embedding layer, as in the JAX model."""
+        return self.to_device(self.preprocess_host(batch, training))
 
     def preprocess_on_device(self, batch: dict) -> dict:
         """The same from a batch already on the device (`to_device` of the

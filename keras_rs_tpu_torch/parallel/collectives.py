@@ -16,7 +16,17 @@ that owns them (a reduce-scatter).
 
 Each takes the process group of a mesh axis (`Mesh.group`); a group of
 one rank (None) makes every function the identity, so the one-device
-path runs the same code without torch.distributed. The tensors stay on
+path runs the same code without torch.distributed.
+
+`count_bytes()` counts, while it is open, the bytes of every collective
+this process runs through these functions, by kind ("all-to-all",
+"reduce-scatter", "all-gather", "all-reduce", "broadcast", the JAX
+tool's HLO names): each call adds its output tensor's numel() *
+element_size(), the dtype actually sent (bf16 under
+comm_dtype="bfloat16"), as tools/weak_scaling.py sums the output shapes
+of the compiled step's collectives. The identity of a one-rank group
+sends nothing and counts nothing. Closed (the default), the count costs
+one None check per call and never reads the device. The tensors stay on
 their device: the group's backend must carry them (NCCL for CUDA
 tensors; gloo carries CPU tensors, and on a CUDA tensor either carries
 it or raises). The callers in this package look these functions up on
@@ -25,7 +35,9 @@ the module at call time, so a script may stand in its own versions.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
+from typing import Iterator
 
 import torch
 import torch.distributed as dist
@@ -41,6 +53,31 @@ warnings.filterwarnings(
     r"all_gather_into_tensor)` is deprecated")
 
 
+#: The kinds `count_bytes` counts.
+KINDS = ("all-to-all", "reduce-scatter", "all-gather", "all-reduce",
+         "broadcast")
+_counts: dict[str, int] | None = None
+
+
+@contextlib.contextmanager
+def count_bytes() -> Iterator[dict[str, int]]:
+    """Yields {kind: bytes}, to which every collective of this process
+    adds its output's bytes until the block ends (see the module
+    docstring). Blocks nest: an inner one counts alone."""
+    global _counts
+    outer, _counts = _counts, dict.fromkeys(KINDS, 0)
+    try:
+        yield _counts
+    finally:
+        _counts = outer
+
+
+def _count(kind: str, out: torch.Tensor) -> torch.Tensor:
+    if _counts is not None:
+        _counts[kind] += out.numel() * out.element_size()
+    return out
+
+
 def rank(group: ProcessGroup | None) -> int:
     """This process's rank in `group` (0 for None)."""
     return 0 if group is None else dist.get_rank(group)
@@ -54,7 +91,7 @@ def all_to_all(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    return out
+    return _count("all-to-all", out)
 
 
 def reduce_scatter(x: torch.Tensor,
@@ -68,7 +105,7 @@ def reduce_scatter(x: torch.Tensor,
     out = torch.empty((x.shape[0] // D, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.reduce_scatter_tensor(out, x, group=group)
-    return out
+    return _count("reduce-scatter", out)
 
 
 def all_gather(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
@@ -80,7 +117,7 @@ def all_gather(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
     out = torch.empty((D * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
-    return out
+    return _count("all-gather", out)
 
 
 def all_reduce(x: torch.Tensor, group: ProcessGroup | None,
@@ -90,6 +127,7 @@ def all_reduce(x: torch.Tensor, group: ProcessGroup | None,
     if group is not None:
         reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         dist.all_reduce(x, op=reduce_op, group=group)
+        _count("all-reduce", x)
     return x
 
 
@@ -99,6 +137,7 @@ def broadcast(x: torch.Tensor, group: ProcessGroup | None,
     place; returns it."""
     if group is not None:
         dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+        _count("broadcast", x)
     return x
 
 

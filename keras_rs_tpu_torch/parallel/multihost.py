@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from keras_rs_tpu_torch.parallel import collectives
+from keras_rs_tpu_torch.parallel.mesh import DATA_AXIS
 from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 
@@ -124,12 +125,16 @@ def sync_max_stats(stats: dict[str, int],
     }
 
 
-def global_batch_from_host_shards(mesh: Any, batch: Any) -> Any:
+def global_batch_from_host_shards(mesh: Any, batch: Any,
+                                  axis_name: Any = DATA_AXIS) -> Any:
     """Each process passes its rows of the global batch (as
-    CriteoDataset(process_index=..., process_count=...) yields them);
-    they stay this rank's rows, moved to the mesh's device: a rank
-    computes on its own rows, so nothing is assembled."""
+    CriteoDataset(process_index=..., process_count=...) yields them),
+    sharded over `axis_name` (an axis of `mesh`, or a tuple of its axes;
+    another name raises ValueError); they stay this rank's rows, moved
+    to the mesh's device: a rank computes on its own rows, so nothing is
+    assembled."""
+    mesh._axes(axis_name)  # raises for a name the mesh does not have
     if isinstance(batch, dict):
-        return {k: global_batch_from_host_shards(mesh, v)
+        return {k: global_batch_from_host_shards(mesh, v, axis_name)
                 for k, v in batch.items()}
     return to_device(np.asarray(batch), mesh.device)

@@ -80,6 +80,15 @@ def capacities(layer):
             for s in layer.stacks]
 
 
+def capped(caps, D, seen=0):
+    """The JAX layer's capacities at most what a batch can fill, where
+    the port's growth stops (ROADMAP C4): a bucket one rank's B / D
+    samples at the feature's valence 4 (or the `seen` ids of a bucket, if
+    more), a shard D buckets, and U's one slot more."""
+    most = max(B // D * 4, seen)
+    return [(min(c, most), min(u, D * most + 1)) for c, u in caps]
+
+
 def stats_list(stats):
     return {k: [v.max_ids_per_bucket, v.max_unique_per_shard, v.dropped_ids]
             for k, v in stats.items()}
@@ -102,7 +111,8 @@ def test_training_overflow_grows_and_drops_nothing_d1():
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # no drop warnings allowed
         pre = t.preprocess([skewed_ids()], training=True)
-    assert capacities(t) == capacities(j) and capacities(t)[0][0] > 4
+    assert capacities(t) == capped(capacities(j), 1)
+    assert capacities(t)[0][0] > 4
     assert stats_list(t.input_stats) == stats_list(j.input_stats)
     assert t.input_stats[t.stacks[0].name].dropped_ids == 0
     t.set_embedding_tables({"t": np.ones((100, 8), np.float32)})
@@ -189,7 +199,7 @@ def test_update_stats_and_rebuild_capacities_d1():
         assert t.rebuild_capacities()
         j.rebuild_capacities()
     assert t.stacks[0].max_ids_per_partition > old_c
-    assert capacities(t) == capacities(j)
+    assert capacities(t) == capped(capacities(j), 1)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pre = t.preprocess({"f": rebuild_ids()}, training=False)
@@ -209,7 +219,7 @@ def test_training_overflow_grows_and_drops_nothing_d8(ranks):
     assert initial == [(4, 32)]  # U = 4 per partition x 8 shards
     for r, out in enumerate(got):
         assert out["before"] == initial
-        assert out["after"] == capacities(j), (r, out["after"])
+        assert out["after"] == capped(capacities(j), 8), (r, out["after"])
         assert out["merged_stats"] == stats_list(j.input_stats)
         assert not any("capacity" in w for w in out["warnings"])
         np.testing.assert_array_equal(out["acts"][0], 4.0)
@@ -259,7 +269,7 @@ def test_device_stats_fold_into_update_stats_d8(ranks):
             assert out["merged"] == [9, 8, 3]
             assert any("exceed capacities" in w for w in out["warnings"])
             assert out["changed"]
-            assert out["capacities"] == capacities(j)[0]
+            assert [out["capacities"]] == capped(capacities(j), 8, seen=9)
 
 
 def test_update_stats_and_rebuild_capacities_d8(ranks):
@@ -273,6 +283,6 @@ def test_update_stats_and_rebuild_capacities_d8(ranks):
     for out in got:
         assert any("exceed capacities" in w for w in out["warnings"])
         assert out["changed"] and out["new"][0] > out["old_c"]
-        assert [out["new"]] == capacities(j)
+        assert [out["new"]] == capped(capacities(j), 8)
         assert out["dropped_after"] == [0]
         assert np.isfinite(out["acts"][0]).all()

@@ -79,7 +79,7 @@ def test_port_imports_without_jax():
                  "parallel.dryrun", "examples.ann_retrieval",
                  "examples.data_parallel_retrieval", "version",
                  "utils.doc_utils", "bench",
-                 "utils.shape_utils"):
+                 "utils.shape_utils", "tools", "tools.weak_scaling"):
         assert f"keras_rs_tpu_torch.{name}" in modules, name
     root = Path(keras_rs_tpu_torch.__file__).parent.parent
     proc = subprocess.run(

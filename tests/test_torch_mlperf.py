@@ -70,7 +70,8 @@ def test_smoke_main_runs_on_the_cpu(device_preprocessing):
     r = mlperf.main("smoke_test", device="cpu",
                     device_preprocessing=device_preprocessing, num_steps=5,
                     eval_every=4)
-    assert set(r) == {"loss", "throughput", "accuracy", "auc", "auc_curve"}
+    assert set(r) == {"loss", "throughput", "accuracy", "auc", "auc_curve",
+                      "capacities"}
     assert np.isfinite(r["loss"]) and r["throughput"] > 0
     assert 0.0 <= r["auc"] <= 1.0 and 0.0 <= r["accuracy"] <= 1.0
     assert [p["step"] for p in r["auc_curve"]] == [4]
@@ -155,7 +156,8 @@ def test_pipelined_smoke_main_runs_on_the_cpu(device_preprocessing):
               device_preprocessing=device_preprocessing)
     r = mlperf.main("smoke_test", pipeline_embedding=True, eval_every=4,
                     **kw)
-    assert set(r) == {"loss", "throughput", "accuracy", "auc", "auc_curve"}
+    assert set(r) == {"loss", "throughput", "accuracy", "auc", "auc_curve",
+                      "capacities"}
     assert np.isfinite(r["loss"]) and r["throughput"] > 0
     assert 0.0 <= r["auc"] <= 1.0
     other = mlperf.main("smoke_test", pipeline_embedding=True,

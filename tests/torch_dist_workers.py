@@ -483,6 +483,17 @@ def dlrm_case(rank: int, world: int, config: dict, params: dict,
     }
 
 
+def weak_scaling_case(rank: int, world: int, per_device_batch: int,
+                      comm_dtype: str | None) -> dict:
+    """The port's weak-scaling tool's counted training step on this rank
+    (keras_rs_tpu_torch/tools/weak_scaling.py): its collective bytes by
+    kind, FLOPs and loss."""
+    from keras_rs_tpu_torch.tools import weak_scaling
+
+    return weak_scaling.counted_step(rank, world, per_device_batch,
+                                     comm_dtype, device="cpu")
+
+
 def mlperf_case(rank: int, world: int, overrides: dict) -> Any:
     """The ml_perf entry point on this rank (the pool's group is the
     run's process group); its results dict, or the NotImplementedError
