@@ -9,7 +9,8 @@ in a bounded buffer.
 Workers touch no CUDA state: `preprocess_fn` returns host (numpy)
 arrays. The move to the device, `transfer_fn`, runs in the thread that
 takes the batch (`next(loader)`), from pinned memory (see
-utils/device.to_device). numpy, the C++ preprocessing engine and the
+utils/device.to_device; traced as the span "loader.to_device" of
+utils/tracing.py). numpy, the C++ preprocessing engine and the
 native TFRecord reader release the interpreter lock in their inner
 loops, so workers overlap there.
 """
@@ -19,6 +20,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Any, Callable, Iterator
+
+from keras_rs_tpu_torch.utils import tracing
 
 
 class ThreadedDataLoader:
@@ -113,4 +116,7 @@ class ThreadedDataLoader:
             if self._error is not None:
                 raise self._error
             raise StopIteration
-        return item if self._transfer is None else self._transfer(item)
+        if self._transfer is None:
+            return item
+        with tracing.span("loader.to_device"):
+            return self._transfer(item)

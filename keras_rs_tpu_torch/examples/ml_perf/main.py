@@ -25,8 +25,12 @@ overflowed first, so with more than one loader thread they may differ
 from run to run, never falling. Device mode, and every rank at D > 1,
 takes the worst-case capacities main.py:87-108 gives the device mode
 (`capacities`): the device transform has static shapes and does not
-grow. At the end, `main` logs each stack's capacities and the ids the
-host mode dropped.
+grow, and drops the ids over a capacity without a warning. So device
+mode trains with the spans and counters of utils/tracing.py on, and
+every 100 steps logs a warning if the "embedding.dropped_ids" counter,
+which sums every step's drops on the device, rose since the last one.
+At the end, `main` logs each stack's capacities and the ids the host
+mode dropped.
 
 Under torchrun (WORLD_SIZE > 1) every process is one rank of a 1-D mesh
 (parallel/): it holds its shard of the large tables, a replica of the
@@ -49,12 +53,15 @@ With `checkpoint_dir`, every `checkpoint_every` steps the model (its
 stacked tables, slots and step counters included) and the dense
 optimizer are saved (training/checkpoint.py), and a rerun resumes from
 the latest complete step, logging "resumed from checkpoint step N" (on
-every rank) as the JAX entry point does. `--profile` (or KRT_PROFILE_DIR) traces steps 10-20
-with torch.profiler into `profile_dir` (`--profile_dir`; by default
-`keras_rs_tpu_profile` under TMPDIR). `--pipeline_embedding` trains
-with one-step-stale lookups (training/pipelined.py): the lookup of the
-next batch, and in device mode its COO transform, runs on a side CUDA
-stream beside the dense compute, with one batch of lookahead.
+every rank) as the JAX entry point does. `--profile` (or
+KRT_PROFILE_DIR) traces steps 10-20 with torch.profiler into
+`profile_dir` (`--profile_dir`; by default `keras_rs_tpu_profile` under
+TMPDIR), with tracing on from step 10: the trace holds the step's spans
+(utils/tracing.py) as `user_annotation` ranges.
+`--pipeline_embedding` trains with one-step-stale lookups
+(training/pipelined.py): the lookup of the next batch, and in device
+mode its COO transform, runs on a side CUDA stream beside the dense
+compute, with one batch of lookahead.
 
 Run from the repository root:
   python -m keras_rs_tpu_torch.examples.ml_perf.main --config smoke_test \
@@ -98,6 +105,7 @@ from keras_rs_tpu_torch.training.train_state import (
     DenseAdagrad,
     make_train_step,
 )
+from keras_rs_tpu_torch.utils import tracing
 from keras_rs_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("ml_perf")
@@ -345,17 +353,6 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
             state.prefetched = pipelining.prime(
                 model, get_pre(next_batch), embed_fn)
 
-    def dropped_ids(batch: dict) -> int:
-        """Device mode drops ids over a capacity without a warning: one
-        extra transform, host-reading the summed DeviceStats (this
-        rank's)."""
-        with torch.no_grad():
-            _, stats = model.embedding_layer.preprocess_on_device(
-                {f"cat_{i}": batch[f"cat_{i}"] for i in model.large_idx},
-                return_stats=True,
-            )
-        return int(sum(s.dropped_ids for s in stats.values()))
-
     auc_m = AUC(num_thresholds=512, device=device)
     acc_m = BinaryAccuracy(device=device)
 
@@ -403,57 +400,72 @@ def main(config_name: str = "smoke_test", *, device: Any = None,
     profiler = None
     trace_dir = (profile_dir(cfg) if D == 1
                  else os.path.join(profile_dir(cfg), f"rank{rank}"))
-    for step in range(start_step, cfg.num_steps):
-        if cfg.do_profile and step == 10:
-            profiler = start_profiler(device)
-        if pipelined:
-            # One batch of lookahead: the step prefetches the next
-            # batch's activations; the last step feeds its own batch
-            # again (the prefetch is discarded).
-            batch = next_batch
-            if step + 1 < cfg.num_steps:
-                next_batch = next(loader)
-            loss = step_fn(batch, get_pre(next_batch))
-        else:
-            batch = next(loader)
-            loss = step_fn(batch)
-        losses.append(loss)
-        if step - start_step + 1 == warmup:
-            # Throughput counts from here (first-call costs excluded).
-            _sync(device)
-            t_warm = time.time()
-        if profiler is not None and step == 20:
+    # Device mode counts its dropped ids, and a profile holds the spans:
+    # tracing (utils/tracing.py) on, then back as the caller had it.
+    tracing_was_on = tracing.enabled()
+    if cfg.device_preprocessing:
+        tracing.enable()
+    # This rank's drops before the loop (the device COO's counter).
+    dropped_seen = tracing.counters().get("embedding.dropped_ids", 0)
+    try:
+        for step in range(start_step, cfg.num_steps):
+            if cfg.do_profile and step == 10:
+                profiler = start_profiler(device)
+                tracing.enable()
+            if pipelined:
+                # One batch of lookahead: the step prefetches the next
+                # batch's activations; the last step feeds its own batch
+                # again (the prefetch is discarded).
+                batch = next_batch
+                if step + 1 < cfg.num_steps:
+                    next_batch = next(loader)
+                loss = step_fn(batch, get_pre(next_batch))
+            else:
+                batch = next(loader)
+                loss = step_fn(batch)
+            losses.append(loss)
+            if step - start_step + 1 == warmup:
+                # Throughput counts from here (first-call costs excluded).
+                _sync(device)
+                t_warm = time.time()
+            if profiler is not None and step == 20:
+                stop_profiler(profiler, trace_dir, device)
+                profiler = None
+            if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
+                ckpt.save(step + 1, state)
+            if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
+                # Eval wall time stays out of the training throughput.
+                t_eval = time.time()
+                acc_pt, auc_pt, _, _ = run_eval()
+                auc_curve.append(
+                    {"step": step + 1, "auc": auc_pt, "accuracy": acc_pt}
+                )
+                logger.info("eval @ step %d: auc %.4f acc %.4f", step + 1,
+                            auc_pt, acc_pt)
+                t_warm += time.time() - t_eval
+            if (step + 1) % 100 == 0:
+                logger.info(
+                    "step %d loss %.5f (%.1f ex/s post-warmup)", step + 1,
+                    float(loss),
+                    cfg.global_batch_size * (step - start_step + 1 - warmup)
+                    / max(time.time() - t_warm, 1e-9),
+                )
+                if cfg.device_preprocessing:
+                    dropped = tracing.counters().get(
+                        "embedding.dropped_ids", 0)
+                    if dropped > dropped_seen:
+                        logger.warning(
+                            "device preprocessing dropped %d ids by step %d "
+                            "(unique capacity overflow: raise "
+                            "device_unique_factor)", dropped - dropped_seen,
+                            step + 1,
+                        )
+                    dropped_seen = dropped
+        if profiler is not None:  # fewer than 21 steps: trace what ran
             stop_profiler(profiler, trace_dir, device)
-            profiler = None
-        if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
-            ckpt.save(step + 1, state)
-        if cfg.eval_every and (step + 1) % cfg.eval_every == 0:
-            # Eval wall time stays out of the training throughput.
-            t_eval = time.time()
-            acc_pt, auc_pt, _, _ = run_eval()
-            auc_curve.append(
-                {"step": step + 1, "auc": auc_pt, "accuracy": acc_pt}
-            )
-            logger.info("eval @ step %d: auc %.4f acc %.4f", step + 1,
-                        auc_pt, acc_pt)
-            t_warm += time.time() - t_eval
-        if (step + 1) % 100 == 0:
-            logger.info(
-                "step %d loss %.5f (%.1f ex/s post-warmup)", step + 1,
-                float(loss),
-                cfg.global_batch_size * (step - start_step + 1 - warmup)
-                / max(time.time() - t_warm, 1e-9),
-            )
-            if cfg.device_preprocessing:
-                n_dropped = dropped_ids(batch)
-                if n_dropped:
-                    logger.warning(
-                        "device preprocessing dropped %d ids at step %d "
-                        "(unique capacity overflow: raise "
-                        "device_unique_factor)", n_dropped, step + 1,
-                    )
-    if profiler is not None:  # fewer than 21 steps: trace what ran
-        stop_profiler(profiler, trace_dir, device)
+    finally:
+        if not tracing_was_on:
+            tracing.disable()
     _sync(device)
     throughput = (
         cfg.global_batch_size * max(cfg.num_steps - start_step - warmup, 0)

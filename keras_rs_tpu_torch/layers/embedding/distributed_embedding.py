@@ -127,6 +127,7 @@ from keras_rs_tpu_torch.layers.embedding.stacking import (
 from keras_rs_tpu_torch.ops import quant
 from keras_rs_tpu_torch.parallel import collectives, multihost
 from keras_rs_tpu_torch.parallel import mesh as mesh_lib
+from keras_rs_tpu_torch.utils import tracing
 from keras_rs_tpu_torch.utils.device import resolve_device, to_device
 
 PREPROCESSED_KEY = "__keras_rs_tpu_preprocessed__"
@@ -471,11 +472,18 @@ class DistributedEmbedding(nn.Module):
 
     def _device_stacks(self, in_leaves, w_leaves, stacks, quiet=False):
         """Device COOs and stats of `stacks` (the device transform never
-        warns)."""
+        warns), each stack in a span "embedding.coo"; counts its id
+        entries and dropped ids (utils/tracing.py)."""
         coos, stats = {}, {}
         for stack, ids, w in self._per_stack(in_leaves, w_leaves, stacks):
-            coos[stack.name], stats[stack.name] = preprocess_stack_device(
-                stack, ids, w, shard=self.shard, group=self._group)
+            with tracing.span("embedding.coo", stack=stack.name):
+                coo, st = preprocess_stack_device(
+                    stack, ids, w, shard=self.shard, group=self._group)
+            coos[stack.name], stats[stack.name] = coo, st
+            if tracing.enabled():
+                tracing.count("embedding.ids",
+                              sum(t.numel() for t in ids.values()))
+                tracing.count("embedding.dropped_ids", st.dropped_ids)
         return coos, stats
 
     def _grow_and_fold(self, run, in_leaves, w_leaves, training: bool,
@@ -591,14 +599,15 @@ class DistributedEmbedding(nn.Module):
         (one sync), merged across processes, and stacks over capacity
         grow and run again, as `preprocess` does.
         """
-        in_leaves, w_leaves = self._bind(inputs, weights, host=False)
-        coos, stats = self._grow_and_fold(
-            self._device_stacks, in_leaves, w_leaves, training,
-            read=_host_stats)
-        sharded = {name: coo_to_device(coo, self.device)
-                   for name, coo in coos.items()}
-        pre = {PREPROCESSED_KEY: True, "sharded": sharded,
-               "dense": self._dense_inputs(in_leaves, w_leaves)}
+        with tracing.span("embedding.coo"):
+            in_leaves, w_leaves = self._bind(inputs, weights, host=False)
+            coos, stats = self._grow_and_fold(
+                self._device_stacks, in_leaves, w_leaves, training,
+                read=_host_stats)
+            sharded = {name: coo_to_device(coo, self.device)
+                       for name, coo in coos.items()}
+            pre = {PREPROCESSED_KEY: True, "sharded": sharded,
+                   "dense": self._dense_inputs(in_leaves, w_leaves)}
         return (pre, stats) if return_stats else pre
 
     # --- input stats and capacity growth ------------------------------
@@ -1024,12 +1033,14 @@ def _exceeds(stack: TableStack, st: InputStats) -> bool:
 
 
 def _host_stats(st: InputStats | DeviceStats) -> InputStats:
-    """InputStats of host ints (DeviceStats are read from the device)."""
+    """InputStats of host ints (DeviceStats are read from the device, in
+    a span "host_sync")."""
     if isinstance(st, InputStats):
         return st
-    return InputStats(max_ids_per_bucket=int(st.max_ids_per_bucket),
-                      max_unique_per_shard=int(st.max_unique_per_shard),
-                      dropped_ids=int(st.dropped_ids))
+    with tracing.span("host_sync", site="device_stats"):
+        return InputStats(max_ids_per_bucket=int(st.max_ids_per_bucket),
+                          max_unique_per_shard=int(st.max_unique_per_shard),
+                          dropped_ids=int(st.dropped_ids))
 
 
 def _to_host(a: Any) -> np.ndarray:

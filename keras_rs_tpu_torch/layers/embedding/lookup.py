@@ -65,6 +65,7 @@ from keras_rs_tpu_torch.ops.row_ops import (
     scatter_row_blocks_unique,
     scatter_rows_unique_multi,
 )
+from keras_rs_tpu_torch.utils import tracing
 
 #: Seed base of the stochastic rounding of bf16 rows; the step count is
 #: added, so a run repeats itself (the JAX package folds its step into
@@ -179,7 +180,15 @@ def stack_update(stack: TableStack, state: dict[str, torch.Tensor],
     batch of `coo`, and adds 1 to the step counter. It needs only the COO
     arrays and the cotangent, not the forward's activations, so a
     pipelined step updates the tables without a second gather. At D > 1
-    every rank of `group` must call it (one all-gather)."""
+    every rank of `group` must call it (one all-gather). Traced as the
+    span "embedding.update"; counts "embedding.unique_rows"."""
+    with tracing.span("embedding.update", stack=stack.name):
+        _update(stack, state, coo, d_acts, group, comm_dtype)
+
+
+def _update(stack: TableStack, state: dict[str, torch.Tensor],
+            coo: Mapping[str, torch.Tensor], d_acts: torch.Tensor,
+            group, comm_dtype: str | None) -> None:
     # U from the batch's arrays: a batch preprocessed before its stack's
     # capacities grew keeps its own shapes.
     U = coo["unique_slots"].shape[0]
@@ -209,6 +218,7 @@ def stack_update(stack: TableStack, state: dict[str, torch.Tensor],
     # The tail rows carry exactly-zero gradients, so the functions that
     # write them (the plain versions, index_copy_) write their own bytes.
     n_valid = (u_slots != stack.sink_slot).sum(dtype=torch.int32).reshape(1)
+    tracing.count("embedding.unique_rows", n_valid)
     optimizer = stack.optimizer
     table = state["table"]
     step = state["step"]
@@ -254,8 +264,10 @@ def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
         # Stochastic rounding with bits seeded from the step and the
         # shard (as the JAX package folds in both): one host read of the
         # step counter per bf16 stack and step.
+        with tracing.span("host_sync", site="rounding_seed"):
+            seed = int(step)
         generator = torch.Generator(device=table.device).manual_seed(
-            ROUNDING_SEED + int(step) + (shard << 24)
+            ROUNDING_SEED + seed + (shard << 24)
         )
     new_rows = cast_rows_for_storage(new_rows, table.dtype, generator)
     row_keys = [k for k in slots if slots[k].ndim == 2]
@@ -311,13 +323,16 @@ def stack_lookup(
     flattened.
     Returns activations [Bl * F, dim] (sample-major, Bl = B / D). When
     grad mode is on, the backward pass applies the stack's optimizer to
-    `state` in place; when it is off, this is `stack_gather`.
+    `state` in place; when it is off, this is `stack_gather`. Traced as
+    the span "embedding.lookup" (utils/tracing.py).
     """
-    if not torch.is_grad_enabled():
-        return stack_gather(stack, state, coo, group, comm_dtype)
-    anchor = torch.zeros((), device=state["table"].device,
-                         requires_grad=True)
-    return _StackLookup.apply(anchor, stack, state, coo, group, comm_dtype)
+    with tracing.span("embedding.lookup", stack=stack.name):
+        if not torch.is_grad_enabled():
+            return stack_gather(stack, state, coo, group, comm_dtype)
+        anchor = torch.zeros((), device=state["table"].device,
+                             requires_grad=True)
+        return _StackLookup.apply(anchor, stack, state, coo, group,
+                                  comm_dtype)
 
 
 def split_activations(

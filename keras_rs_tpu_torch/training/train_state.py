@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from keras_rs_tpu_torch.parallel import collectives
+from keras_rs_tpu_torch.utils import tracing
 
 
 class DenseAdagrad:
@@ -208,23 +209,33 @@ def make_train_step(
     rank's B / D samples and `loss_fn` their mean loss: the step is data
     parallel as the module docstring says, and returns the global
     batch's loss (an all_reduce of the ranks' losses); the aux stays
-    this rank's."""
+    this rank's.
+
+    The step is the root span of utils/tracing.py ("step"), with the
+    spans "step.forward", "step.backward" and "step.optimizer" inside."""
     D = 1 if mesh is None else mesh.size
     group = None if D == 1 else mesh.group(mesh.axis_names)
 
     def step(batch: Any) -> Any:
-        optimizer.zero_grad()
-        out = loss_fn(model, batch)
-        loss = out[0] if has_aux else out
-        if D == 1:
-            loss.backward()
-        else:
-            (loss / D).backward()
-            sum_gradients(optimizer.params, group)
-            loss = collectives.all_reduce(loss.detach().clone(), group) / D
-        optimizer.step()
-        if has_aux:
-            return loss.detach(), map_tensors(out[1], torch.Tensor.detach)
-        return loss.detach()
+        with tracing.span("step"):
+            optimizer.zero_grad()
+            with tracing.span("step.forward"):
+                out = loss_fn(model, batch)
+            loss = out[0] if has_aux else out
+            with tracing.span("step.backward"):
+                if D == 1:
+                    loss.backward()
+                else:
+                    (loss / D).backward()
+                    sum_gradients(optimizer.params, group)
+            if D > 1:
+                loss = collectives.all_reduce(loss.detach().clone(),
+                                              group) / D
+            with tracing.span("step.optimizer"):
+                optimizer.step()
+            if has_aux:
+                return loss.detach(), map_tensors(out[1],
+                                                  torch.Tensor.detach)
+            return loss.detach()
 
     return step
