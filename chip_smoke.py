@@ -14,7 +14,8 @@ from --seed:
       - packed: f32 tables with Adagrad, each vocabulary capped at
         4,000,000 rows; kernel B1 (csrc/row_ops.cu);
       - capacity mode on the uncut vocabulary: bf16 tables with row-wise
-        Adagrad, one stack of 204,102,451 rows (53.1 GB); kernel B3;
+        Adagrad, one stack of 204,102,451 rows (53.1 GB); the split
+        update's kernel (apply_split_rows) and B3;
       - two short paths at the 4M cap: bf16 tables with Adagrad (B4, k =
         2) and f32 tables with Adam (packed [R, 3, 128], B2).
   * the same DLRM through the ml_perf entry point
@@ -64,7 +65,8 @@ from --seed:
     and its device COO transform, on a side CUDA stream beside the dense
     compute, one update old) through the ml_perf entry point at full
     width (--pipeline_embedding, packed f32 + Adagrad, B1) and in the
-    split layout (bf16 tables + row-wise Adagrad at the 4M cap, B3); the
+    split layout (bf16 tables + row-wise Adagrad at the 4M cap, the split
+    kernel and B3); the
     six walkthrough examples (basic_ranking, basic_retrieval,
     listwise_ranking, multi_task, deep_recommender, sas_rec) at their
     default sizes, which reach no kernel.
@@ -73,14 +75,15 @@ from --seed:
     8,192): ours (device COO, stacked lookup, B1), the dense-only step,
     the naive dense-table baseline, the pipelined step and the flagship
     valence (the Criteo multi-hot mix at a 1M cap, B1), and the bf16 +
-    row-wise Adagrad mix (B3).
+    row-wise Adagrad mix (the split kernel and B3).
   * the sharded embedding at D = 2 (parallel/, DistributedEmbedding over
     a mesh of ranks): two spawned ranks on cuda:0 joined by gloo (NCCL
     refuses two ranks on one device), each with its shard of the tables,
     its 8,192 samples of each batch of 16,384 and a replica of the dense
     model: the ml_perf entry point at full width (packed f32 + Adagrad
     at the 4M cap, device COO with its all_to_all, B1 on each shard), the
-    split layout (bf16 + row-wise Adagrad, B3 on each shard), capacity
+    split layout (bf16 + row-wise Adagrad, the split kernel and B3 on
+    each shard), capacity
     auto-grow and nested feature configs.
 
 Phases (any failure raises, so the exit code is not 0):
@@ -100,13 +103,18 @@ Phases (any failure raises, so the exit code is not 0):
                    index_copy_ yardstick;
   7. capacity      build the uncut bf16 + row-wise Adagrad model, B3
                    against its plain version at its batch's N and
-                   n_valid, 8 + 3 training steps (B3 once per step, no
-                   other kernel, step counter 11, peak device memory
+                   n_valid; the split kernel (apply_split_rows) against
+                   its plain version on a CHECK_ROWS-row bf16 table at
+                   the same N and n_valid, bit-exact (also with a
+                   schedule, round only and at dim 50), timed beside its
+                   byte bound; 8 + 3 training steps (B3 and the split
+                   kernel once per step, no other kernel, step counter 11, peak device memory
                    under 72 GB), 3 scoring batches (finite logits, table
                    and accumulator unchanged, no launch);
   8. capacity      a small capacity-mode DLRM, 3 steps on the card and on
      small         the CPU (bf16 rows within one ulp per step);
-  9. short paths   bf16 + Adagrad (B4 once per step) and f32 + Adam (B2
+  9. short paths   bf16 + Adagrad (B4 and the round-only split kernel
+                   once per step) and f32 + Adam (B2
                    once per step): 3 steps on one batch (loss falls), one
                    scoring batch;
  10. flash kernel  B5, B6, B7 each against its plain version at (a) the
@@ -287,8 +295,9 @@ Phases (any failure raises, so the exit code is not 0):
  31. pipelined     bf16 tables + row-wise Adagrad at the 4M cap, device
      split         preprocessing: 8 steps on one batch (loss falls) and 3
                    fresh, the first 3 race-checked, every row scatter
-                   held to its plain version, B3 once per step; the host
-                   syncs of one step and the overlap left;
+                   and split kernel call held to its plain version, B3
+                   and the split kernel once per step; the host syncs of
+                   one step (none expected) and the overlap left;
  32. examples      the six walkthrough examples on the card at their
                    default sizes (printout kept, headline gated, no
                    kernel launch); the ml_perf entry point's pipelined
@@ -309,9 +318,10 @@ Phases (any failure raises, so the exit code is not 0):
                    in (0, 1], the floor at most 1.05 x embedding_ms
                    before rounding and the flagship's floor below its
                    step. Then one untimed step of the bf16 + row-wise
-                   Adagrad mix with every B3 call held bit for bit, and
-                   bench.main() in that mix without naive and flagship
-                   (B3 counted, no other kernel);
+                   Adagrad mix with every B3 and split kernel call held
+                   bit for bit, and bench.main() in that mix without
+                   naive and flagship (B3 and the split kernel counted,
+                   no other kernel);
  33. probe        two ranks on cuda:0 in one gloo group: each
                    collective of parallel/collectives.py on CUDA tensors
                    of the types the path gives it, checked; one that
@@ -343,8 +353,9 @@ Phases (any failure raises, so the exit code is not 0):
                    dense gradients' all_reduce);
  35. sharded       bf16 + row-wise Adagrad at the 4M cap over the two
      split         ranks: 3 steps on one batch (the global loss falls),
-                   B3 once per step on each shard, each held to the
-                   plain scatter on a copy of the whole shard;
+                   B3 and the split kernel once per step on each shard,
+                   B3 held to the plain scatter on a copy of the whole
+                   shard, the split kernel to its plain version;
  36. sharded       a skewed batch over capacity through
      autogrow      preprocess_on_device(training=True): both ranks grow
                    alike, nothing is dropped, and the activations equal a
@@ -725,6 +736,116 @@ def phase_scatter_kernel(name: str, shapes, unique_slots, sink: int,
             "library_ms": library_ms}
 
 
+def phase_split_kernel(unique_slots, sink: int, seed: int) -> dict:
+    """The split update's kernel (apply_split_rows: row-wise Adagrad and
+    stochastic rounding of a bf16 table) against its plain version on a
+    CHECK_ROWS-row table with its [CHECK_ROWS] accumulator, at a real
+    batch's N and n_valid: the live rows of the bf16 buffer and the whole
+    accumulator bit for bit, no accumulator outside the live prefix
+    written; the same with a schedule read from the device, the
+    round-only instance (round_split_rows) on f32 rows, and a width of 50
+    (no vector loads). Times the kernel and the plain version beside the
+    byte bound."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding import lookup, optimizers
+    from keras_rs_tpu_torch.ops import row_ops
+    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S
+
+    dev = unique_slots.device
+    n = unique_slots.shape[0]
+    nv = int((unique_slots != sink).sum())
+    if not 0 < nv < CHECK_ROWS:
+        fail(f"n_valid {nv} outside (0, {CHECK_ROWS})")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = check_indices(n, nv, g)
+    table = torch.randn((CHECK_ROWS, 128), generator=g, device=dev).to(
+        torch.bfloat16)
+    acc0 = torch.rand(CHECK_ROWS, generator=g, device=dev) + 0.1
+    grads = torch.randn((n, 128), generator=g, device=dev) * 0.01
+    grads[nv:] = 0.0  # sink padding carries zero gradients
+    n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+    step = torch.tensor([5.0], device=dev)
+    key = lookup.ROUNDING_SEED
+    opt = optimizers.RowWiseAdagrad(learning_rate=0.0034)
+
+    def held(label, kernel, plain, live, acc=None):
+        """The kernel and the plain version from the same start (each on
+        its own copy of `acc`); elements differing must be 0."""
+        accs = [None, None] if acc is None else [acc.clone(), acc.clone()]
+        got, want = kernel(accs[0]), plain(accs[1])
+        torch.cuda.synchronize()
+        differ = int(((bits(got) != bits(want)) & live[:, None]).sum())
+        if acc is not None:
+            differ += int((bits(accs[0]) != bits(accs[1])).sum())
+        if differ:
+            fail(f"split kernel ({label}) differs from its plain version "
+                 f"in {differ} elements")
+        return got, want, accs[0]
+
+    live = torch.arange(n, device=dev) < nv
+    got, want, got_acc = held(
+        "row-wise Adagrad",
+        lambda a: row_ops.apply_split_rows(table, a, idx, grads, step, opt,
+                                           n_valid, key),
+        lambda a: row_ops.apply_split_rows_reference(
+            table, a, idx, grads, step, opt, n_valid, key), live, acc0)
+    err = (got[:nv].float() - want[:nv].float()).abs().max().item()
+    touched = torch.zeros(CHECK_ROWS, dtype=torch.bool, device=dev)
+    touched[idx[:nv].long()] = True
+    changed = got_acc != acc0
+    if bool(changed[~touched].any()):
+        fail("split kernel wrote accumulators outside the live prefix")
+    if not bool(changed[touched].all()):
+        fail("split kernel left live accumulators unchanged")
+    del got, want, got_acc, changed, touched
+    sched = optimizers.RowWiseAdagrad(learning_rate=lr_schedule)
+    held("schedule",
+         lambda a: row_ops.apply_split_rows(table, a, idx, grads, step,
+                                            sched, n_valid, key),
+         lambda a: row_ops.apply_split_rows_reference(
+             table, a, idx, grads, step, sched, n_valid, key), live, acc0)
+    rows = torch.randn((n, 128), generator=g, device=dev)
+    held("round only",
+         lambda _: row_ops.round_split_rows(rows, idx, step, n_valid, key),
+         lambda _: row_ops.round_split_rows_reference(rows, idx, step,
+                                                      n_valid, key), live)
+    del rows
+    t50 = torch.randn((4096, 50), generator=g, device=dev).to(torch.bfloat16)
+    i50 = torch.randperm(4096, generator=g, device=dev)[:1000].to(
+        torch.int32)
+    g50 = torch.randn((1000, 50), generator=g, device=dev)
+    nv50 = torch.tensor([700], dtype=torch.int32, device=dev)
+    held("dim 50",
+         lambda a: row_ops.apply_split_rows(t50, a, i50, g50, step, opt,
+                                            nv50, key),
+         lambda a: row_ops.apply_split_rows_reference(
+             t50, a, i50, g50, step, opt, nv50, key),
+         torch.arange(1000, device=dev) < 700,
+         torch.rand(4096, generator=g, device=dev) + 0.1)
+    del t50, i50, g50
+
+    acc = acc0.clone()
+    ms, plain_ms, times = time_in_turns(
+        lambda: row_ops.apply_split_rows(table, acc, idx, grads, step, opt,
+                                         n_valid, key),
+        lambda: row_ops.apply_split_rows_reference(
+            table, acc, idx, grads, step, opt, n_valid, key))
+    # Bytes: each live row's f32 gradient, bf16 row read and bf16 row
+    # written, accumulator read and written, and index.
+    moved = nv * (128 * 4 + 2 * 128 * 2 + 8 + 4)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] apply_split_rows N={n} n_valid={nv} rows={CHECK_ROWS}: "
+        f"max_abs_err {err!r} (bit-exact, also with a schedule, round "
+        f"only and at dim 50); kernel {ms!r} ms ({moved / ms / 1e6:.1f} "
+        f"GB/s of {moved / 1e9:.3f} GB), plain {plain_ms!r} ms, bound "
+        f"{bound_ms!r} ms (bytes, {bound_ms / ms:.1%} of it); runs {times}")
+    del table, acc0, acc, grads
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
 SMALL_BATCH = 64  # the small card-vs-CPU models
 
 
@@ -940,7 +1061,8 @@ def state_checksum(state: dict) -> int:
 
 
 ROW_KERNELS = ("apply_scatter_row_blocks", "scatter_row_blocks",
-               "scatter_rows", "_scatter_rows_multi")
+               "scatter_rows", "_scatter_rows_multi", "apply_split_rows",
+               "round_split_rows")
 
 
 def reset_launch_counts() -> None:
@@ -1153,10 +1275,11 @@ def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
     }, slots, stack.sink_slot
 
 
-def run_capacity(seed: int, profile: bool) -> dict:
+def run_capacity(seed: int, profile: bool) -> tuple[dict, dict]:
     """Capacity mode on the uncut Criteo vocabulary: bf16 tables with
-    row-wise Adagrad in one 204,102,451-row stack; B3 checked at this
-    batch's N and n_valid, then trained and scored. Returns B3's entry."""
+    row-wise Adagrad in one 204,102,451-row stack; B3 and the split
+    update's kernel checked at this batch's N and n_valid, then trained
+    and scored. Returns B3's entry and the split kernel's."""
     import torch
 
     cfg = slice_config(vocab_cap=None, table_dtype="bfloat16",
@@ -1173,8 +1296,10 @@ def run_capacity(seed: int, profile: bool) -> dict:
     kernel = phase_scatter_kernel(
         "scatter_rows", [(torch.bfloat16, (128,))], coo["unique_slots"],
         stack.sink_slot, seed)
+    split = phase_split_kernel(coo["unique_slots"], stack.sink_slot, seed)
     run = drive_dlrm(
-        "capacity", model, cfg, seed, fixed, {"scatter_rows": 1},
+        "capacity", model, cfg, seed, fixed,
+        {"scatter_rows": 1, "apply_split_rows": 1},
         FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES, preprocess,
         CAPACITY_PROFILE_PARTS if profile else None)
     if run["peak_gb"] >= PEAK_LIMIT_GB:
@@ -1185,14 +1310,14 @@ def run_capacity(seed: int, profile: bool) -> dict:
     phase_capacity_serve(model, cfg, seed)
     del model, fixed, coo, preprocess
     torch.cuda.empty_cache()
-    return {
-        "name": "scatter_rows",
-        "route": "cuda",
-        "source": "keras_rs_tpu_torch/csrc/row_ops.cu",
-        "replaces": "keras_rs_tpu/ops/row_ops.py:56",
-        "launches": run["launches"]["scatter_rows"],
-        **kernel,
-    }
+    entry = dict(route="cuda", source="keras_rs_tpu_torch/csrc/row_ops.cu")
+    return ({"name": "scatter_rows", **entry,
+             "replaces": "keras_rs_tpu/ops/row_ops.py:56",
+             "launches": run["launches"]["scatter_rows"], **kernel},
+            {"name": "apply_split_rows", **entry,
+             "replaces": "none (XLA ops, keras_rs_tpu/layers/embedding/"
+                         "lookup.py:448-523)",
+             "launches": run["launches"]["apply_split_rows"], **split})
 
 
 def run_short(label: str, seed: int, slots_4m, expect: dict,
@@ -1220,9 +1345,10 @@ def run_short(label: str, seed: int, slots_4m, expect: dict,
 
 def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
     """B4 and B2 at the 4M-cap batch's N and n_valid, the capacity path
-    (B3), the two short paths that launch B4 and B2, and the small
-    capacity-mode model against the CPU. Returns the entries of B2, B3
-    and B4."""
+    (B3 and the split kernel), the two short paths that launch B4 (with
+    the split kernel's round-only instance) and B2, and the small
+    capacity-mode model against the CPU. Returns the entries of B2, B3,
+    B4 and the split kernel."""
     import torch
 
     multi = phase_scatter_kernel(
@@ -1232,12 +1358,14 @@ def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
     blocks = phase_scatter_kernel(
         "scatter_row_blocks", [(torch.float32, (3, 128))],
         slots_4m.cuda(), sink_4m, seed + 2)
-    b3 = run_capacity(seed, profile)
-    phase_small_reference("capacity", "bf16 tables", {"scatter_rows": 3},
+    b3, split = run_capacity(seed, profile)
+    phase_small_reference("capacity", "bf16 tables",
+                          {"scatter_rows": 3, "apply_split_rows": 3},
                           table_dtype="bfloat16",
                           embedding_optimizer="rowwise_adagrad")
     b4_launches = run_short("bf16 adagrad", seed, slots_4m,
-                            {"_scatter_rows_multi": 1},
+                            {"_scatter_rows_multi": 1,
+                             "round_split_rows": 1},
                             table_dtype="bfloat16",
                             embedding_optimizer="adagrad")
     b2_launches = run_short("f32 adam", seed, slots_4m,
@@ -1252,6 +1380,7 @@ def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
         {"name": "_scatter_rows_multi", **entry,
          "replaces": "keras_rs_tpu/ops/row_ops.py:209",
          "launches": b4_launches["_scatter_rows_multi"], **multi},
+        split,
     ]
 
 
@@ -3358,7 +3487,8 @@ def phase_serving_small(seed: int) -> None:
     phase_small_reference("f32 narrow ragged", "f32",
                           {"apply_scatter_row_blocks": 3}, narrow=True)
     phase_small_reference("capacity narrow ragged", "bf16 tables",
-                          {"scatter_rows": 3}, narrow=True,
+                          {"scatter_rows": 3, "apply_split_rows": 3},
+                          narrow=True,
                           table_dtype="bfloat16",
                           embedding_optimizer="rowwise_adagrad")
 
@@ -4557,6 +4687,78 @@ def scatter_held_to_plain():
 
 
 @contextlib.contextmanager
+def split_held_to_plain():
+    """While open, every call of the split update's kernel (the lookup's
+    apply_split_rows and round_split_rows) is held to its plain version:
+    before the launch the plain version runs on a copy of the
+    accumulator; after it the live rows of the two bf16 buffers and the
+    two whole accumulators must be equal, bit for bit. Yields a list with
+    one 0-dim device tensor per call (the count of differing elements),
+    read once the steps are done: the check makes no host read inside
+    the step."""
+    import torch
+
+    from keras_rs_tpu_torch.layers.embedding import lookup
+    from keras_rs_tpu_torch.ops import row_ops
+
+    launch_apply, launch_round = (lookup.apply_split_rows,
+                                  lookup.round_split_rows)
+    calls: list = []
+
+    def differing(out, want, n_valid):
+        live = torch.arange(out.shape[0], device=out.device) < (
+            n_valid.reshape(()))
+        return ((bits(out) != bits(want)) & live[:, None]).sum()
+
+    def held_apply(table, acc, idx, grads, scalars, optimizer, n_valid,
+                   seed):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)  # the check's own work
+        want_acc = acc.clone()
+        want = row_ops.apply_split_rows_reference(
+            table, want_acc, idx, grads, scalars, optimizer, n_valid, seed)
+        torch.cuda.set_sync_debug_mode(mode)
+        out = launch_apply(table, acc, idx, grads, scalars, optimizer,
+                           n_valid, seed)
+        torch.cuda.set_sync_debug_mode(0)
+        calls.append(differing(out, want, n_valid)
+                     + (bits(acc) != bits(want_acc)).sum())
+        del want, want_acc
+        torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    def held_round(rows, idx, scalars, n_valid, seed):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        want = row_ops.round_split_rows_reference(rows, idx, scalars,
+                                                  n_valid, seed)
+        torch.cuda.set_sync_debug_mode(mode)
+        out = launch_round(rows, idx, scalars, n_valid, seed)
+        torch.cuda.set_sync_debug_mode(0)
+        calls.append(differing(out, want, n_valid))
+        del want
+        torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    lookup.apply_split_rows = held_apply
+    lookup.round_split_rows = held_round
+    try:
+        yield calls
+    finally:
+        lookup.apply_split_rows = launch_apply
+        lookup.round_split_rows = launch_round
+
+
+@contextlib.contextmanager
+def scatter_and_split_held_to_plain():
+    """scatter_held_to_plain and split_held_to_plain at once; yields
+    their two lists."""
+    with scatter_held_to_plain() as scatters, \
+            split_held_to_plain() as splits:
+        yield scatters, splits
+
+
+@contextlib.contextmanager
 def prefetch_on_main_stream():
     """While open, the pipelined step's side stream is the current
     stream (the pipelined module's `torch.cuda.Stream(device)` gives
@@ -4841,10 +5043,12 @@ def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
 def run_pipelined_split(dev, seed: int, profile: bool) -> None:
     """Phase 31: the pipelined step in the split layout, bf16 tables with
     row-wise Adagrad at the 4M cap, device preprocessing: 8 steps on one
-    batch (loss falls), 3 fresh; the first PIPE_RACE_STEPS race-checked
-    and every row scatter held to its plain version; B3 once per step and
-    stack, no other launch; the host syncs of one step (the rounding's
-    seed reads the step counter) and the overlap that is left; last, the
+    batch (loss falls), 3 fresh; the first PIPE_RACE_STEPS race-checked,
+    every row scatter and every split kernel call held to its plain
+    version; B3 and the split kernel once per step and stack, no other
+    launch; the host syncs of one step (none expected: the rounding's
+    bits come from the step counter on the device) and the overlap that
+    is left; last, the
     same steps under deterministic algorithms held bit for bit to the
     prefetch on the main stream (held_to_main_stream)."""
     import torch
@@ -4881,7 +5085,8 @@ def run_pipelined_split(dev, seed: int, profile: bool) -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, races = [], []
-    with scatter_held_to_plain() as scatters:
+    with scatter_held_to_plain() as scatters, \
+            split_held_to_plain() as splits:
         for i, batch in enumerate(order):
             nxt = get_pre(order[min(i + 1, len(order) - 1)])
             if i < PIPE_RACE_STEPS:
@@ -4894,12 +5099,14 @@ def run_pipelined_split(dev, seed: int, profile: bool) -> None:
     losses = [float(x) for x in losses]
     races = [int(x) for x in races]
     scatters = [int(x) for x in scatters]
+    splits = [int(x) for x in splits]
     n = len(order)
     log(f"[launches] phase 31 pipelined split: {counts}")
     log(f"[pipelined split] {n} steps: losses {losses}; prefetch against a "
         f"main-stream gather, elements differing {races}; row scatters "
         f"against the plain version, elements differing per call "
-        f"{scatters}; step counter "
+        f"{scatters}; split kernel against its plain version (rows and "
+        f"accumulators), elements differing per call {splits}; step counter "
         f"{float(model.embedding_layer.stack_state(0)['step'])}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not all(map(math.isfinite, losses)):
@@ -4907,9 +5114,12 @@ def run_pipelined_split(dev, seed: int, profile: bool) -> None:
     if not losses[SPLIT_FIXED_STEPS - 1] < losses[0]:
         fail(f"pipelined split: loss did not fall on the fixed batch: "
              f"{losses}")
-    if any(races) or len(scatters) != n or any(scatters):
-        fail(f"pipelined split: race {races}, scatters {scatters}")
-    want = {k: n if k == "scatter_rows" else 0 for k in counts}
+    if (any(races) or len(scatters) != n or any(scatters)
+            or len(splits) != n or any(splits)):
+        fail(f"pipelined split: race {races}, scatters {scatters}, split "
+             f"kernel {splits}")
+    want = {k: n if k in ("scatter_rows", "apply_split_rows") else 0
+            for k in counts}
     if counts != want:
         fail(f"pipelined split: launches {counts}, expected {want}")
     sites = sync_sites(lambda: pstep(state, fresh[-1], get_pre(fresh[-1])))
@@ -5162,6 +5372,15 @@ def run_bench(dev) -> None:
                  f"elements differing {differing}")
         return f"{len(differing)} B3 call, elements differing {differing}"
 
+    def b3_split_check(calls):
+        scatters, splits = calls
+        differing = [int(c) for c in splits]
+        if len(differing) != 1 or any(differing):
+            fail(f"bench: split kernel calls of one step against the plain "
+                 f"version: elements differing {differing}")
+        return (f"{b3_check(scatters)}; {len(differing)} split kernel "
+                f"call, elements differing {differing}")
+
     t0 = time.perf_counter()
     for label, make in (("packed f32 + Adagrad", make_ours),
                         ("pipelined", make_pipelined),
@@ -5173,9 +5392,10 @@ def run_bench(dev) -> None:
         dict(expect, apply_scatter_row_blocks=(
             ours + iters * (blocks + 1) + iters * (max(3, blocks - 2) + 1))))
     held_step("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV, make_ours,
-              scatter_held_to_plain, b3_check)
+              scatter_and_split_held_to_plain, b3_split_check)
     capacity = bench_line("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV,
-                          BENCH_KEYS, dict(expect, scatter_rows=ours))
+                          BENCH_KEYS, dict(expect, scatter_rows=ours,
+                                           apply_split_rows=ours))
     log(f"[bench] ({card_line()}) ours {piped['value']} examples/s "
         f"({piped['step_ms']} ms), naive x{piped['vs_baseline']}, "
         f"pipelined {piped['pipelined_step_ms']} ms, flagship "
@@ -5778,7 +5998,8 @@ def rank_split(rank: int, world: int, seed: int) -> dict:
     Adagrad at the 4M cap, device preprocessing, SHARD_SPLIT_STEPS
     data-parallel steps on one batch (the global loss falls), every
     row scatter (B3 on the rank's shard) held to its plain version on a
-    copy of the whole shard, B3 once per step."""
+    copy of the whole shard and every split kernel call to its plain
+    version, B3 and the split kernel once per step."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
@@ -5814,15 +6035,19 @@ def rank_split(rank: int, world: int, seed: int) -> dict:
                            DenseAdagrad(model.parameters(),
                                         cfg.learning_rate), mesh=mesh)
     reset_launch_counts()
-    with scatter_held_to_plain() as calls:
+    with scatter_held_to_plain() as calls, split_held_to_plain() as splits:
         losses = [float(step(batch)) for _ in range(SHARD_SPLIT_STEPS)]
     counts = launch_counts()
     differ = [int(c) for c in calls]
-    want = {k: SHARD_SPLIT_STEPS if k == "scatter_rows" else 0
+    split_differ = [int(c) for c in splits]
+    want = {k: SHARD_SPLIT_STEPS
+            if k in ("scatter_rows", "apply_split_rows") else 0
             for k in counts}
-    if counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS:
+    if (counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS
+            or any(split_differ) or len(split_differ) != SHARD_SPLIT_STEPS):
         fail(f"rank {rank}: split layout launches {counts} (expected "
-             f"{want}), elements differing from the plain scatter {differ}")
+             f"{want}), elements differing from the plain scatter {differ}, "
+             f"from the plain split update {split_differ}")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         fail(f"rank {rank}: split layout losses {losses}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5830,7 +6055,10 @@ def rank_split(rank: int, world: int, seed: int) -> dict:
          f"{tuple(model.embedding_layer.stack_state(0)['table'].shape)}; "
          f"losses {losses}; B3 launches {counts['scatter_rows']}, each "
          f"held to the plain scatter on a copy of the shard (elements "
-         f"differing {differ}); peak device memory {peak:.2f} GB")
+         f"differing {differ}); split kernel launches "
+         f"{counts['apply_split_rows']}, each held to its plain version "
+         f"(elements differing {split_differ}); peak device memory "
+         f"{peak:.2f} GB")
     del model, step, batch
     torch.cuda.empty_cache()
     return {"losses": losses, "counts": counts, "peak_gb": peak}
@@ -6052,7 +6280,8 @@ def rank_pipelined_split(rank: int, world: int, seed: int) -> dict:
     cap) in the pipelined step at D = 2, device preprocessing: one batch
     SHARD_SPLIT_STEPS times (its own prefetch target), the global loss
     falls, every row scatter (B3 on the rank's shard) held to its plain
-    version on a copy of the whole shard, B3 once per step."""
+    version on a copy of the whole shard and every split kernel call to
+    its plain version, B3 and the split kernel once per step."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
@@ -6084,22 +6313,28 @@ def rank_pipelined_split(rank: int, world: int, seed: int) -> dict:
     pstep = pipelining.make_pipelined_train_step(
         bce_loss, opt, embed_fn, get_pre, inject, mesh=mesh)
     reset_launch_counts()
-    with scatter_held_to_plain() as calls:
+    with scatter_held_to_plain() as calls, split_held_to_plain() as splits:
         losses = [float(pstep(state, batch, get_pre(batch))[1])
                   for _ in range(SHARD_SPLIT_STEPS)]
     counts = launch_counts()
     differ = [int(c) for c in calls]
-    want = {k: SHARD_SPLIT_STEPS if k == "scatter_rows" else 0
+    split_differ = [int(c) for c in splits]
+    want = {k: SHARD_SPLIT_STEPS
+            if k in ("scatter_rows", "apply_split_rows") else 0
             for k in counts}
-    if counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS:
+    if (counts != want or any(differ) or len(differ) != SHARD_SPLIT_STEPS
+            or any(split_differ) or len(split_differ) != SHARD_SPLIT_STEPS):
         fail(f"rank {rank}: pipelined split launches {counts} (expected "
-             f"{want}), elements differing from the plain scatter {differ}")
+             f"{want}), elements differing from the plain scatter {differ}, "
+             f"from the plain split update {split_differ}")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         fail(f"rank {rank}: pipelined split losses {losses}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     rlog(rank, f"[pipelined split D = {world}] losses {losses}; B3 "
          f"launches {counts['scatter_rows']}, each held to the plain "
          f"scatter on a copy of the shard (elements differing {differ}); "
+         f"split kernel launches {counts['apply_split_rows']}, each held "
+         f"to its plain version (elements differing {split_differ}); "
          f"peak device memory {peak:.2f} GB")
     del model, opt, state, pstep, batch
     torch.cuda.empty_cache()
@@ -6467,6 +6702,8 @@ def run_sharded(seed: int) -> dict[str, int]:
             r["counts"]["apply_scatter_row_blocks"] for r in ml + piped),
         "scatter_rows": sum(s["counts"]["scatter_rows"]
                             for s in split + piped_split),
+        "apply_split_rows": sum(s["counts"]["apply_split_rows"]
+                                for s in split + piped_split),
     }
 
 

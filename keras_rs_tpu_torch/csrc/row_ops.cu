@@ -13,6 +13,11 @@
 //      _block_kernel      (scatter_row_blocks, B2):  packed[idx[i]] = blk[i],
 //                                                    a [k, dim] row group
 //    See the section comment above scatter_rows_kernel.
+// 3. apply_split_rows_kernel: the split layout's update of a bf16 table
+//    (gather, row-wise Adagrad, stochastic rounding with Philox bits) into a
+//    [n, dim] buffer that scatter_rows_kernel then writes back. It replaces
+//    no Pallas kernel: the JAX package leaves this chain to XLA
+//    (lookup.py:448-523). See the section comment above it.
 //
 // ---------------------------------------------------------------------------
 // 1. Fused apply + block scatter.
@@ -301,4 +306,291 @@ extern "C" int krt_scatter_rows(int k, void* const* dst,
       st, static_cast<const int32_t*>(idx),
       static_cast<const int32_t*>(n_valid), num_rows, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// 3. Split-layout update of bf16 tables.
+//
+// What it computes, for every live position i < n_valid, with r = idx[i]:
+//   apply (row-wise Adagrad, kApply):
+//     g = src[i]                           // [dim] f32 row gradient
+//     a = acc[r] + sum(g^2)                // in place
+//     out[i] = round(w[r] - lr * g / (sqrt(a) + eps))
+//   round only (any other optimizer, whose new rows PyTorch computed):
+//     out[i] = round(src[i])
+// round() is the stochastic rounding of ops/quant.py,
+// `(bits(x) + (bits & 0xFFFF)) >> 16`, whose bits come from Philox4x32-10
+// (Salmon et al., SC'11) keyed with the 64-bit `seed + step` and counted
+// by (r, column / 4): one call gives the bits of the four columns a lane
+// holds. `step` is scalars[0], the stack's step counter in device memory,
+// so the caller reads nothing on the host; the bits depend neither on a
+// row's place in idx nor on the launch geometry. The learning rate is
+// `lr`, or scalars[lr_index] (a schedule computed on the device), as in
+// kernel 1. Positions past n_valid, and with kApply rows outside
+// [0, num_rows), are skipped: their out rows are left as they were. Round
+// only, idx is the counter alone (the table is not passed).
+//
+// The JAX package gathers the rows and slots, applies the optimizer and
+// rounds as separate XLA ops; in PyTorch the same chain was ten or so
+// passes over [n, dim] f32 temporaries. Here each warp reads its row's
+// gradient, bf16 row and accumulator once and writes the rounded row and
+// the accumulator once. The live prefix of idx is unique, so no two warps
+// touch one accumulator.
+//
+// Bound: HBM bytes. Per live row: the f32 gradient (4 * dim), the bf16 row
+// read and the bf16 out row written (2 * 2 * dim), the accumulator read
+// and written (8) and the index (4): 1,036 bytes at dim 128. Design: one
+// warp per row; at dim 128 each lane holds four columns: one 16-byte
+// gradient load, one 8-byte row load and one 8-byte store, all coalesced
+// across the warp. Each lane holds its columns in registers (a template
+// count of 4-column groups, up to dim 1,024), so every load of a row (the
+// gradient, the table row, the accumulator) is issued at once after the
+// index: one round trip to memory a row, where a loop that read the table
+// row only after the sum of squares took three in a chain. The row's sum of squares is a butterfly
+// of warp shuffles, so every lane ends with the same sum, taken in the
+// order of the plain version (four columns per lane, then a halving tree
+// over the 32 lanes). Philox costs 20 integer multiplies per four columns,
+// well under the memory time. Rows whose width or alignment does not allow
+// the vector loads take 4-byte and 2-byte loads in the same order (kVec
+// off).
+//
+// Numerics: -fmad=false and IEEE sqrt and division, as in kernel 1: every
+// operation rounds once in the plain version's order, so the two agree
+// bit for bit.
+
+namespace {
+
+// Widest row the kernel takes: 8 groups of 4 columns a lane.
+constexpr int kMaxSplitDim = 1024;
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
+// Philox4x32-10: ten rounds, the key bumped before every round but the
+// first (Random123's philox4x32_R(10, ...)).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    if (round > 0) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
+    const uint32_t lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
+    const uint32_t lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint16_t round_bf16(float x, uint32_t bits) {
+  return static_cast<uint16_t>((__float_as_uint(x) + (bits & 0xFFFFu)) >> 16);
+}
+
+__device__ __forceinline__ float bf16_to_float(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Four consecutive columns [c, c + 4) of a row; with kVec the caller
+// guarantees c + 4 <= dim and the alignment of one vector load.
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* p, int c, int dim,
+                                      float v[4]) {
+  if (kVec) {
+    const float4 x = *reinterpret_cast<const float4*>(p + c);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = c + j < dim ? p[c + j] : 0.0f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void load4(const uint16_t* p, int c, int dim,
+                                      float v[4]) {
+  if (kVec) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p + c);
+    v[0] = bf16_to_float(x.x & 0xFFFFu), v[1] = bf16_to_float(x.x >> 16);
+    v[2] = bf16_to_float(x.y & 0xFFFFu), v[3] = bf16_to_float(x.y >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = c + j < dim ? bf16_to_float(p[c + j]) : 0.0f;
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(uint16_t* p, int c, int dim,
+                                       const uint16_t h[4]) {
+  if (kVec) {
+    *reinterpret_cast<uint2*>(p + c) =
+        make_uint2(h[0] | static_cast<uint32_t>(h[1]) << 16,
+                   h[2] | static_cast<uint32_t>(h[3]) << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (c + j < dim) p[c + j] = h[j];
+    }
+  }
+}
+
+// The kernel's arguments, one struct so that each of its instances takes
+// the same launch.
+struct SplitArgs {
+  const uint16_t* table;  // [num_rows, dim] bf16 (apply)
+  float* acc;             // [num_rows] f32, updated in place (apply)
+  const float* src;       // [n, dim] f32: gradients (apply) or new rows
+  uint16_t* out;          // [n, dim] bf16
+  const int32_t* idx;
+  const float* scalars;   // [0]: the step; [lr_index]: a scheduled rate
+  const int32_t* n_valid;
+  int64_t num_rows;
+  int64_t n;
+  int dim;
+  float lr;
+  int lr_index;
+  float eps;
+  uint64_t seed;
+};
+
+// kChunks: the 4-column groups a lane holds (columns lane * 4 + 128 * k),
+// at least ceil(dim / 128); every load of a row is issued before the first
+// is used, so a row costs one index read and then one round trip to memory.
+template <bool kApply, bool kVec, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+    apply_split_rows_kernel(const SplitArgs p) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  int64_t live = *p.n_valid;
+  live = live < 0 ? 0 : (live > p.n ? p.n : live);
+  if (i >= live) return;  // uniform over the warp, as is the next check
+  const int64_t r = p.idx[i];
+  if (kApply && (r < 0 || r >= p.num_rows)) return;
+  const int dim = p.dim;
+  const float* s = p.src + i * dim;
+  const uint16_t* w = p.table + r * dim;
+  float x[kChunks][4] = {};
+  float v[kChunks][4] = {};
+  // Lane 0 reads and writes the accumulator; a shuffle hands it on.
+  const float a0 = kApply && lane == 0 ? p.acc[r] : 0.0f;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = lane * 4 + 128 * k;
+    if (c < dim) {
+      load4<kVec>(s, c, dim, x[k]);
+      if (kApply) load4<kVec>(w, c, dim, v[k]);
+    }
+  }
+  const uint64_t key = p.seed + static_cast<uint64_t>(
+                                    static_cast<int64_t>(p.scalars[0]));
+  const uint32_t k0 = static_cast<uint32_t>(key);
+  const uint32_t k1 = static_cast<uint32_t>(key >> 32);
+  float denom = 0.0f, rate = 0.0f;
+  if (kApply) {
+    float ssq = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (lane * 4 + 128 * k < dim) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ssq = ssq + x[k][j] * x[k][j];
+      }
+    }
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      ssq = ssq + __shfl_xor_sync(0xffffffffu, ssq, offset);
+    }
+    const float a = __shfl_sync(0xffffffffu, a0, 0) + ssq;
+    denom = sqrtf(a) + p.eps;
+    rate = p.lr_index >= 0 ? p.scalars[p.lr_index] : p.lr;
+    if (lane == 0) p.acc[r] = a;
+  }
+  uint16_t* o = p.out + i * dim;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = lane * 4 + 128 * k;
+    if (c >= dim) break;
+    if (kApply) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        x[k][j] = v[k][j] - rate * (x[k][j] / denom);
+      }
+    }
+    const uint4 bits = philox4x32_10(
+        make_uint4(static_cast<uint32_t>(r), static_cast<uint32_t>(c >> 2),
+                   0u, 0u),
+        k0, k1);
+    const uint16_t h[4] = {
+        round_bf16(x[k][0], bits.x), round_bf16(x[k][1], bits.y),
+        round_bf16(x[k][2], bits.z), round_bf16(x[k][3], bits.w)};
+    store4<kVec>(o, c, dim, h);
+  }
+}
+
+template <bool kApply, bool kVec>
+int launch_split(const SplitArgs& p, unsigned int grid, cudaStream_t stream) {
+  const int chunks = (p.dim + 127) / 128;
+  if (chunks == 1) {
+    apply_split_rows_kernel<kApply, kVec, 1><<<grid, kThreads, 0, stream>>>(p);
+  } else if (chunks == 2) {
+    apply_split_rows_kernel<kApply, kVec, 2><<<grid, kThreads, 0, stream>>>(p);
+  } else if (chunks <= 4) {
+    apply_split_rows_kernel<kApply, kVec, 4><<<grid, kThreads, 0, stream>>>(p);
+  } else if (chunks <= 8) {
+    apply_split_rows_kernel<kApply, kVec, 8><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    return kUnsupported;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// apply 1: row-wise Adagrad from the gradients `src` [n, dim] f32, the bf16
+// `table` [num_rows, dim] and the f32 accumulator `acc` [num_rows] (updated
+// in place); apply 0: `src` holds the new f32 rows, `table`, `acc` and
+// num_rows are unused (may be null / 0). Either way writes the rounded bf16
+// rows to `out` [n, dim] for the live positions; dim is at most 1,024. `seed` is the Philox key less the step,
+// which the kernel adds from scalars[0]. lr_index as for
+// krt_apply_scatter_row_blocks. Returns cudaGetLastError() after the
+// launch, or -1 for an unsupported argument or grid; 0 means launched.
+extern "C" int krt_split_rows(const void* table, void* acc, const void* src,
+                              void* out, const void* idx,
+                              const void* scalars, const void* n_valid,
+                              long long num_rows, long long n, int dim,
+                              int apply, float lr, int lr_index, float eps,
+                              unsigned long long seed, void* stream) {
+  if (n <= 0) return 0;
+  if (dim <= 0 || dim > kMaxSplitDim ||
+      (apply && (table == nullptr || acc == nullptr))) {
+    return kUnsupported;
+  }
+  const int64_t rows_per_block = kThreads / 32;
+  const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > 0x7fffffffLL) return kUnsupported;
+  const uintptr_t align8 = reinterpret_cast<uintptr_t>(table) |
+                           reinterpret_cast<uintptr_t>(out);
+  const bool vec = dim % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   align8 % 8 == 0;
+  const SplitArgs p{static_cast<const uint16_t*>(table),
+                    static_cast<float*>(acc),
+                    static_cast<const float*>(src),
+                    static_cast<uint16_t*>(out),
+                    static_cast<const int32_t*>(idx),
+                    static_cast<const float*>(scalars),
+                    static_cast<const int32_t*>(n_valid),
+                    num_rows, n, dim, lr, lr_index, eps, seed};
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (apply) {
+    return vec ? launch_split<true, true>(p, grid, st)
+               : launch_split<true, false>(p, grid, st);
+  }
+  return vec ? launch_split<false, true>(p, grid, st)
+             : launch_split<false, false>(p, grid, st);
 }

@@ -26,11 +26,16 @@ the two [., dim] exchanges run over the mesh axis's process group
       * packed state, other optimizers (Adam, FTRL): gather the [k, dim]
         blocks, `optimizer.apply`, write the blocks back
         (scatter_row_blocks_unique, kernel B2);
-      * split state: gather the rows and the slot rows, `optimizer.apply`,
-        stochastic rounding for bf16 tables, then one scatter of the table
-        and every [R, dim] slot (scatter_rows_unique_multi: B3 for the
-        table alone, B4 for the table with slots) and `index_copy_` for
-        each row-wise [R] slot.
+      * split state, bf16 table + row-wise Adagrad: one kernel gathers,
+        applies, updates the accumulator in place and rounds the new
+        rows stochastically (ops/row_ops.py::apply_split_rows), then B3
+        scatters them;
+      * split state, other: gather the rows and the slot rows,
+        `optimizer.apply`, stochastic rounding for bf16 tables
+        (round_split_rows), then one scatter of the table and every
+        [R, dim] slot (scatter_rows_unique_multi: B3 for the table
+        alone, B4 for the table with slots) and `index_copy_` for each
+        row-wise [R] slot.
 
   at D > 1 the forward is the sorted one over all D * S_l global
   segments (partial sums of this shard's rows for every rank's
@@ -58,17 +63,20 @@ import torch
 
 from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
 from keras_rs_tpu_torch.parallel import collectives
-from keras_rs_tpu_torch.ops.quant import cast_rows_for_storage
 from keras_rs_tpu_torch.ops.row_ops import (
     FUSED_OPTIMIZERS,
+    SPLIT_FUSED_OPTIMIZERS,
     apply_scatter_row_blocks,
+    apply_split_rows,
+    round_split_rows,
     scatter_row_blocks_unique,
     scatter_rows_unique_multi,
 )
 from keras_rs_tpu_torch.utils import tracing
 
-#: Seed base of the stochastic rounding of bf16 rows; the step count is
-#: added, so a run repeats itself (the JAX package folds its step into
+#: Philox key base of the stochastic rounding of bf16 rows; the kernel
+#: adds the step count from the device and the shard sits at bit 24, so a
+#: run repeats itself (the JAX package folds its step into
 #: jax.random.key(0x5EED)).
 ROUNDING_SEED = 0x5EED << 32
 
@@ -249,9 +257,23 @@ def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
                   u_slots: torch.Tensor, row_grads: torch.Tensor,
                   n_valid: torch.Tensor, shard: int = 0) -> None:
     """The split layout's update (JAX lookup.py:448-523, without the
-    bit-packed branches)."""
+    bit-packed branches). A bf16 table rounds its new rows stochastically
+    with bits drawn on the device from the step and the shard (as the
+    JAX package folds in both), so no host read: with row-wise Adagrad
+    the whole update but the scatter is one kernel (apply_split_rows,
+    counted as "embedding.split_fused_rows"); other optimizers apply in
+    PyTorch and round with round_split_rows."""
     optimizer = stack.optimizer
     table, slots, step = state["table"], state["slots"], state["step"]
+    bf16 = table.dtype == torch.bfloat16
+    seed = ROUNDING_SEED + (shard << 24)
+    if bf16 and optimizer.name in SPLIT_FUSED_OPTIMIZERS:
+        tracing.count("embedding.split_fused_rows", n_valid)
+        new_rows = apply_split_rows(
+            table, slots["accumulator"], u_slots, row_grads,
+            step.reshape(1), optimizer, n_valid, seed)
+        scatter_rows_unique_multi([table], u_slots, [new_rows], n_valid)
+        return
     u64 = u_slots.long()
     rows = table[u64].float()
     slot_rows = {k: v[u64] for k, v in slots.items()}
@@ -259,17 +281,9 @@ def _split_update(stack: TableStack, state: dict[str, torch.Tensor],
         rows, row_grads, slot_rows, step
     )
     del rows, slot_rows
-    generator = None
-    if table.dtype == torch.bfloat16:
-        # Stochastic rounding with bits seeded from the step and the
-        # shard (as the JAX package folds in both): one host read of the
-        # step counter per bf16 stack and step.
-        with tracing.span("host_sync", site="rounding_seed"):
-            seed = int(step)
-        generator = torch.Generator(device=table.device).manual_seed(
-            ROUNDING_SEED + seed + (shard << 24)
-        )
-    new_rows = cast_rows_for_storage(new_rows, table.dtype, generator)
+    if bf16:
+        new_rows = round_split_rows(new_rows, u_slots, step.reshape(1),
+                                    n_valid, seed)
     row_keys = [k for k in slots if slots[k].ndim == 2]
     scatter_rows_unique_multi(
         [table] + [slots[k] for k in row_keys],

@@ -84,7 +84,6 @@ def test_span_tree_of_one_step(layout):
     want = (["embedding.coo"] * (1 + n_stacks)
             + ["embedding.lookup"] * n_stacks
             + ["embedding.update"] * n_stacks
-            + ["host_sync"] * (n_stacks if layout == "capacity" else 0)
             + ["step", "step.backward", "step.forward", "step.optimizer"])
     assert names == sorted(want)
 
@@ -101,9 +100,6 @@ def test_span_tree_of_one_step(layout):
             assert parent(s) == "step.forward"
         elif s.name == "embedding.update":
             assert parent(s) == "step.backward"
-        elif s.name == "host_sync":
-            assert parent(s) == "embedding.update"
-            assert s.attrs == {"site": "rounding_seed"}
         if s.parent is not None:
             p = by_id[s.parent]
             assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
@@ -145,12 +141,28 @@ def test_dropped_ids_sum_the_device_stats():
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_host_sync_spans_per_step(layout):
+    """No layout reads the device on the host inside a step: the bf16
+    stacks draw their rounding bits from the step on the device."""
     model, _ = _traced(layout, n=2)
     syncs = [s for s in tracing.spans() if s.name == "host_sync"]
     bf16 = sum(st.storage_dtype == torch.bfloat16
                for st in model.embedding_layer.stacks)
-    assert len(syncs) == 2 * bf16
+    assert syncs == []
     assert (bf16 > 0) == (layout == "capacity")
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_split_fused_rows_count_the_unique_rows_of_capacity(layout):
+    """The fused split update (bf16 + row-wise Adagrad) updates every
+    unique row of the capacity stacks; packed stacks never reach it."""
+    _traced(layout, n=3)
+    got = tracing.counters()
+    if layout == "capacity":
+        assert got["embedding.split_fused_rows"] == got[
+            "embedding.unique_rows"] > 0
+    else:
+        assert "embedding.split_fused_rows" not in got
+        assert got["embedding.unique_rows"] > 0
 
 
 def test_tracing_off_records_nothing():
@@ -207,7 +219,8 @@ def test_profiler_holds_the_spans(tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     got = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {s.name for s in tracing.spans()} <= got
-    assert {"step", "step.forward", "embedding.update", "host_sync"} <= got
+    assert {"step", "step.forward", "embedding.update",
+            "embedding.lookup"} <= got
 
 
 def test_a_thread_without_open_spans_parents_to_the_step_thread():
