@@ -120,6 +120,8 @@ def test_measure_rehearses_a_small_cell_on_the_cpu(workload):
     assert m["unique_row_share"] == pytest.approx(
         got["unique_rows_of_the_batches"] / got["counters"]["embedding.ids"])
     assert got["counters"]["embedding.dropped_ids"] == 0
-    assert (m["host_sync_ms"] > 0) == (workload == "dlrm-capacity.multihot")
+    # No step reads a value back to the host in either layout: the split
+    # update draws its rounding bits from the step on the device.
+    assert m["host_sync_ms"] == 0
     assert m["to_device_ms"] > 0 and m["dense_host_ms"] > 0
     assert 0 < got["step_layers_host_ms"] <= got["step_span_ms"]
