@@ -23,6 +23,9 @@ from typing import Any, Callable, Iterator
 
 from keras_rs_tpu_torch.utils import tracing
 
+#: How often `stop` drains the queue while it waits for a worker to exit.
+STOP_POLL_S = 0.01
+
 
 class ThreadedDataLoader:
     """Prefetching loader running `preprocess_fn` in worker threads and
@@ -61,7 +64,10 @@ class ThreadedDataLoader:
             w.start()
 
     def stop(self) -> None:
-        """Stops the workers (no more batches are pulled from the source).
+        """Stops the workers (no more batches are pulled from the source)
+        and returns once every one has exited, so that nothing a worker
+        holds (`preprocess_fn`, and what it closes over) outlives the
+        call; the batches still queued are dropped.
 
         Call when training ends before the source is exhausted (an
         infinite stream); otherwise daemon workers keep preprocessing
@@ -69,12 +75,19 @@ class ThreadedDataLoader:
         """
         with self._source_lock:
             self._exhausted = True
-        # Unblock workers stuck on a full queue.
+        for w in self._workers:
+            while w.is_alive():
+                self._drain()  # a worker may wait on a full queue
+                w.join(STOP_POLL_S)
+        self._drain()
+        self._out.put(self._DONE)
+
+    def _drain(self) -> None:
         while True:
             try:
                 self._out.get_nowait()
             except queue.Empty:
-                break
+                return
 
     def __enter__(self):
         return self

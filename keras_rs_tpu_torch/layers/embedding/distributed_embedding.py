@@ -103,7 +103,7 @@ from keras_rs_tpu_torch.layers.embedding.embed_reduce import (
 )
 from keras_rs_tpu_torch.layers.embedding.optimizers import SGD
 from keras_rs_tpu_torch.layers.embedding.lookup import (
-    init_stack_state,
+    build_stack_state,
     merge_cotangents,
     split_activations,
     stack_lookup,
@@ -118,7 +118,6 @@ from keras_rs_tpu_torch.layers.embedding.preprocessing import (
 from keras_rs_tpu_torch.layers.embedding.stacking import (
     TableStack,
     build_stacks,
-    init_stack_table,
     scatter_table,
     shard_block,
     table_rows,
@@ -366,12 +365,10 @@ class DistributedEmbedding(nn.Module):
         )
         table_configs = {fc.table.name: fc.table for fc in leaves}
         for i, stack in enumerate(self.stacks):
-            table = init_stack_table(
+            state = build_stack_state(
                 stack, table_configs, generator, self.device,
                 shard=self.shard,
             )
-            state = init_stack_state(stack, table)
-            del table
             self.register_buffer(f"stack{i}_table", state["table"])
             for name, slot in state.get("slots", {}).items():
                 self.register_buffer(f"stack{i}_slot_{name}", slot)

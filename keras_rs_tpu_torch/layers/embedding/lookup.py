@@ -61,7 +61,11 @@ from typing import Any, Mapping
 
 import torch
 
-from keras_rs_tpu_torch.layers.embedding.stacking import TableStack
+from keras_rs_tpu_torch.layers.embedding.stacking import (
+    INIT_CHUNK_ROWS,
+    TableStack,
+    init_stack_table,
+)
 from keras_rs_tpu_torch.parallel import collectives
 from keras_rs_tpu_torch.ops.row_ops import (
     FUSED_OPTIMIZERS,
@@ -95,30 +99,61 @@ def init_stack_state(
     slot}, "step": []}. Slots stay f32 for bf16 tables.
     """
     R, dim = table.shape
+    if stack.packed_state:
+        state = _packed_state(stack, R, table.dtype, table.device)
+        state["table"][:, 0] = table
+        return state
     opt = stack.optimizer
-    step = torch.zeros((), dtype=torch.float32, device=table.device)
-    if not stack.packed_state:
-        slots = {
-            name: opt.init_slot(
-                name, (R,) if name in opt.rowwise_slots else (R, dim),
-                torch.float32, table.device,
-            )
-            for name in opt.slot_names
-        }
-        return {
-            "table": table.to(stack.storage_dtype),
-            "slots": slots,
-            "step": step,
-        }
-    packed = torch.empty(
-        (R, stack.state_stride, dim), dtype=table.dtype, device=table.device
-    )
-    packed[:, 0] = table
-    for i, name in enumerate(opt.slot_names):
-        packed[:, 1 + i] = opt.init_slot(
-            name, (R, dim), table.dtype, table.device
+    slots = {
+        name: opt.init_slot(
+            name, (R,) if name in opt.rowwise_slots else (R, dim),
+            torch.float32, table.device,
         )
-    return {"table": packed, "step": step}
+        for name in opt.slot_names
+    }
+    return {
+        "table": table.to(stack.storage_dtype),
+        "slots": slots,
+        "step": torch.zeros((), dtype=torch.float32, device=table.device),
+    }
+
+
+def build_stack_state(
+    stack: TableStack,
+    table_configs: Mapping[str, Any],
+    generator: torch.Generator | None = None,
+    device=None,
+    shard: int | None = None,
+    chunk_rows: int = INIT_CHUNK_ROWS,
+) -> dict[str, torch.Tensor]:
+    """`init_stack_state(stack, init_stack_table(stack, table_configs,
+    generator, device, chunk_rows, shard))`, the same bits, built in
+    place: a packed stack's table is drawn straight into the state's
+    table rows and each slot filled in its own rows, so the build holds
+    the state and one initialization chunk (init_stack_table), never a
+    [R, dim] table or slot beside the state. A split stack's state holds
+    the drawn table itself, so its build is init_stack_state's."""
+    if not stack.packed_state:
+        return init_stack_state(stack, init_stack_table(
+            stack, table_configs, generator, device, chunk_rows, shard))
+    rows = stack.global_rows if shard is None else stack.rows_per_shard
+    state = _packed_state(stack, rows, stack.storage_dtype, device)
+    init_stack_table(stack, table_configs, generator, device, chunk_rows,
+                     shard, out=state["table"][:, 0])
+    return state
+
+
+def _packed_state(stack: TableStack, rows: int, dtype: torch.dtype,
+                  device) -> dict[str, torch.Tensor]:
+    """A packed state of `rows` rows whose slot rows hold their initial
+    values, filled in place; its table rows are left for the caller."""
+    packed = torch.empty((rows, stack.state_stride, stack.stack_dim),
+                         dtype=dtype, device=device)
+    opt = stack.optimizer
+    for i, name in enumerate(opt.slot_names):
+        opt.fill_slot_(name, packed[:, 1 + i])
+    return {"table": packed,
+            "step": torch.zeros((), dtype=torch.float32, device=device)}
 
 
 def _rows(stack: TableStack, table: torch.Tensor,

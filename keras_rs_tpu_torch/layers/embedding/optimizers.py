@@ -60,6 +60,14 @@ class EmbeddingOptimizer:
 
     def init_slot(self, slot_name: str, shape, dtype=torch.float32,
                   device=None) -> torch.Tensor:
+        """A new slot of `shape` holding its initial value."""
+        return self.fill_slot_(
+            slot_name, torch.empty(tuple(shape), dtype=dtype, device=device)
+        )
+
+    def fill_slot_(self, slot_name: str, out: torch.Tensor) -> torch.Tensor:
+        """Writes the slot's initial value into `out` in place (a view
+        such as a packed state's slot rows) and returns it."""
         raise NotImplementedError
 
     def apply(
@@ -109,11 +117,8 @@ class Adagrad(EmbeddingOptimizer):
         self.initial_accumulator_value = initial_accumulator_value
         self.epsilon = epsilon
 
-    def init_slot(self, slot_name, shape, dtype=torch.float32, device=None):
-        return torch.full(
-            tuple(shape), self.initial_accumulator_value, dtype=dtype,
-            device=device,
-        )
+    def fill_slot_(self, slot_name, out):
+        return out.fill_(self.initial_accumulator_value)
 
     def apply(self, rows, grads, slots, step):
         acc = slots["accumulator"] + torch.square(grads)
@@ -159,8 +164,8 @@ class Adam(EmbeddingOptimizer):
         self.beta_2 = beta_2
         self.epsilon = epsilon
 
-    def init_slot(self, slot_name, shape, dtype=torch.float32, device=None):
-        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    def fill_slot_(self, slot_name, out):
+        return out.zero_()
 
     def apply(self, rows, grads, slots, step):
         t = step + 1.0
@@ -207,13 +212,10 @@ class FTRL(EmbeddingOptimizer):
         self.l2_shrinkage = l2_shrinkage_regularization_strength
         self.beta = beta
 
-    def init_slot(self, slot_name, shape, dtype=torch.float32, device=None):
+    def fill_slot_(self, slot_name, out):
         if slot_name == "accumulator":
-            return torch.full(
-                tuple(shape), self.initial_accumulator_value, dtype=dtype,
-                device=device,
-            )
-        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+            return out.fill_(self.initial_accumulator_value)
+        return out.zero_()
 
     def apply(self, rows, grads, slots, step):
         # keras.optimizers.Ftrl: the accumulator takes the raw gradient,

@@ -354,10 +354,14 @@ def init_stack_table(
     device=None,
     chunk_rows: int = INIT_CHUNK_ROWS,
     shard: int | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Materializes the stacked global array [D * rows_per_shard, dim]
     in the stack's storage dtype, or with `shard` that shard's block
-    [rows_per_shard, dim].
+    [rows_per_shard, dim]. With `out`, a tensor of that shape and dtype
+    (a view, such as the table rows of a packed state), it writes the
+    array there in place and returns `out`: nothing of the array's size
+    is allocated beside it.
 
     Each table draws from its own initializer, scaled by its true
     [vocabulary_size, embedding_dim] shape (so fan-based initializers see
@@ -371,10 +375,13 @@ def init_stack_table(
     from the same generator and keeps its rows: the logical tables do
     not depend on D. `generator` must live on `device`.
     """
-    out = torch.zeros(
-        (stack.global_rows if shard is None else stack.rows_per_shard,
-         stack.stack_dim), dtype=stack.storage_dtype, device=device,
-    )
+    if out is None:
+        out = torch.zeros(
+            (stack.global_rows if shard is None else stack.rows_per_shard,
+             stack.stack_dim), dtype=stack.storage_dtype, device=device,
+        )
+    else:
+        out.zero_()
     gen_device = out.device if generator is None else generator.device
     chunk = max(1, chunk_rows // INIT_DRAW_ROWS) * INIT_DRAW_ROWS
     for t in stack.tables:

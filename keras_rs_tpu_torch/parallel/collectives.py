@@ -24,9 +24,14 @@ this process runs through these functions, by kind ("all-to-all",
 tool's HLO names): each call adds its output tensor's numel() *
 element_size(), the dtype actually sent (bf16 under
 comm_dtype="bfloat16"), as tools/weak_scaling.py sums the output shapes
-of the compiled step's collectives. The identity of a one-rank group
-sends nothing and counts nothing. Closed (the default), the count costs
-one None check per call and never reads the device. The tensors stay on
+of the compiled step's collectives. The same bytes feed the tracing of
+utils/tracing.py: each call runs inside the span
+"collective.<kind>" ("collective.all_to_all", ".reduce_scatter",
+".all_gather", ".all_reduce", ".broadcast") with the attribute `bytes`,
+and adds them to the host counter "collective.<kind>_bytes". The
+identity of a one-rank group sends nothing, counts nothing and opens no
+span. Closed and off (the defaults), they cost a None check and two flag
+checks per call and never read the device. The tensors stay on
 their device: the group's backend must carry them (NCCL for CUDA
 tensors; gloo carries CPU tensors, and on a CUDA tensor either carries
 it or raises). The callers in this package look these functions up on
@@ -42,6 +47,8 @@ from typing import Iterator
 import torch
 import torch.distributed as dist
 
+from keras_rs_tpu_torch.utils import tracing
+
 ProcessGroup = dist.ProcessGroup
 
 # reduce_scatter_tensor and all_gather_into_tensor exist in every torch
@@ -56,6 +63,8 @@ warnings.filterwarnings(
 #: The kinds `count_bytes` counts.
 KINDS = ("all-to-all", "reduce-scatter", "all-gather", "all-reduce",
          "broadcast")
+#: The tracing span of each kind; its counter adds "_bytes".
+SPANS = {kind: "collective." + kind.replace("-", "_") for kind in KINDS}
 _counts: dict[str, int] | None = None
 
 
@@ -72,10 +81,19 @@ def count_bytes() -> Iterator[dict[str, int]]:
         _counts = outer
 
 
-def _count(kind: str, out: torch.Tensor) -> torch.Tensor:
+def _count(kind: str, out: torch.Tensor) -> int:
+    """Counts the bytes of one collective of `kind` whose output is
+    `out`, for count_bytes and for the tracing counter; returns them."""
+    n = out.numel() * out.element_size()
     if _counts is not None:
-        _counts[kind] += out.numel() * out.element_size()
-    return out
+        _counts[kind] += n
+    tracing.count(SPANS[kind] + "_bytes", n)
+    return n
+
+
+def _sent(kind: str, out: torch.Tensor):
+    """The span to run one collective of `kind` in, its bytes counted."""
+    return tracing.span(SPANS[kind], bytes=_count(kind, out))
 
 
 def rank(group: ProcessGroup | None) -> int:
@@ -90,8 +108,9 @@ def all_to_all(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return _count("all-to-all", out)
+    with _sent("all-to-all", out):
+        dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 def reduce_scatter(x: torch.Tensor,
@@ -104,8 +123,9 @@ def reduce_scatter(x: torch.Tensor,
     x = x.contiguous()
     out = torch.empty((x.shape[0] // D, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, x, group=group)
-    return _count("reduce-scatter", out)
+    with _sent("reduce-scatter", out):
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out
 
 
 def all_gather(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
@@ -116,8 +136,9 @@ def all_gather(x: torch.Tensor, group: ProcessGroup | None) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((D * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    return _count("all-gather", out)
+    with _sent("all-gather", out):
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out
 
 
 def all_reduce(x: torch.Tensor, group: ProcessGroup | None,
@@ -126,8 +147,8 @@ def all_reduce(x: torch.Tensor, group: ProcessGroup | None,
     it."""
     if group is not None:
         reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(x, op=reduce_op, group=group)
-        _count("all-reduce", x)
+        with _sent("all-reduce", x):
+            dist.all_reduce(x, op=reduce_op, group=group)
     return x
 
 
@@ -136,8 +157,9 @@ def broadcast(x: torch.Tensor, group: ProcessGroup | None,
     """`x` of the group's rank `src` written into `x` on every rank, in
     place; returns it."""
     if group is not None:
-        dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
-        _count("broadcast", x)
+        with _sent("broadcast", x):
+            dist.broadcast(x, src=dist.get_global_rank(group, src),
+                           group=group)
     return x
 
 

@@ -38,9 +38,14 @@ The spans and counters of the port:
     embedding.update           a stack's update in the backward (lookup.py)
     host_sync                  a read of a device value on the host (attr site)
     loader.to_device           the loader's move of a batch to the device
+    collective.all_to_all / .reduce_scatter / .all_gather / .all_reduce
+    / .broadcast               one collective of a group of more than one
+                               rank (parallel/collectives.py; attr bytes)
     embedding.ids              counter: id entries of the device COO
     embedding.unique_rows      counter: unique rows the update writes
     embedding.dropped_ids      counter: ids the device COO dropped
+    collective.<kind>_bytes    counter: the bytes of that kind's
+                               collectives, as count_bytes counts them
 """
 
 from __future__ import annotations

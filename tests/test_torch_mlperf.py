@@ -551,6 +551,37 @@ def test_loader_propagates_errors():
         list(ThreadedDataLoader(range(10), boom, num_workers=2))
 
 
+def test_loader_stop_returns_once_its_workers_have_exited():
+    """On an endless source, with workers waiting on a full queue or
+    mid-batch, stop() returns with every worker gone: next() then ends,
+    and what preprocess_fn holds is freed with the loader."""
+    import gc
+    import itertools
+    import time
+    import weakref
+
+    class Held:
+        pass
+
+    held = Held()
+    alive = weakref.ref(held)
+
+    def preprocess(x, held=held):
+        time.sleep(1e-3)
+        return x
+
+    loader = ThreadedDataLoader(itertools.count(), preprocess,
+                                num_workers=4, buffer_size=2)
+    next(loader)
+    loader.stop()
+    assert not any(w.is_alive() for w in loader._workers)
+    with pytest.raises(StopIteration):
+        next(loader)
+    del loader, preprocess, held
+    gc.collect()
+    assert alive() is None
+
+
 # --- metrics ----------------------------------------------------------------
 
 

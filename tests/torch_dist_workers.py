@@ -494,6 +494,56 @@ def weak_scaling_case(rank: int, world: int, per_device_batch: int,
                                      comm_dtype, device="cpu")
 
 
+#: The torch.distributed function each collective kind calls.
+COLLECTIVE_CALLS = {
+    "all-to-all": "all_to_all_single",
+    "reduce-scatter": "reduce_scatter_tensor",
+    "all-gather": "all_gather_into_tensor",
+    "all-reduce": "all_reduce",
+    "broadcast": "broadcast",
+}
+
+
+def traced_exchange_case(rank: int, world: int,
+                         per_device_batch: int) -> dict:
+    """The weak-scaling tool's training step on this rank with tracing
+    on: the calls of each torch.distributed collective while it ran,
+    its collective spans as (name, bytes, step id), the tracing
+    counters and count_bytes' bytes by kind."""
+    import torch.distributed as dist
+
+    from keras_rs_tpu_torch.tools import weak_scaling
+    from keras_rs_tpu_torch.utils import tracing
+
+    calls = dict.fromkeys(COLLECTIVE_CALLS, 0)
+    originals = {}
+
+    def counting(kind, fn):
+        def call(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for kind, name in COLLECTIVE_CALLS.items():
+        originals[name] = getattr(dist, name)
+        setattr(dist, name, counting(kind, originals[name]))
+    tracing.reset()
+    tracing.enable()
+    try:
+        out = weak_scaling.counted_step(rank, world, per_device_batch,
+                                        device="cpu")
+        spans = [(s.name, s.attrs.get("bytes"), s.step)
+                 for s in tracing.spans() if s.name.startswith("collective")]
+        counters = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.reset()
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    return {"calls": calls, "spans": spans, "counters": counters,
+            "per_kind": out["per_kind"]}
+
+
 def mlperf_case(rank: int, world: int, overrides: dict) -> Any:
     """The ml_perf entry point on this rank (the pool's group is the
     run's process group); its results dict, or the NotImplementedError
