@@ -88,7 +88,7 @@ from --seed:
 
 Phases (any failure raises, so the exit code is not 0):
   1. build         all CUDA sources of keras_rs_tpu_torch/csrc, one nvcc
-                   each, started together; nvcc time and ptxas registers;
+                   each, started together; ptxas registers and spills;
   2. dlrm kernel   B1 against its plain version at the packed slice's
                    shapes;
   3. dlrm small    a small f32 DLRM, 3 steps on the card and on the CPU;
@@ -133,26 +133,19 @@ Phases (any failure raises, so the exit code is not 0):
                    batches; B5, B6, B7 launch once per block per step;
  13. sasrec serve  3 batches of 1024 users under no_grad: user states,
                    top-10 ids in [0, 3706], parameters unchanged, B5 only;
- 14. profile       only with --profile: torch.profiler over 3 more steps
-                   of the packed DLRM, the capacity DLRM, SASRec and
-                   (in phase 16) the ml_perf device-mode step, (in
-                   phases 19-20) the two-tower step, the 10M brute-force
-                   and IVF batches, device time per step by part;
  15. coo           one full-width batch of the packed slice (2,818,048
                    ids) through the device COO transform (in
                    set_sync_debug_mode("error")), the numpy path and the
-                   C++ engine: every array and stat bit-exact; times of
-                   each (the engine on one thread and on four); then a
+                   C++ engine: every array and stat bit-exact; then a
                    weighted mean / sum / sqrtn stack at valences 100,
                    27, 12 and a shared 1-D feature, batch 16,384: the
-                   three bit-exact, divisors and gains included, and
-                   the device transform's time;
+                   three bit-exact, divisors and gains included;
  16. mlperf        the ml_perf entry point, main("full_criteo") with each
                    vocabulary capped at 4M rows: 70 steps with device
-                   preprocessing, the device step time over chained
-                   steps, the dummy eval (B1 once per step, no other
-                   kernel); end-to-end examples/s and the device's idle
-                   share; 16 steps in host mode (C++ engine, 4 loader
+                   preprocessing, main's chained-step window
+                   (honest_timing, a device step reported), the dummy
+                   eval (B1 once per step, no other kernel); 16 steps
+                   in host mode (C++ engine, 4 loader
                    threads) from the config's 8,192 / 4,096, which its
                    training passes grow (no id dropped); both modes'
                    losses over the same 3 batches from the same weights
@@ -168,14 +161,11 @@ Phases (any failure raises, so the exit code is not 0):
                    pass: file 1 generic, every later file fixed; each
                    file's fixed arrays equal to its generic ones; the
                    fixed and the generic path at 1, 2 and 4 prefetch
-                   workers, examples/s and GB/s); main("full_criteo",
+                   workers read every sample); main("full_criteo",
                    file_pattern=...) at the 4M cap with device
-                   preprocessing three times, B1 once per step and no
-                   other kernel: 3 steps with every B1 call held to its
-                   plain version at phase 2's bound; 70 steps for
-                   end-to-end examples/s; 21 steps whose steps 10-20
-                   (main's --profile window) give the idle share of the
-                   file-fed loop; both beside phase 16's; main("smoke_test") from
+                   preprocessing twice, B1 once per step and no other
+                   kernel: 3 steps with every B1 call held to its plain
+                   version at phase 2's bound; 70 steps; main("smoke_test") from
                    small learnable files, 300 steps: AUC > 0.60. No
                    fallback to the Python reader or dummy batches; the
                    files are deleted;
@@ -187,15 +177,15 @@ Phases (any failure raises, so the exit code is not 0):
  19. retrieval     8 steps on one fixed batch (loss falls), 3 fresh; the
      train         tutorial loss (RemoveAccidentalHits,
                    HardNegativeMining(255), SamplingProbabilityCorrection)
-                   3 steps, finite; step ms, peak memory, idle share;
+                   3 steps, finite; peak memory;
  20. retrieval     make_retrieval(k=10) over the 1M candidates: 3 batches
      serve         of 256, chunked exact and recall_target=0.95 ids equal
-                   a direct top-k; brute force at 10M x 128 (5.1 GB), ms
-                   per batch; KMeansRetrieval (default clusters, 16
+                   a direct top-k; brute force at 10M x 128 (5.1 GB);
+                   KMeansRetrieval (default clusters, 16
                    probes) over a 1M x 128 Gaussian mixture of 1,000
-                   centres in f32 and int8 + reorder: build s, ms per
-                   batch, peak memory, recall@10 > 0.8; full probing at
-                   100k equals brute force;
+                   centres in f32 and int8 + reorder: peak memory,
+                   recall@10 > 0.8; full probing at 100k equals brute
+                   force;
  21. ranking       the 5 losses and 6 metrics on [1024, 100] lists, card
                    against CPU within 1e-5 relative; the listwise path
                    with ListMLE and PairwiseLogistic, 8 steps each (loss
@@ -221,19 +211,17 @@ Phases (any failure raises, so the exit code is not 0):
                    logits, int8 layouts equal bit for bit and within the
                    int8 bound (absmax/254 per id) of f32, the graph equal
                    to eager, the eager path free of host syncs, no kernel
-                   launch; ms per batch (CUDA events), kernel time by
-                   part and idle share of one batch (torch.profiler; the
-                   operator tables with --profile), bytes gathered,
-                   frozen bytes, peak memory; serving_copy (state bytes
-                   against the training state, ms per batch through the
-                   construction-order and the sorted forward);
+                   launch; frozen bytes, peak memory; serving_copy
+                   (state bytes against the training state; the
+                   construction-order and the sorted forward equal to
+                   the trained layer);
  24. capacity      (after phase 7) the bf16 model's scoring logits on 3
      serve         Ragged batches of 16,384, freeze(quantize="int8") of
                    the 204,102,450 table rows beside the training state
                    (peak under the card's memory), the state freed, the
                    3 batches served from the int8 tables: finite, within
-                   the int8 bound of the bf16 model's activations; ms
-                   per batch, serving peak memory;
+                   the int8 bound of the bf16 model's activations;
+                   serving peak memory;
  25. export        export_fn / import_fn of an int8-frozen small DLRM and
                    of a retrieval service (MLP query tower, top-10
                    BruteForceRetrieval over 100,000 x 128): the imported
@@ -249,20 +237,18 @@ Phases (any failure raises, so the exit code is not 0):
                    (prefetch 2, validation 1 - recall@10, checkpoints,
                    metrics log; 4 epochs of 8 steps, epoch loss falls);
                    3 more steps in memory against a fresh model restored
-                   from `last` (losses within 1e-6 relative); step ms,
-                   host syncs and idle share of one step; the port's GRU
-                   against torch.nn.GRU (cuDNN) as a yardstick;
-                   held-out recall@10 above 5x popularity's;
-                   Trainer.evaluate (recall@10, NDCG@10 in [0, 1]);
-                   make_retrieval(k=10) over 3,707 rows, batches of
-                   1,024; checkpoint bytes, save and restore s. No
-                   kernel launches in phases 26-27.
+                   from `last` (losses within 1e-6 relative); the host
+                   syncs of one step; held-out recall@10 above 5x
+                   popularity's; Trainer.evaluate (recall@10, NDCG@10
+                   in [0, 1]); make_retrieval(k=10) over 3,707 rows,
+                   batches of 1,024; checkpoint bytes. No kernel
+                   launches in phases 26-27.
  28. layers        full-rank and low-rank (512) FeatureCross at width
                    3,456 (diag_scale 0.5, relu, L2 on the kernels and
                    bias) and DotInteraction over 27 x 128 (four flag
                    combinations), forward and backward card vs CPU
-                   within 1e-5 of the largest value, times at 16,384
-                   rows; a learning-rate schedule on the packed DLRM
+                   within 1e-5 of the largest value; a learning-rate
+                   schedule on the packed DLRM
                    slice, 3 steps in sync-debug "error" (B1 once per
                    step and stack, each call held to its plain version
                    on the same blocks and gradients at phase 2's bound,
@@ -277,27 +263,26 @@ Phases (any failure raises, so the exit code is not 0):
                    do_profile (a non-empty trace); one row kernel per
                    step and stack. Then phase 28's packed 4M-cap state
                    through save_checkpoint / restore_checkpoint where the
-                   disk holds it (bytes, s, the device memory restore
+                   disk holds it (bytes, the device memory restore
                    adds, the state back bit for bit).
  30. pipelined     main("full_criteo", pipeline_embedding=True,
      mlperf        device_preprocessing=True) at the 4M cap: 70 steps and
-                   the chained device step beside phase 16's figures
-                   (B1 once per step, no other kernel); then from the
+                   main's chained-step window (B1 once per step, no
+                   other kernel); then from the
                    same weights over the same 8 batches the unpipelined
                    and the pipelined step: step 0's losses equal, the
                    losses within 5e-3; the first 3 prefetches equal to a
                    gather of the same batch on the main stream taken
                    before the step (the race check) and each B1 call
                    held to its plain version at phase 2's bound; one step
-                   in sync-debug "error"; the idle share of main's loop
-                   and the ms of prefetch kernels overlapping the main
-                   stream's (profiler trace);
+                   in sync-debug "error"; the same steps held bit for
+                   bit to the prefetch on the main stream;
  31. pipelined     bf16 tables + row-wise Adagrad at the 4M cap, device
      split         preprocessing: 8 steps on one batch (loss falls) and 3
                    fresh, the first 3 race-checked, every row scatter
                    and split kernel call held to its plain version, B3
                    and the split kernel once per step; the host syncs of
-                   one step (none expected) and the overlap left;
+                   one step (none expected);
  32. examples      the six walkthrough examples on the card at their
                    default sizes (printout kept, headline gated, no
                    kernel launch); the ml_perf entry point's pipelined
@@ -344,13 +329,10 @@ Phases (any failure raises, so the exit code is not 0):
                    their norms and the loss's fall within 2e-2); an
                    update that changed nothing fails each of these; then
                    main("full_criteo") at the 4M cap on each rank
-                   (device COO, 8 steps and the chained device timing of
-                   2 blocks of 3 steps, B1 once per step, every B1 call
-                   of the 8 steps held to the plain version, the timing
-                   blocks not), peak memory; then the ms of each
-                   exchange of one step at its shapes (all_to_all,
-                   reduce-scatter and all-gather in f32 and bf16, the
-                   dense gradients' all_reduce);
+                   (device COO, 8 steps and main's chained-step window
+                   of 2 blocks of 3 steps, B1 once per step, every B1
+                   call of the 8 steps held to the plain version, the
+                   window's blocks not), peak memory;
  35. sharded       bf16 + row-wise Adagrad at the 4M cap over the two
      split         ranks: 3 steps on one batch (the global loss falls),
                    B3 and the split kernel once per step on each shard,
@@ -378,10 +360,11 @@ Output: progress lines, then the card's name and power limit
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
 the package beside it, it exits with an error and prints no result.
 
+It checks and does not measure: the step's figures are the benchmark's
+(benchmark/, BENCHMARK.json). Only the kernel phases (2, 6, 7, 10) time
+a kernel alone beside its plain version, for PERF.md's kernel table.
+
 Usage (from the repository root): python3 chip_smoke.py [--seed N]
-[--profile]; `--time_coo_combiners` only times phase 15's mean / sum /
-sqrtn device transform of the package beside the script and prints no
-result line.
 """
 
 from __future__ import annotations
@@ -403,6 +386,11 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+
+from keras_rs_tpu_torch.examples.ml_perf.configs import (
+    CRITEO_MULTI_HOT_SIZES,
+    CRITEO_VOCAB_SIZES,
+)
 
 ROOT = Path(__file__).resolve().parent
 VOCAB_CAP = 4_000_000
@@ -469,19 +457,6 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# The MLPerf DLRM-DCNv2 Criteo shapes (examples/ml_perf/configs.py:14-23),
-# copied so this script imports nothing of the JAX side.
-CRITEO_VOCAB_SIZES = [
-    40_000_000, 39_060, 17_295, 7_424, 20_265, 3, 7_122, 1_543, 63,
-    40_000_000, 3_067_956, 405_282, 10, 2_209, 11_938, 155, 4, 976, 14,
-    40_000_000, 40_000_000, 40_000_000, 590_152, 12_973, 108, 36,
-]
-CRITEO_MULTI_HOT_SIZES = [
-    3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100,
-    27, 10, 3, 1, 1,
-]
-
-
 def slice_config(batch: int = BATCH, vocab_cap: int | None = VOCAB_CAP,
                  **overrides):
     """The MLPerf DLRM-DCNv2 at batch `batch`, each vocabulary capped at
@@ -532,11 +507,8 @@ def phase_build() -> None:
     from keras_rs_tpu_torch.kernels import loader
 
     names = sorted(p.stem for p in loader.CSRC_DIR.glob("*.cu"))
-    t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(loader.load, names)))
-    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s "
-        "wall")
     for name, lib in built.items():
         log(f"[build] {name}: nvcc {lib.build_seconds:.2f} s -> "
             f"{lib.path.relative_to(ROOT)}")
@@ -960,93 +932,6 @@ def phase_small_reference(label: str, bound: str, expect: dict,
         f"loss diff {max(abs(a - b) for a, b in zip(losses['cuda'], losses['cpu']))!r}")
 
 
-# Parts of a step for the profile: (part, profiler row, time). "total"
-# is the device time of the operator row and all it calls, "self" the
-# device time of the row alone; a row named "kernel:<name>" is the CUDA
-# kernel whose name contains <name>. The parts nest, so they do not add
-# up to the total.
-DLRM_PROFILE_PARTS = [
-    ("stacked lookup backward", "_StackLookupBackward", "total"),
-    ("  row kernel", "kernel:apply_scatter_row_blocks_kernel", "self"),
-    ("  segment-sum index_add_", "aten::index_add_", "self"),
-    ("small-table EmbedReduce backward", "EmbeddingBackward0", "total"),
-    ("stacked lookup forward", "_StackLookup", "total"),
-    ("dense matmuls (forward and backward)", "aten::mm", "self"),
-    ("dtype casts", "aten::_to_copy", "total"),
-]
-CAPACITY_PROFILE_PARTS = [
-    ("stacked lookup backward", "_StackLookupBackward", "total"),
-    ("  B3 row scatter kernel", "kernel:scatter_rows_kernel", "self"),
-    ("  segment-sum index_add_", "aten::index_add_", "self"),
-    ("  row-wise accumulator index_copy_", "aten::index_copy_", "total"),
-    ("  stochastic rounding bits", "aten::random_", "total"),
-    ("gathers, whole step", "aten::index", "total"),
-    ("small-table EmbedReduce backward", "EmbeddingBackward0", "total"),
-    ("stacked lookup forward", "_StackLookup", "total"),
-    ("dense matmuls (forward and backward)", "aten::mm", "self"),
-    ("dtype casts", "aten::_to_copy", "total"),
-]
-MLPERF_PROFILE_PARTS = [
-    ("device COO transform", "device COO transform", "total"),
-    ("  stable sort", "aten::sort", "total"),
-] + DLRM_PROFILE_PARTS
-SASREC_PROFILE_PARTS = [
-    ("B5 flash forward kernel", "kernel:flash_fwd_kernel", "self"),
-    ("B6 flash dQ kernel", "kernel:flash_bwd_dq_kernel", "self"),
-    ("B7 flash dK/dV kernel", "kernel:flash_bwd_dkv_kernel", "self"),
-    ("matmuls", "aten::mm", "self"),
-    ("elementwise multiplies", "aten::mul", "self"),
-    ("item-embedding backward", "EmbeddingBackward0", "total"),
-]
-
-
-def profile_steps(step, batch, steps: int = 3):
-    """torch.profiler over `steps` calls of step(batch) after one warm
-    call: (the profiler's averages, wall ms per step, device ms per step
-    summed over the kernel and copy rows)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from keras_rs_tpu_torch.utils.timing import device_ms
-
-    step(batch)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    avgs = prof.key_averages()
-    return avgs, wall_ms, device_ms(avgs) / steps
-
-
-def phase_profile(label: str, step, batch, parts, steps: int = 3,
-                  table: bool = True) -> None:
-    """Device time per training step by part, from torch.profiler (and
-    the operator table, with `table`)."""
-    import torch
-
-    avgs, wall_ms, kernel_ms = profile_steps(step, batch, steps)
-    cpu = torch.autograd.DeviceType.CPU
-    log(f"[profile] {label}, {steps} steps: wall {wall_ms!r} ms per step, "
-        f"device kernels {kernel_ms!r} ms per step")
-    for part, row, time_of in parts:
-        if row.startswith("kernel:"):
-            rows = [e for e in avgs if row[len("kernel:"):] in e.key]
-        else:
-            rows = [e for e in avgs if e.key == row and e.device_type == cpu]
-        us = sum(e.self_device_time_total if time_of == "self"
-                 else e.device_time_total for e in rows)
-        log(f"[profile] {label} {part}: {us / 1e3 / steps!r} ms per step "
-            f"({row}, {time_of})")
-    log(f"[profile] {label}: device idle {1 - kernel_ms / wall_ms:.1%}")
-    if table:
-        log(avgs.table(sort_by="device_time_total", row_limit=30,
-                       max_name_column_width=60))
-
-
 def state_checksum(state: dict) -> int:
     """Sum of the 32-bit words of a stack state's table and every slot,
     in chunks (no full-size copy)."""
@@ -1096,19 +981,16 @@ def dlrm_batch(cfg, s: int, batch: int | None = None) -> dict:
 
 
 def build_dlrm(label: str, cfg, seed: int):
-    """The model on the card, with its build time and state sizes."""
+    """The model on the card, with its state sizes."""
     import torch
 
     from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
     model = DLRMDCNv2(
         cfg, generator=torch.Generator(device=dev).manual_seed(seed),
         device=dev,
     )
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     emb = model.embedding_layer
     parts, nbytes = [], 0
     for i in range(len(emb.stacks)):
@@ -1118,7 +1000,7 @@ def build_dlrm(label: str, cfg, seed: int):
             parts.append(f"{name} {tuple(t.shape)} "
                          f"{str(t.dtype).split('.')[-1]}")
             nbytes += t.numel() * t.element_size()
-    log(f"[{label} model] built in {build_s:.1f} s: {len(model.large_idx)} "
+    log(f"[{label} model] built: {len(model.large_idx)} "
         f"stacked tables in {len(emb.stacks)} stack(s), state {parts} = "
         f"{nbytes / 1e9:.2f} GB, {len(model.small_idx)} small tables, "
         f"{sum(p.numel() for p in model.parameters())} dense parameters; "
@@ -1128,15 +1010,15 @@ def build_dlrm(label: str, cfg, seed: int):
 
 
 def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
-               fixed_steps: int, fresh_steps: int, score_batches: int,
-               preprocess, profile_parts=None) -> dict:
+               fixed_steps: int, fresh_steps: int, score_batches: int
+               ) -> dict:
     """The main path of one DLRM configuration: `fixed_steps` training
     steps on the preprocessed batch `fixed` (the loss must fall), then
     `fresh_steps` on fresh batches, then `score_batches` scoring batches
     under no_grad (finite logits, state unchanged, no kernel launch).
     Every launch count is set to 0 just before and read just after: each
     kernel in `expect` must launch that many times per step and stack,
-    every other kernel never. Returns the counts and the timings."""
+    every other kernel never. Returns the counts and the peak memory."""
     import torch
 
     from keras_rs_tpu_torch.models.dlrm import bce_loss
@@ -1152,27 +1034,17 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
     step = make_train_step(model, bce_loss, opt)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms, losses = [], []
-
-    def timed_step(pre):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = step(pre)
-        end.record()
-        torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-
+    losses = []
     for _ in range(fixed_steps):
-        timed_step(fixed)
+        losses.append(float(step(fixed)))
     log(f"[{label} train] fixed batch losses {losses}")
     if not all(map(math.isfinite, losses)):
         fail(f"{label}: non-finite loss")
     if not losses[-1] < losses[0]:
         fail(f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
     for s in range(fresh_steps):
-        timed_step(preprocess(dlrm_batch(cfg, seed + 1 + s)))
+        losses.append(float(step(model.preprocess(
+            dlrm_batch(cfg, seed + 1 + s)))))
     if fresh_steps:
         log(f"[{label} train] fresh batch losses {losses[fixed_steps:]}")
     if not all(map(math.isfinite, losses)):
@@ -1189,25 +1061,14 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
         fail(f"{label}: stack step counters {steps_done}, expected "
              f"{n_steps}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    median = statistics.median(step_ms)
-    log(f"[{label} train] step ms {step_ms}; median {median!r} ms "
-        f"({B / median * 1e3:.0f} examples/s); peak device memory "
-        f"{peak_gb:.2f} GB; launches "
+    log(f"[{label} train] peak device memory {peak_gb:.2f} GB; launches "
         f"{ {k: v for k, v in trained.items() if v} }; step counters "
         f"{steps_done}")
 
     sums = [state_checksum(emb.stack_state(i)) for i in range(n_stacks)]
-    score_ms = []
     with torch.no_grad():
         for s in range(score_batches):
-            pre = preprocess(dlrm_batch(cfg, seed + 100 + s))
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits = model(pre)
-            end.record()
-            torch.cuda.synchronize()
-            score_ms.append(start.elapsed_time(end))
+            logits = model(model.preprocess(dlrm_batch(cfg, seed + 100 + s)))
             if tuple(logits.shape) != (B,):
                 fail(f"{label}: logits shape {tuple(logits.shape)}")
             if not bool(torch.isfinite(logits).all()):
@@ -1217,30 +1078,13 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
         fail(f"{label}: scoring changed the embedding state")
     if launch_counts() != trained:
         fail(f"{label}: scoring launched a kernel")
-    log(f"[{label} score] {score_batches} batches of {B}: forward ms "
-        f"{score_ms}; state checksums (table and slots) unchanged")
-    if profile_parts is not None:
-        phase_profile(label, step, fixed, profile_parts)
+    log(f"[{label} score] {score_batches} batches of {B}: finite logits; "
+        "state checksums (table and slots) unchanged")
     del opt, step
-    return {"launches": trained, "peak_gb": peak_gb, "median_ms": median}
+    return {"launches": trained, "peak_gb": peak_gb}
 
 
-def make_preprocess(model, times: list):
-    """model.preprocess, timed on the host (host-to-device copy
-    included)."""
-    import torch
-
-    def preprocess(raw):
-        t = time.perf_counter()
-        pre = model.preprocess(raw)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        return pre
-
-    return preprocess
-
-
-def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
+def run_dlrm(seed: int) -> tuple[dict, object, int]:
     """The packed DLRM path (f32 tables, Adagrad, 4M-row cap, kernel B1);
     returns B1's kernel entry and the fixed batch's unique_slots (on the
     CPU) with its sink."""
@@ -1248,22 +1092,17 @@ def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
 
     cfg = slice_config()
     model = build_dlrm("dlrm", cfg, seed)
-    preprocess_s = []
-    preprocess = make_preprocess(model, preprocess_s)
-    fixed = preprocess(dlrm_batch(cfg, seed))
+    fixed = model.preprocess(dlrm_batch(cfg, seed))
     stack = model.embedding_layer.stacks[0]
     coo = fixed["large_pre"]["sharded"][stack.name]
     kernel = phase_kernel(coo["unique_slots"], stack.sink_slot, seed)
     phase_small_reference("f32", "f32", {"apply_scatter_row_blocks": 3})
     run = drive_dlrm(
         "dlrm", model, cfg, seed, fixed, {"apply_scatter_row_blocks": 1},
-        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES, preprocess,
-        DLRM_PROFILE_PARTS if profile else None)
-    log(f"[dlrm host] preprocessing s per batch {preprocess_s}; median "
-        f"{statistics.median(preprocess_s)!r} s")
-    phase_dlrm_serve(model, cfg, seed, profile)
+        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES)
+    phase_dlrm_serve(model, cfg, seed)
     slots = coo["unique_slots"].cpu()
-    del model, fixed, coo, preprocess
+    del model, fixed, coo
     torch.cuda.empty_cache()
     return {
         "name": "apply_scatter_row_blocks",
@@ -1275,7 +1114,7 @@ def run_dlrm(seed: int, profile: bool) -> tuple[dict, object, int]:
     }, slots, stack.sink_slot
 
 
-def run_capacity(seed: int, profile: bool) -> tuple[dict, dict]:
+def run_capacity(seed: int) -> tuple[dict, dict]:
     """Capacity mode on the uncut Criteo vocabulary: bf16 tables with
     row-wise Adagrad in one 204,102,451-row stack; B3 and the split
     update's kernel checked at this batch's N and n_valid, then trained
@@ -1289,9 +1128,7 @@ def run_capacity(seed: int, profile: bool) -> tuple[dict, dict]:
     if stack.global_rows != CAPACITY_ROWS or stack.packed_state:
         fail(f"capacity stack: {stack.global_rows} rows, packed "
              f"{stack.packed_state}; expected {CAPACITY_ROWS}, split")
-    preprocess_s = []
-    preprocess = make_preprocess(model, preprocess_s)
-    fixed = preprocess(dlrm_batch(cfg, seed))
+    fixed = model.preprocess(dlrm_batch(cfg, seed))
     coo = fixed["large_pre"]["sharded"][stack.name]
     kernel = phase_scatter_kernel(
         "scatter_rows", [(torch.bfloat16, (128,))], coo["unique_slots"],
@@ -1300,15 +1137,12 @@ def run_capacity(seed: int, profile: bool) -> tuple[dict, dict]:
     run = drive_dlrm(
         "capacity", model, cfg, seed, fixed,
         {"scatter_rows": 1, "apply_split_rows": 1},
-        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES, preprocess,
-        CAPACITY_PROFILE_PARTS if profile else None)
+        FIXED_STEPS, FRESH_STEPS, SCORE_BATCHES)
     if run["peak_gb"] >= PEAK_LIMIT_GB:
         fail(f"capacity: peak device memory {run['peak_gb']:.2f} GB >= "
              f"{PEAK_LIMIT_GB}")
-    log(f"[capacity host] preprocessing s per batch {preprocess_s}; median "
-        f"{statistics.median(preprocess_s)!r} s")
     phase_capacity_serve(model, cfg, seed)
-    del model, fixed, coo, preprocess
+    del model, fixed, coo
     torch.cuda.empty_cache()
     entry = dict(route="cuda", source="keras_rs_tpu_torch/csrc/row_ops.cu")
     return ({"name": "scatter_rows", **entry,
@@ -1330,20 +1164,19 @@ def run_short(label: str, seed: int, slots_4m, expect: dict,
 
     cfg = slice_config(**overrides)
     model = build_dlrm(label, cfg, seed)
-    preprocess = make_preprocess(model, [])
-    fixed = preprocess(dlrm_batch(cfg, seed))
+    fixed = model.preprocess(dlrm_batch(cfg, seed))
     (stack,) = model.embedding_layer.stacks
     coo = fixed["large_pre"]["sharded"][stack.name]
     if not torch.equal(coo["unique_slots"].cpu(), slots_4m):
         fail(f"{label}: unique_slots differ from the packed path's")
     run = drive_dlrm(label, model, cfg, seed, fixed, expect, SHORT_STEPS, 0,
-                     1, preprocess)
-    del model, fixed, coo, preprocess
+                     1)
+    del model, fixed, coo
     torch.cuda.empty_cache()
     return run["launches"]
 
 
-def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
+def run_row_scatter(seed: int, slots_4m, sink_4m) -> list:
     """B4 and B2 at the 4M-cap batch's N and n_valid, the capacity path
     (B3 and the split kernel), the two short paths that launch B4 (with
     the split kernel's round-only instance) and B2, and the small
@@ -1358,7 +1191,7 @@ def run_row_scatter(seed: int, profile: bool, slots_4m, sink_4m) -> list:
     blocks = phase_scatter_kernel(
         "scatter_row_blocks", [(torch.float32, (3, 128))],
         slots_4m.cuda(), sink_4m, seed + 2)
-    b3, split = run_capacity(seed, profile)
+    b3, split = run_capacity(seed)
     phase_small_reference("capacity", "bf16 tables",
                           {"scatter_rows": 3, "apply_split_rows": 3},
                           table_dtype="bfloat16",
@@ -1681,7 +1514,7 @@ def phase_sasrec_small() -> None:
     log(f"[sasrec small] parameters after 3 steps: max_abs_err {err!r}")
 
 
-def run_sasrec(seed: int, profile: bool) -> dict:
+def run_sasrec(seed: int) -> dict:
     """The SASRec phases; returns the flash kernels' entries."""
     import torch
 
@@ -1705,27 +1538,17 @@ def run_sasrec(seed: int, profile: bool) -> dict:
     # --- main path: train, then serve -------------------------------------
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms, losses = [], []
-
-    def timed_step(batch):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = trainer.step(batch)
-        end.record()
-        torch.cuda.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-
+    losses = []
     for _ in range(FIXED_STEPS):
-        timed_step(fixed)
+        losses.append(float(trainer.step(fixed)))
     log(f"[sasrec train] fixed batch losses {losses}")
     if not all(map(math.isfinite, losses)):
         fail("SASRec: non-finite loss")
     if not losses[-1] < losses[0]:
         fail(f"SASRec loss did not fall: {losses[0]} -> {losses[-1]}")
     for s in range(FRESH_STEPS):
-        timed_step(sasrec_batch(SAS_BATCH, SAS_T, seed + 1 + s))
+        losses.append(float(trainer.step(
+            sasrec_batch(SAS_BATCH, SAS_T, seed + 1 + s))))
     log(f"[sasrec train] fresh batch losses {losses[FIXED_STEPS:]}")
     if not all(map(math.isfinite, losses)):
         fail("SASRec: non-finite loss on fresh batches")
@@ -1736,29 +1559,19 @@ def run_sasrec(seed: int, profile: bool) -> dict:
         fail(f"flash kernels launched {trained} in {n_steps} steps of "
              f"{per_step} blocks")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    median = statistics.median(step_ms)
-    log(f"[sasrec train] step ms {step_ms}; median {median!r} ms "
-        f"({SAS_BATCH / median * 1e3:.0f} sequences/s, "
-        f"{SAS_BATCH * SAS_T / median * 1e3:.0f} positions/s); peak device "
-        f"memory {peak_gb:.2f} GB; launches {trained}")
+    log(f"[sasrec train] peak device memory {peak_gb:.2f} GB; launches "
+        f"{trained}")
 
     params = [p.detach().clone() for p in model.parameters()]
     retrieval = model.make_retrieval(k=SAS_TOP_K)
-    fwd_ms, topk_ms, first = [], [], None
+    first = None
     with torch.no_grad():
         for s in range(SCORE_BATCHES):
             hist = torch.from_numpy(sasrec_batch(
                 SAS_SERVE_USERS, SAS_T, seed + 100 + s, pad="right",
             )["item_history"]).to(dev)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
             user = model(hist)
-            ev[1].record()
             scores, ids = retrieval(user)
-            ev[2].record()
-            torch.cuda.synchronize()
-            fwd_ms.append(ev[0].elapsed_time(ev[1]))
-            topk_ms.append(ev[1].elapsed_time(ev[2]))
             if tuple(user.shape) != (SAS_SERVE_USERS, 50) or not bool(
                     torch.isfinite(user).all()):
                 fail(f"user states: shape {tuple(user.shape)} or non-finite")
@@ -1782,8 +1595,7 @@ def run_sasrec(seed: int, profile: bool) -> dict:
                for a, b in zip(params, model.parameters())):
         fail("serving changed the parameters")
     log(f"[sasrec serve] {SCORE_BATCHES} batches of {SAS_SERVE_USERS} "
-        f"users: forward ms {fwd_ms}, top-{SAS_TOP_K} ms {topk_ms}; "
-        f"launches {served}")
+        f"users: launches {served}")
 
     # The served states against the einsum path on the first batch (TF32
     # off; no kernel runs on that path).
@@ -1804,8 +1616,6 @@ def run_sasrec(seed: int, profile: bool) -> dict:
     torch.testing.assert_close(first[1], ref, rtol=1e-4, atol=1e-4)
     del ref, first
 
-    if profile:
-        phase_profile("sasrec", trainer.step, fixed, SASREC_PROFILE_PARTS)
     del model, trainer, fixed
     torch.cuda.empty_cache()
     a = checks["a"]
@@ -1833,9 +1643,7 @@ def run_sasrec(seed: int, profile: bool) -> dict:
 # --- COO preprocessing and the ml_perf entry point ------------------------
 
 
-#: Steps of the ml_perf runs: device mode (the first 10 warm up, the
-#: other 60, 7.5 times the loader's queue of 8 batches, are timed end to
-#: end, as main counts them) and host mode.
+#: Steps of the ml_perf runs: device mode and host mode.
 MLPERF_STEPS = 70
 MLPERF_HOST_STEPS = 16
 #: main's honest_timing: one warm-up block and 3 timed blocks of 20.
@@ -1846,6 +1654,14 @@ MLPERF_TIMING_STEPS = 4 * 20
 #: next bf16 step, so the later losses are held to 1e-3 absolute.
 MODE_LOSS_BOUND = 1e-3
 AUC_GATE = 0.60
+
+
+def main_results_ok(r: dict, timed: bool = False) -> bool:
+    """The ml_perf main's results in range: a finite loss, an AUC in [0,
+    1] and, with `timed`, a device step from its honest_timing window."""
+    step = r.get("device_step_ms", 0.0) if timed else 1.0
+    return (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0
+            and math.isfinite(step) and step > 0)
 
 
 def sync_sites(fn) -> list[str]:
@@ -1886,12 +1702,8 @@ def phase_coo(seed: int) -> None:
     """The device transform, the numpy path and the C++ engine on one
     full-width batch (the packed slice: 9 large features, 2,818,048 ids,
     one all-sum stack): every array and stat bit-exact, the device
-    transform run in set_sync_debug_mode("error"). Times: the device
-    transform (CUDA events, median of 10), numpy and the C++ engine (host
-    clock; the engine on one thread, then 8 batches on 4 threads)."""
+    transform run in set_sync_debug_mode("error")."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from keras_rs_tpu_torch.layers.embedding import preprocessing
     from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
@@ -1915,43 +1727,12 @@ def phase_coo(seed: int) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
-    transform()  # warm-up (allocator, sort workspace)
-    events = []
-    for _ in range(10):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        coo, stats = transform()
-        ev[1].record()
-        events.append(ev)
-    torch.cuda.synchronize()
-    dev_ms = [a.elapsed_time(b) for a, b in events]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        transform()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    host = {}
-    for backend, runs in (("numpy", 3), ("native", 5)):
-        times = []
-        for _ in range(runs):
-            t = time.perf_counter()
-            host[backend] = preprocessing.preprocess_stack(
-                stack, inputs, backend=backend)
-            times.append(time.perf_counter() - t)
-        host[backend + "_s"] = times
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        t = time.perf_counter()
-        list(pool.map(lambda _: preprocessing.preprocess_stack(
-            stack, inputs, backend="native"), range(8)))
-        four_s = (time.perf_counter() - t) / 8
-
+    coo, stats = transform()
     got = {k: v.cpu().numpy() for k, v in coo.arrays().items()}
     got_stats = preprocessing.InputStats(*(int(x) for x in stats))
     for backend in ("numpy", "native"):
-        want, want_stats = host[backend]
+        want, want_stats = preprocessing.preprocess_stack(
+            stack, inputs, backend=backend)
         if got.keys() != want.arrays().keys():
             fail(f"coo: device arrays {sorted(got)} vs {backend} "
                  f"{sorted(want.arrays())}")
@@ -1961,19 +1742,10 @@ def phase_coo(seed: int) -> None:
         if got_stats != want_stats:
             fail(f"coo: device stats {got_stats} vs {backend} "
                  f"{want_stats}")
-    one_s = statistics.median(host["native_s"])
     log(f"[coo] {n_ids} ids in {stack.num_features} features, stack "
         f"{stack.name} ({stack.global_rows} rows, C = U = "
         f"{stack.max_ids_per_partition}): device, numpy and C++ arrays "
         f"and stats bit-exact ({', '.join(sorted(got))}; {got_stats})")
-    log(f"[coo] device transform: median {statistics.median(dev_ms)!r} ms "
-        f"(CUDA events, 10 runs, no host sync: {dev_ms}); "
-        f"{len(kernels)} device operations, {kernel_ms!r} ms of kernel "
-        f"time (profiler, one run)")
-    log(f"[coo] host: numpy {host['numpy_s']} s; C++ engine one thread "
-        f"{host['native_s']} s (median {one_s!r}); four threads "
-        f"{four_s!r} s per batch over 8 batches ({one_s / four_s:.2f}x "
-        "one thread's rate)")
     del coo, dev_inputs
     torch.cuda.empty_cache()
     coo_combiners(seed)
@@ -2019,57 +1791,18 @@ def combiner_batch(seed: int):
     return stack, inputs, weights
 
 
-def time_combiner_transform(seed: int) -> tuple[list[float], float, int]:
-    """The device transform of combiner_batch(seed): ms of each of 10
-    runs after a warm-up (CUDA events, no host sync between them), and
-    of one run the kernel and copy ms and the device operations
-    (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
-        preprocess_stack_device,
-    )
-    from keras_rs_tpu_torch.utils.timing import device_ms
-
-    stack, inputs, weights = combiner_batch(seed)
-    dev_in = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
-    dev_w = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
-    preprocess_stack_device(stack, dev_in, dev_w)  # warm-up
-    events = []
-    for _ in range(10):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        preprocess_stack_device(stack, dev_in, dev_w)
-        ev[1].record()
-        events.append(ev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        preprocess_stack_device(stack, dev_in, dev_w)
-        torch.cuda.synchronize()
-    cpu = torch.autograd.DeviceType.CPU
-    n_ops = sum(1 for e in prof.events() if e.device_type != cpu)
-    del dev_in, dev_w
-    torch.cuda.empty_cache()
-    return ([a.elapsed_time(b) for a, b in events],
-            device_ms(prof.key_averages()), n_ops)
-
-
 def coo_combiners(seed: int) -> None:
     """combiner_batch(seed) (a weighted mean / sum / sqrtn stack) through
     the device transform in set_sync_debug_mode("error"), the numpy path
     and the C++ engine: every array and stat bit-exact, the divisors and
     the gains they divide included (the device sums each segment in
-    numpy's order, without atomics). Then the transform's time."""
+    numpy's order, without atomics)."""
     import torch
 
     from keras_rs_tpu_torch.layers.embedding import preprocessing
     from keras_rs_tpu_torch.layers.embedding.device_preprocessing import (
         preprocess_stack_device,
     )
-    from keras_rs_tpu_torch.utils.timing import card_line
 
     stack, inputs, weights = combiner_batch(seed)
     n_ids = sum(v.size for v in inputs.values())
@@ -2107,24 +1840,13 @@ def coo_combiners(seed: int) -> None:
         f"({got_stats})")
     del coo, dev_in, dev_w
     torch.cuda.empty_cache()
-    log(f"[coo] mean / sum / sqrtn stack: "
-        f"{combiner_timing(seed, card_line())}")
 
 
-def combiner_timing(seed: int, card: str) -> str:
-    """time_combiner_transform(seed), as a line of the log."""
-    ms, kernel_ms, n_ops = time_combiner_transform(seed)
-    return (f"device transform median {statistics.median(ms)!r} ms "
-            f"({card}; CUDA events, 10 runs: {ms}); {n_ops} device "
-            f"operations, {kernel_ms!r} ms of kernels and copies "
-            f"(profiler, one run)")
-
-
-def run_mlperf(seed: int, profile: bool) -> dict:
+def run_mlperf(seed: int) -> None:
     """The port's ml_perf `main` at full width (the MLPerf DLRM-DCNv2,
     each vocabulary capped at 4M rows, packed f32 + Adagrad state, batch
     16,384), device preprocessing, learnable dummy batches: MLPERF_STEPS
-    steps, the device step time over chained steps, the dummy eval. B1
+    steps, main's chained-step window (honest_timing), the dummy eval. B1
     must launch once per step and no other kernel. Then host mode (C++
     engine, 4 loader threads) for MLPERF_HOST_STEPS steps, which starts
     from the config's capacities (8,192 / 4,096) and grows them through
@@ -2135,20 +1857,12 @@ def run_mlperf(seed: int, profile: bool) -> dict:
     model, too, starts from the config's capacities and grows them in
     its first `preprocess(batch, training=True)`; each of its B1 calls,
     at the grown U, held to the plain version), with the syncs of one
-    device-mode step counted, and the device's idle
-    share of main's loop: 1 - the device time of one whole device-mode
-    step (torch.profiler's kernel and copy rows over 3 steps from the raw
-    batch) / main's wall time per step. With `profile`, also the
-    profiler's breakdown of 3 device-mode steps (the transform
-    labelled). Returns the device-mode results, with "step_ms" (main's
-    wall time per step) and "busy_ms" (the device time of one whole
-    step) beside them."""
+    device-mode step counted."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
     from keras_rs_tpu_torch.examples.ml_perf import configs
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
-    from keras_rs_tpu_torch.models.dlrm import bce_loss
     from keras_rs_tpu_torch.training.train_state import (
         DenseAdagrad,
         make_train_step,
@@ -2160,30 +1874,23 @@ def run_mlperf(seed: int, profile: bool) -> dict:
     def drive(label, steps, expect_b1, **overrides):
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t = time.perf_counter()
         r = mlperf.main("full_criteo", device=dev, num_steps=steps,
                         vocab_sizes=capped, **overrides)
-        wall = time.perf_counter() - t
         counts = launch_counts()
         want = {k: expect_b1 if k == "apply_scatter_row_blocks" else 0
                 for k in counts}
         if counts != want:
             fail(f"mlperf {label}: launches {counts}, expected {want}")
         peak = torch.cuda.max_memory_allocated() / 1e9
-        if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+        if not main_results_ok(r, overrides.get("honest_timing", False)):
             fail(f"mlperf {label}: results {r}")
-        log(f"[mlperf {label}] results {r}; {wall:.1f} s in main; peak "
-            f"device memory {peak:.2f} GB; B1 launches {expect_b1}")
+        log(f"[mlperf {label}] results {r}; peak device memory "
+            f"{peak:.2f} GB; B1 launches {expect_b1}")
         torch.cuda.empty_cache()
         return r
 
-    r = drive("device", MLPERF_STEPS, MLPERF_STEPS + MLPERF_TIMING_STEPS,
-              device_preprocessing=True, honest_timing=True)
-    step_ms = BATCH / r["throughput"] * 1e3
-    log(f"[mlperf device] device step {r['device_step_ms']!r} ms "
-        f"({r['device_examples_per_sec']:.0f} examples/s on the device); "
-        f"end to end {r['throughput']:.0f} examples/s ({step_ms!r} ms per "
-        f"step of wall time over the {MLPERF_STEPS - 10} timed steps)")
+    drive("device", MLPERF_STEPS, MLPERF_STEPS + MLPERF_TIMING_STEPS,
+          device_preprocessing=True, honest_timing=True)
     cfg = configs.full_criteo(vocab_sizes=capped)
     rh = drive("host", MLPERF_HOST_STEPS, MLPERF_HOST_STEPS,
                num_loader_threads=4)
@@ -2204,22 +1911,12 @@ def run_mlperf(seed: int, profile: bool) -> dict:
             for _, c, u in grown):
         fail(f"mlperf host: capacities {grown} for {n_ids} ids per batch, "
              f"{dropped} ids dropped")
-    log(f"[mlperf host] end to end {rh['throughput']:.0f} examples/s "
-        f"(C++ engine on 4 loader threads, grown capacities) against "
-        f"{r['throughput']:.0f} with device preprocessing")
 
-    # The host's share of the loop: drawing a dummy batch (the loader
-    # draws them one at a time, under its source lock) and copying the
-    # raw batch to the card (the consuming thread).
     source = CriteoDataset(
         None, global_batch_size=cfg.global_batch_size,
         vocab_sizes=cfg.vocab_sizes,
         multi_hot_sizes=cfg.multi_hot_sizes).dummy_batches(3, seed=seed)
-    batches, draw_s, copy_s = [], [], []
-    for _ in range(3):
-        t = time.perf_counter()
-        batches.append(next(source))
-        draw_s.append(time.perf_counter() - t)
+    batches = [next(source) for _ in range(3)]
     losses = {}
     for device_preprocessing in (True, False):
         model = mlperf.build_model(cfg, dev,
@@ -2229,11 +1926,7 @@ def run_mlperf(seed: int, profile: bool) -> dict:
             DenseAdagrad(model.parameters(), cfg.learning_rate))
         if device_preprocessing:
             def whole_step(b, model=model, step=step):
-                t = time.perf_counter()
-                on_card = model.to_device(b)
-                torch.cuda.synchronize()
-                copy_s.append(time.perf_counter() - t)
-                return step(on_card)
+                return step(model.to_device(b))
 
             out = []
             syncs = len(sync_sites(
@@ -2252,29 +1945,8 @@ def run_mlperf(seed: int, profile: bool) -> dict:
             host_caps = [(st.max_ids_per_partition,
                           st.max_unique_ids_per_shard)
                          for st in model.embedding_layer.stacks]
-        if device_preprocessing:  # after the losses: it trains on
-            _, _, busy_ms = profile_steps(
-                lambda b: step(model.to_device(b)), batches[0])
-        if profile and device_preprocessing:
-            def labelled(m, b):
-                with torch.profiler.record_function("device COO transform"):
-                    pre = m.preprocess_on_device(b)
-                return bce_loss(m, pre)
-
-            phase_profile(
-                "mlperf device mode",
-                make_train_step(model, labelled, DenseAdagrad(
-                    model.parameters(), cfg.learning_rate)),
-                model.to_device(batches[0]),
-                MLPERF_PROFILE_PARTS)
         del model, step, whole_step
         torch.cuda.empty_cache()
-    log(f"[mlperf host path] drawing one dummy batch {draw_s} s; the raw "
-        f"batch to the card (pinned copy) {copy_s} s")
-    log(f"[mlperf device] device idle {1 - busy_ms / step_ms:.1%} of main's "
-        f"loop: {busy_ms!r} ms of kernels and copies per whole step "
-        f"(profiler, 3 steps from the raw batch) against {step_ms!r} ms of "
-        f"wall time per step")
     if len(held) != len(batches) * len(host_caps) or any(
             bool(h["bad"]) for h in held):
         fail(f"mlperf host: {len(held)} B1 calls of the grown host model, "
@@ -2290,7 +1962,6 @@ def run_mlperf(seed: int, profile: bool) -> dict:
         f"{losses[False]}: differences {diff} (bound {MODE_LOSS_BOUND})")
     if diff[0] != 0.0 or max(diff) > MODE_LOSS_BOUND:
         fail(f"mlperf: device and host modes disagree: {diff}")
-    return dict(r, step_ms=step_ms, busy_ms=busy_ms)
 
 
 def phase_auc() -> None:
@@ -2317,12 +1988,9 @@ FILE_BATCH = 4096
 FILE_COUNT = 8
 FILE_PROTOS = 12
 FILE_VAL_PROTOS = 8
-FILE_STEPS = 70  # ~2.9 passes over the files, 60 of them timed
-FILE_HELD_STEPS = 3  # the untimed run whose every B1 call is held
-#: The profiled run: main's --profile traces steps 10-20 of 21.
-FILE_PROFILE_STEPS = 21
-FILE_PROFILE_WINDOW = 11
-FILE_WORKERS = (1, 2, 4)  # prefetch workers of the reader timings (main: 2)
+FILE_STEPS = 70  # ~2.9 passes over the files
+FILE_HELD_STEPS = 3  # the run whose every B1 call is held
+FILE_WORKERS = (1, 2, 4)  # prefetch workers of the reader passes (main: 2)
 #: The smoke config's files: 4 x 10 protos of 4,096 (160 batches of
 #: 512 per pass) and a validation file of 4 protos.
 SMOKE_FILE_COUNT = 4
@@ -2378,45 +2046,6 @@ def reader_paths():
         CriteoDataset.dummy_batches = dummy
 
 
-@contextlib.contextmanager
-def main_profile_window():
-    """While open, the window that main's --profile traces (steps 10-20)
-    is traced in memory by torch.profiler, between two device syncs on
-    the host clock, and no trace file is written. Yields a dict that then
-    holds the window's "wall_ms" and "busy_ms" (device time of the kernel
-    and copy rows), both per step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
-    from keras_rs_tpu_torch.utils.timing import device_ms
-
-    window: dict = {}
-    start, stop = mlperf.start_profiler, mlperf.stop_profiler
-
-    def start_window(device):
-        torch.cuda.synchronize(device)
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.__enter__()
-        window["t"] = time.perf_counter()
-        return prof
-
-    def stop_window(prof, trace_dir, device):
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - window.pop("t")
-        prof.__exit__(None, None, None)
-        window["wall_ms"] = wall * 1e3 / FILE_PROFILE_WINDOW
-        window["busy_ms"] = (device_ms(prof.key_averages())
-                             / FILE_PROFILE_WINDOW)
-
-    mlperf.start_profiler, mlperf.stop_profiler = start_window, stop_window
-    try:
-        yield window
-    finally:
-        mlperf.start_profiler, mlperf.stop_profiler = start, stop
-
-
 def file_dataset(pattern: str, generic: bool = False, **kw):
     """The ml_perf entry point's CriteoDataset over `pattern` at full
     width; with `generic`, one that drops the learned schema before
@@ -2435,29 +2064,25 @@ def file_dataset(pattern: str, generic: bool = False, **kw):
                file_batch_size=FILE_BATCH, **kw)
 
 
-def read_epoch(ds, workers: int) -> tuple[int, float]:
-    """(samples, s) of one pass of ds.batches() with `workers` prefetch
+def read_epoch(ds, workers: int) -> int:
+    """The samples of one pass of ds.batches() with `workers` prefetch
     workers."""
-    t = time.perf_counter()
-    n = sum(len(b["label"])
-            for b in ds.batches(epochs=1, file_prefetch=workers))
-    return n, time.perf_counter() - t
+    return sum(len(b["label"])
+               for b in ds.batches(epochs=1, file_prefetch=workers))
 
 
 def phase_reader(pattern: str, paths: list) -> None:
     """The reader alone over every file: the first pass of a fresh
     dataset at one worker (file 1 generic, every later file fixed); each
-    file's fixed arrays equal to its generic arrays bit for bit; then
-    examples/s and GB/s of the fixed and the generic path at 1 and 4
-    prefetch workers, in turns (fixed, generic, generic, fixed)."""
+    file's fixed arrays equal to its generic arrays bit for bit; then a
+    pass of the fixed and of the generic path at each of FILE_WORKERS
+    prefetch workers reads every sample."""
     from keras_rs_tpu_torch.data import native_io
-    from keras_rs_tpu_torch.utils.timing import card_line
 
-    nbytes = sum(os.path.getsize(p) for p in paths)
     fixed_ds = file_dataset(pattern)
     generic_ds = file_dataset(pattern, generic=True)
     with reader_paths() as counts:
-        n, _ = read_epoch(fixed_ds, 1)
+        n = read_epoch(fixed_ds, 1)
     want = {"fixed": len(paths) - 1, "fixed_left": 0, "generic": 1}
     if counts != want or fixed_ds._fixed_schema is None:
         fail(f"mlperf files: reader paths of a first pass {counts}, "
@@ -2474,45 +2099,31 @@ def phase_reader(pattern: str, paths: list) -> None:
                      "array differs from the generic path's")
     if fixed_ds._fixed_schema is None:
         fail("mlperf files: the fixed path left its schema")
-    rates = {}
     for workers in FILE_WORKERS:
-        for name, ds in (("fixed", fixed_ds), ("generic", generic_ds),
-                         ("generic", generic_ds), ("fixed", fixed_ds)):
-            got, s = read_epoch(ds, workers)
+        for name, ds in (("fixed", fixed_ds), ("generic", generic_ds)):
+            got = read_epoch(ds, workers)
             if got != n:
                 fail(f"mlperf files: {name} pass read {got} samples, "
                      f"expected {n}")
-            rates.setdefault((name, workers), []).append(s)
     fixed_ds.close()
     generic_ds.close()
-    card = card_line()
-    parts = []
-    for (name, workers), times in rates.items():
-        s = min(times)
-        parts.append(f"{name} at {workers} worker(s) {n / s:.0f} "
-                     f"examples/s, {nbytes / s / 1e9:.3f} GB/s (s per "
-                     f"pass {times})")
-    log(f"[mlperf files] reader alone ({card}; a host figure of the "
-        f"card's machine, {os.cpu_count()} CPUs; best of 2 passes over "
-        f"{len(paths)} files, {n} samples, {nbytes / 1e9:.3f} GB, page "
-        f"cache warm): " + "; ".join(parts))
+    log(f"[mlperf files] reader alone: {n} samples of {len(paths)} files "
+        f"in every pass of the fixed and the generic path at "
+        f"{FILE_WORKERS} worker(s)")
     log(f"[mlperf files] first pass of a fresh dataset: {counts} (every "
         f"file after the first took the fixed path); each file's fixed "
         f"arrays equal its generic arrays bit for bit; native reader "
         f"available: {native_io.available()}")
 
 
-def run_mlperf_files(seed: int, unpiped: dict) -> None:
+def run_mlperf_files(seed: int) -> None:
     """Phase 17b: the ml_perf entry point trained from Criteo-schema
     TFRecord files that it writes itself with the port's writer:
     phase_reader, then main("full_criteo") at the 4M cap with device
     preprocessing over the files (eval on a validation file) three
-    times, B1 once per step and no other kernel in each: FILE_HELD_STEPS
-    untimed steps with every B1 call held to its plain version;
-    FILE_STEPS steps for end-to-end examples/s; FILE_PROFILE_STEPS steps
-    whose profiled window gives the device's idle share of this loop.
-    Both beside phase 16's dummy-draw figures (`unpiped`, this call).
-    Then main("smoke_test") from small learnable files, 300 steps: AUC
+    twice, B1 once per step and no other kernel in each: FILE_HELD_STEPS
+    steps with every B1 call held to its plain version, then FILE_STEPS
+    steps. Then main("smoke_test") from small learnable files, 300 steps: AUC
     > 0.60. Nothing may fall back to the Python reader or to dummy
     batches. The files are deleted."""
     import torch
@@ -2521,11 +2132,9 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
     from keras_rs_tpu_torch.data.criteo import write_batched_criteo_files
     from keras_rs_tpu_torch.examples.ml_perf import configs
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
-    from keras_rs_tpu_torch.utils.timing import card_line
 
     if not native_io.available():
         fail("mlperf files: the native TFRecord reader does not build")
-    t0 = time.perf_counter()
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     free = shutil.disk_usage(build).free
@@ -2536,7 +2145,6 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory(prefix="mlperf_files_",
                                      dir=build) as work:
-        t = time.perf_counter()
         paths = write_batched_criteo_files(
             os.path.join(work, "train"), num_files=FILE_COUNT,
             protos_per_file=FILE_PROTOS, file_batch_size=FILE_BATCH,
@@ -2550,24 +2158,20 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
         nbytes = sum(os.path.getsize(p) for p in paths)
         log(f"[mlperf files] wrote {len(paths)} files x {FILE_PROTOS} "
             f"protos x {FILE_BATCH} samples ({nbytes / 1e9:.3f} GB) and a "
-            f"validation file in {time.perf_counter() - t:.1f} s; "
-            f"{free / 1e9:.1f} GB were free")
+            f"validation file; {free / 1e9:.1f} GB were free")
         train = os.path.join(work, "train", "train-*.tfrecord")
         val = os.path.join(work, "val", "train-*.tfrecord")
         phase_reader(train, paths)
 
-        def drive(label, steps, **overrides):
+        def drive(label, steps):
             """main from the files, launches and reader paths checked."""
             reset_launch_counts()
             with reader_paths() as used:
-                t = time.perf_counter()
                 r = mlperf.main(
                     "full_criteo", device=dev, num_steps=steps,
                     vocab_sizes=capped, global_batch_size=BATCH,
                     device_preprocessing=True, file_pattern=train,
-                    val_file_pattern=val, file_batch_size=FILE_BATCH,
-                    **overrides)
-                wall = time.perf_counter() - t
+                    val_file_pattern=val, file_batch_size=FILE_BATCH)
             counts = launch_counts()
             log(f"[launches] phase 17b mlperf from files, {label}: {counts}")
             want = {k: steps if k == "apply_scatter_row_blocks" else 0
@@ -2582,11 +2186,9 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
             if (used["fixed_left"] or used["generic"] > 3
                     or (steps > FILE_HELD_STEPS and used["fixed"] < 1)):
                 fail(f"mlperf files {label}: reader paths in main {used}")
-            if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+            if not main_results_ok(r):
                 fail(f"mlperf files {label}: results {r}")
-            log(f"[mlperf files] {label}: results {r}; {wall:.1f} s in "
-                f"main; reader paths {used}")
-            return r
+            log(f"[mlperf files] {label}: results {r}; reader paths {used}")
 
         with b1_held_to_plain() as b1_calls:
             drive("held", FILE_HELD_STEPS)
@@ -2596,30 +2198,9 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
         log(f"[mlperf files] held: every B1 call against its plain "
             f"version {b1}")
         torch.cuda.reset_peak_memory_stats()
-        r = drive("timed", FILE_STEPS)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        with main_profile_window() as window:
-            drive("profiled", FILE_PROFILE_STEPS, do_profile=True)
-        if set(window) != {"wall_ms", "busy_ms"}:
-            fail(f"mlperf files: main's profile window did not close: "
-                 f"{window}")
-        step_ms = BATCH / r["throughput"] * 1e3
-        card = card_line()
-        log(f"[mlperf files] ({card}) end to end {r['throughput']:.0f} "
-            f"examples/s from files ({step_ms!r} ms per step over "
-            f"{FILE_STEPS - 10} timed steps; peak device memory "
-            f"{peak:.2f} GB) against {unpiped['throughput']:.0f} from the "
-            f"dummy draw (phase 16, this call, {unpiped['step_ms']!r} ms)")
-        log(f"[mlperf files] ({card}) device idle "
-            f"{1 - window['busy_ms'] / window['wall_ms']:.1%} of main's "
-            f"loop from files: {window['busy_ms']!r} ms of kernels and "
-            f"copies in {window['wall_ms']!r} ms of wall time per step "
-            f"(torch.profiler over steps 10-20 of the profiled run); "
-            f"{1 - window['busy_ms'] / step_ms:.1%} against the timed "
-            f"run's step. Dummy draw (phase 16): "
-            f"{1 - unpiped['busy_ms'] / unpiped['step_ms']:.1%} "
-            f"({unpiped['busy_ms']!r} ms of kernels and copies per whole "
-            f"step, profiled apart from main, against main's step)")
+        drive("trained", FILE_STEPS)
+        log(f"[mlperf files] trained: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         torch.cuda.empty_cache()
 
         smoke = configs.smoke_test()
@@ -2642,8 +2223,7 @@ def run_mlperf_files(seed: int, unpiped: dict) -> None:
             f"preprocessing: {rs}; reader paths {smoke_paths}")
         if not rs["auc"] > AUC_GATE:
             fail(f"mlperf files: smoke AUC {rs['auc']} <= {AUC_GATE}")
-    log(f"[mlperf files] phase 17b took {time.perf_counter() - t0:.1f} s; "
-        f"the files are deleted")
+    log("[mlperf files] the files are deleted")
 
 
 # Two-tower retrieval: the 1M x 128 corpus of the repo's own retrieval
@@ -2687,56 +2267,6 @@ BR_USERS = 943
 BR_ITEMS = 1682
 BR_BATCH = 512
 BR_LR = 3e-3
-
-
-TWO_TOWER_PROFILE_PARTS = [
-    ("forward", "forward", "total"),
-    ("backward", "backward", "total"),
-    ("  table gradients (EmbedReduce backward)", "EmbeddingBackward0",
-     "total"),
-    ("dense Adagrad", "optimizer", "total"),
-    ("matmuls", "aten::mm", "self"),
-]
-SERVE_PROFILE_PARTS = [
-    ("matmuls", "aten::mm", "self"),
-    ("stable sorts (top-k)", "aten::sort", "total"),
-    ("probed-cluster gathers", "aten::index", "total"),
-    ("in-cluster scores", "aten::bmm", "self"),
-    ("int8 to f32 casts", "aten::_to_copy", "total"),
-]
-
-
-def idle_share(label: str, step, batch, parts, profile: bool) -> None:
-    """The device's idle share of `step(batch)` (1 - kernel time / wall
-    time over 3 calls, torch.profiler); with `profile`, the breakdown by
-    part and the operator table too."""
-    if profile:
-        phase_profile(label, step, batch, parts)
-    _, wall_ms, kernel_ms = profile_steps(step, batch)
-    log(f"[idle] {label}: {kernel_ms!r} ms of kernels in {wall_ms!r} ms of "
-        f"wall time per call: device idle {1 - kernel_ms / wall_ms:.1%}")
-
-
-def labelled_step(model, loss_fn, optimizer):
-    """A train step with its forward, backward and optimizer labelled for
-    the profiler (the Trainer's step, in three ranges)."""
-    from torch.profiler import record_function
-
-    from keras_rs_tpu_torch.training.trainer import batch_to_device
-
-    device = next(model.parameters()).device
-
-    def step(batch):
-        optimizer.zero_grad()
-        with record_function("forward"):
-            loss = loss_fn(model, batch_to_device(batch, device))
-        with record_function("backward"):
-            loss.backward()
-        with record_function("optimizer"):
-            optimizer.step()
-        return loss.detach()
-
-    return step
 
 
 def zipf_ids(rng, n: int, size: int, perm) -> np.ndarray:
@@ -2788,20 +2318,9 @@ def tutorial_loss(model, batch):
     return -(labels * torch.log_softmax(scores, dim=-1)).sum(-1).mean()
 
 
-def timed_steps(trainer, batches) -> tuple[list, list]:
-    """(losses, CUDA-event ms) of one trainer step per batch."""
-    import torch
-
-    losses, ms = [], []
-    for b in batches:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        loss = trainer.step(b)
-        ev[1].record()
-        torch.cuda.synchronize()
-        losses.append(float(loss))
-        ms.append(ev[0].elapsed_time(ev[1]))
-    return losses, ms
+def step_losses(trainer, batches) -> list:
+    """The losses of one trainer step per batch."""
+    return [float(trainer.step(b)) for b in batches]
 
 
 def check_falls(label: str, losses) -> None:
@@ -2884,11 +2403,9 @@ def phase_retrieval_small(dev, seed: int) -> None:
         "ValueError with an explicit chunk_size")
 
 
-def run_retrieval(dev, seed: int, profile: bool) -> None:
+def run_retrieval(dev, seed: int) -> None:
     """Phases 19-20: the two-tower slice trained and served, brute force
-    at BRUTE_N, and the k-means IVF in f32 and int8 + reorder; the
-    device's idle share of a training step and of a serving batch
-    (with `profile`, their breakdowns too)."""
+    at BRUTE_N, and the k-means IVF in f32 and int8 + reorder."""
     import torch
 
     from keras_rs_tpu_torch.models.two_tower import TwoTower
@@ -2910,30 +2427,25 @@ def run_retrieval(dev, seed: int, profile: bool) -> None:
         f"{len(np.unique(fixed['candidate_id']))} distinct candidates, "
         f"most frequent x{int(TT_BATCH * fixed['sampling_probability'].max())}"
         f" (Zipf {TT_ZIPF} over {TT_ITEMS})")
-    losses, ms = timed_steps(trainer, [fixed] * FIXED_STEPS + fresh)
+    losses = step_losses(trainer, [fixed] * FIXED_STEPS + fresh)
     check_falls("retrieval train", losses[:FIXED_STEPS])
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[retrieval train] in_batch_softmax_loss with logQ: losses "
-        f"{losses}; step ms {ms}; median {statistics.median(ms)!r} ms "
-        f"({TT_BATCH / statistics.median(ms) * 1e3:.0f} examples/s); peak "
-        f"device memory {peak:.2f} GB")
+        f"{losses}; peak device memory {peak:.2f} GB")
     tutorial = Trainer(model, DenseAdagrad(model.parameters(), TT_LR),
                        tutorial_loss)
-    t_losses, t_ms = timed_steps(tutorial, [fixed] * TT_SECOND_LOSS_STEPS)
+    t_losses = step_losses(tutorial, [fixed] * TT_SECOND_LOSS_STEPS)
     if not all(math.isfinite(x) for x in t_losses):
         fail(f"retrieval train: tutorial loss {t_losses}")
     log(f"[retrieval train] RemoveAccidentalHits + HardNegativeMining("
         f"{TT_HARD_NEGATIVES}) + SamplingProbabilityCorrection: losses "
-        f"{t_losses}; step ms {t_ms}")
-    idle_share("two-tower train step", labelled_step(
-        model, softmax_loss, trainer.optimizer), fixed,
-        TWO_TOWER_PROFILE_PARTS, profile)
+        f"{t_losses}")
     del trainer, tutorial
     serve_two_tower(model, rng, perms)
     del model
     torch.cuda.empty_cache()
-    serve_brute_force(dev, seed, profile)
-    serve_ivf(dev, seed, profile)
+    serve_brute_force(dev, seed)
+    serve_ivf(dev, seed)
 
 
 def serve_two_tower(model, rng, perms) -> None:
@@ -2948,38 +2460,26 @@ def serve_two_tower(model, rng, perms) -> None:
     from keras_rs_tpu_torch.ops.topk import top_k
 
     dev = model.candidate_embedding.embeddings.device
-    t = time.perf_counter()
     retrieval = model.make_retrieval(k=SERVE_K)
-    torch.cuda.synchronize()
-    embed_s = time.perf_counter() - t
     approx = BruteForceRetrieval(retrieval.candidate_embeddings, k=SERVE_K,
                                  recall_target=0.95)
-    serve_ms, direct_ms = [], []
     with torch.no_grad():
         for _ in range(SCORE_BATCHES):
             ids = torch.from_numpy(zipf_ids(rng, TT_QUERIES, SERVE_BATCH,
                                             perms[0])).to(dev)
             q = model.query_tower(ids)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            s, i = retrieval(q)
-            ev[1].record()
-            ds, di = top_k(q @ retrieval.candidate_embeddings.T, SERVE_K)
-            ev[2].record()
+            _, i = retrieval(q)
+            _, di = top_k(q @ retrieval.candidate_embeddings.T, SERVE_K)
             _, ai = approx(q)
-            torch.cuda.synchronize()
-            serve_ms.append(ev[0].elapsed_time(ev[1]))
-            direct_ms.append(ev[1].elapsed_time(ev[2]))
             if not (torch.equal(i, di) and torch.equal(ai, di)):
                 fail("retrieval serve: chunked ids differ from the direct "
                      "top-k")
-    log(f"[retrieval serve] {TT_ITEMS} candidates embedded in {embed_s:.3f} "
-        f"s; top-{SERVE_K} of {SERVE_BATCH} queries, chunked exact path "
-        f"{serve_ms} ms, direct [B, N] path {direct_ms} ms; ids equal "
-        "(recall_target=0.95 too)")
+    log(f"[retrieval serve] {TT_ITEMS} candidates embedded; top-{SERVE_K} "
+        f"of {SERVE_BATCH} queries, chunked exact path and direct [B, N] "
+        "path: ids equal (recall_target=0.95 too)")
 
 
-def serve_brute_force(dev, seed: int, profile: bool) -> None:
+def serve_brute_force(dev, seed: int) -> None:
     """Phase 20b: the chunked exact path over BRUTE_N x TT_DIM f32
     candidates, 3 batches; BRUTE_CHECK_ROWS queries also against a direct
     top-k."""
@@ -2994,26 +2494,18 @@ def serve_brute_force(dev, seed: int, profile: bool) -> None:
     g = torch.Generator(dev).manual_seed(seed)
     cands = torch.randn((BRUTE_N, TT_DIM), generator=g, device=dev)
     layer = BruteForceRetrieval(cands, k=SERVE_K)
-    ms = []
     for _ in range(SCORE_BATCHES):
         q = torch.randn((SERVE_BATCH, TT_DIM), generator=g, device=dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        s, i = layer(q)
-        ev[1].record()
-        torch.cuda.synchronize()
-        ms.append(ev[0].elapsed_time(ev[1]))
+        _, i = layer(q)
     _, di = top_k(q[:BRUTE_CHECK_ROWS] @ cands.T, SERVE_K)
     if not torch.equal(i[:BRUTE_CHECK_ROWS], di):
         fail("brute force: chunked ids differ from the direct top-k")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[retrieval brute] {BRUTE_N} x {TT_DIM} f32 candidates "
         f"({cands.numel() * 4 / 1e9:.2f} GB), "
-        f"{-(-BRUTE_N // 65536)} chunks: {ms} ms per batch of "
+        f"{-(-BRUTE_N // 65536)} chunks, {SCORE_BATCHES} batches of "
         f"{SERVE_BATCH}; {BRUTE_CHECK_ROWS} rows equal a direct top-k; peak "
         f"device memory {peak:.2f} GB")
-    idle_share(f"brute force at {BRUTE_N}", layer, q, SERVE_PROFILE_PARTS,
-               profile)
     del cands, layer
     torch.cuda.empty_cache()
 
@@ -3029,10 +2521,10 @@ def mixture(g, n: int, centres):
         (n, centres.shape[1]), generator=g, device=centres.device)
 
 
-def serve_ivf(dev, seed: int, profile: bool) -> None:
+def serve_ivf(dev, seed: int) -> None:
     """Phase 20c: KMeansRetrieval over IVF_N mixture points (default
-    num_clusters, IVF_PROBES probes), f32 and int8 + reorder: build time,
-    ms and peak memory per batch, recall@10 against the exact top-10 (>
+    num_clusters, IVF_PROBES probes), f32 and int8 + reorder: peak memory
+    per batch, recall@10 against the exact top-10 (>
     IVF_RECALL_GATE); then full probing at IVF_EXACT_N equals brute
     force."""
     import torch
@@ -3052,22 +2544,13 @@ def serve_ivf(dev, seed: int, profile: bool) -> None:
     exact = BruteForceRetrieval(corpus, k=SERVE_K)
     want = [exact(q)[1] for q in queries]
     for quantize in (None, "int8"):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         layer = KMeansRetrieval(corpus, k=SERVE_K, num_probes=IVF_PROBES,
                                 quantize=quantize, seed=seed, device=dev)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        ms, recall = [], []
+        recall = []
         for q, w in zip(queries, want):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
             _, ids = layer(q)
-            ev[1].record()
-            torch.cuda.synchronize()
-            ms.append(ev[0].elapsed_time(ev[1]))
             hits = (ids[:, :, None] == w[:, None, :]).any(dim=2)
             recall.append(float(hits.float().mean()))
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -3075,13 +2558,11 @@ def serve_ivf(dev, seed: int, profile: bool) -> None:
         label = quantize or "f32"
         log(f"[ivf {label}] {IVF_N} x {TT_DIM} mixture of {IVF_CENTRES} "
             f"centres: {K} clusters (capacity {cap}, mean "
-            f"{IVF_N / K:.0f}), built in {build_s:.2f} s; {IVF_PROBES} "
-            f"probes: {ms} ms per batch of {SERVE_BATCH}; recall@{SERVE_K} "
-            f"{recall}; serving peak {peak:.2f} GB over the index")
+            f"{IVF_N / K:.0f}); {IVF_PROBES} probes, batches of "
+            f"{SERVE_BATCH}: recall@{SERVE_K} {recall}; serving peak "
+            f"{peak:.2f} GB over the index")
         if min(recall) <= IVF_RECALL_GATE:
             fail(f"ivf {label}: recall {recall} <= {IVF_RECALL_GATE}")
-        idle_share(f"ivf {label} batch", layer, queries[0],
-                   SERVE_PROFILE_PARTS, profile)
         del layer
         torch.cuda.empty_cache()
 
@@ -3227,7 +2708,7 @@ def run_ranking(dev, seed: int) -> None:
 
         trainer = Trainer(model, DenseAdagrad(model.parameters(), RANK_LR),
                           loss_fn)
-        losses, ms = timed_steps(trainer, [fixed] * RANK_STEPS)
+        losses = step_losses(trainer, [fixed] * RANK_STEPS)
         check_falls(f"listwise {loss.name}", losses)
         metrics = {"NDCG@10": ranking_metrics.NDCG(k=10, device=dev),
                    "MAP": ranking_metrics.MeanAveragePrecision(device=dev),
@@ -3248,8 +2729,7 @@ def run_ranking(dev, seed: int) -> None:
                    for v in results.values()):
             fail(f"listwise {loss.name}: metrics {results}")
         log(f"[listwise {loss.name}] {RANK_BATCH} lists of {RANK_LIST}: "
-            f"losses {losses}; step ms {ms} (median "
-            f"{statistics.median(ms)!r}); held-out {results}; peak device "
+            f"losses {losses}; held-out {results}; peak device "
             f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del model, trainer
         torch.cuda.empty_cache()
@@ -3260,16 +2740,15 @@ def run_ranking(dev, seed: int) -> None:
                          generator=torch.Generator(dev).manual_seed(seed),
                          device=dev)
     trainer = Trainer(model, DenseAdam(model.parameters(), BR_LR), mse_loss)
-    losses, ms = timed_steps(trainer, [data] * RANK_STEPS)
+    losses = step_losses(trainer, [data] * RANK_STEPS)
     check_falls("basic ranking", losses)
     log(f"[basic ranking] {BR_USERS} users, {BR_ITEMS} items, dim 32, MLP "
-        f"(256, 64, 1), batch {BR_BATCH}: mse losses {losses}; step ms {ms}")
+        f"(256, 64, 1), batch {BR_BATCH}: mse losses {losses}")
 
 
 # --- Serving: freeze, int8, CUDA graphs, export (phases 22-25) -----------
 
 SERVE_SMALL_BATCH = 512  # the small request batch of phase 23
-SERVE_REPS = 5  # timed runs of each request batch (CUDA events)
 #: freeze() layouts: f32, then int8 in the "rows", "packed" and "fused"
 #: layouts of ops/quant.py.
 QUANTIZE = (None, "int8", "int8_packed", "int8_fused")
@@ -3321,32 +2800,12 @@ def frozen_request(model, raw: dict, dev) -> tuple[dict, dict, dict]:
 
 def frozen_scorer(model, frozen):
     """serve(batch, large ids, large weights) -> logits: the frozen large
-    features feed the model's dense stack through "large_acts" (the
-    frozen lookup labelled for the profiler)."""
-    import torch
+    features feed the model's dense stack through "large_acts"."""
 
     def serve(batch, ids, weights):
-        with torch.profiler.record_function("frozen embedding"):
-            acts = frozen(ids, weights)
-        return model({**batch, "large_acts": acts})
+        return model({**batch, "large_acts": frozen(ids, weights)})
 
     return serve
-
-
-# Parts of a serving batch for the profile (see DLRM_PROFILE_PARTS).
-SERVE_PROFILE_PARTS = [
-    ("frozen embedding (large features)", "frozen embedding", "total"),
-    ("  row gathers", "aten::embedding", "total"),
-    ("  int8 row and scale gathers", "aten::index", "total"),
-    ("  where (index wrap, NaN mask, plane select)", "aten::where",
-     "self"),
-    ("  multiplies (scale, weights)", "aten::mul", "self"),
-    ("  sums over the ids", "aten::sum", "self"),
-    ("  byte extraction (shift, mask)", "aten::bitwise_right_shift",
-     "self"),
-    ("dense matmuls", "aten::mm", "self"),
-    ("dtype casts", "aten::_to_copy", "total"),
-]
 
 
 def module_bytes(module) -> int:
@@ -3383,15 +2842,6 @@ def check_within_int8_bound(label: str, got: dict, want: dict,
                  "its bound")
         worst = max(worst, float((err / limit).max()))
     return worst
-
-
-def gathered_bytes(n_ids: int, quantize) -> int:
-    """Bytes the frozen lookup gathers for n_ids ids of dim-128 rows: the
-    row (f32, or int8 and its f32 scale), a 4-row int32 word row and the
-    scale ("packed"), or an 8-row [384]-word group row ("fused")."""
-    per_id = {None: 128 * 4, "int8": 128 + 4, "int8_packed": 128 * 4 + 4,
-              "int8_fused": 384 * 4}[quantize]
-    return n_ids * per_id
 
 
 def phase_serving_small(seed: int) -> None:
@@ -3493,27 +2943,7 @@ def phase_serving_small(seed: int) -> None:
                           embedding_optimizer="rowwise_adagrad")
 
 
-def time_requests(fn, requests) -> list[float]:
-    """CUDA-event ms of fn(*request) for each request (mean of
-    SERVE_REPS runs after one warm-up)."""
-    import torch
-
-    out = []
-    with torch.no_grad():
-        for r in requests:
-            fn(*r)
-            out.append(cuda_time_ms(lambda: fn(*r), SERVE_REPS))
-    return out
-
-
-def no_grad_call(fn, args):
-    import torch
-
-    with torch.no_grad():
-        return fn(*args)
-
-
-def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
+def phase_dlrm_serve(model, cfg, seed: int) -> None:
     """Phase 23: the trained packed DLRM (4M cap) frozen in f32 and in the
     three int8 layouts, serving 3 request batches of BATCH and 3 of
     SERVE_SMALL_BATCH (large features Ragged, lengths uniform in [1,
@@ -3522,7 +2952,6 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
     import torch
 
     from keras_rs_tpu_torch import serving
-    from keras_rs_tpu_torch.utils.timing import HBM_BYTES_PER_S, card_line
 
     dev = torch.device("cuda", 0)
     emb = model.embedding_layer
@@ -3534,22 +2963,15 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
                    for s in range(SCORE_BATCHES)] for size in sizes}
     reqs = {size: [frozen_request(model, r, dev) for r in rs]
             for size, rs in raws.items()}
-    n_ids = {size: sum(v.numel() for v in rs[0][1].values())
-             for size, rs in reqs.items()}
     with torch.no_grad():
         trained = [model(model.preprocess(r)) for r in raws[sizes[0]]]
     state_bytes = sum(t.numel() * t.element_size()
                       for n, t in emb.named_buffers()
                       if n.startswith("stack"))
-    card = card_line()
     acts, logits, bound = {}, {}, None
     for q in QUANTIZE:
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
         frozen = emb.freeze(quantize=q)
-        torch.cuda.synchronize()
-        freeze_s = time.perf_counter() - t
         serve = frozen_scorer(model, frozen)
         with torch.no_grad():
             acts[q] = [frozen(ids, w) for _, ids, w in reqs[sizes[0]]]
@@ -3565,7 +2987,6 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
         if q == "int8":
             bound = [int8_bound(frozen, ids, w)
                      for _, ids, w in reqs[sizes[0]]]
-        times = {}
         for size, rs in reqs.items():
             for out in logits[q][size]:
                 if not bool(torch.isfinite(out).all()):
@@ -3576,26 +2997,12 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
                     gap = float((compiled(*r) - want).abs().max())
                     fail(f"dlrm serve {q}: aot_compile differs from eager "
                          f"at batch {size} by {gap!r}")
-            times[size] = (time_requests(serve, rs),
-                           time_requests(compiled, rs))
             del compiled
         peak = torch.cuda.max_memory_allocated() / 1e9
-        for size, rs in reqs.items():
-            phase_profile(f"dlrm serve {q or 'f32'} batch {size}",
-                          lambda r: no_grad_call(serve, r), rs[0],
-                          SERVE_PROFILE_PARTS, table=profile)
-        log(f"[dlrm serve {q or 'f32'}] ({card}) frozen "
-            f"{module_bytes(frozen)} "
-            f"B, built in {freeze_s:.3f} s; peak device memory {peak:.2f} GB "
-            f"(training state {state_bytes / 1e9:.2f} GB resident)")
-        for size in sizes:
-            eager, graph = times[size]
-            nbytes = gathered_bytes(n_ids[size], q)
-            log(f"[dlrm serve {q or 'f32'}] batch {size}: ms per batch eager "
-                f"{eager} (median {statistics.median(eager)!r}), CUDA graph "
-                f"{graph} (median {statistics.median(graph)!r}); gathers "
-                f"{nbytes} B for {n_ids[size]} ids = "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+        log(f"[dlrm serve {q or 'f32'}] frozen {module_bytes(frozen)} B; "
+            f"batches of {sizes}, eager and CUDA graph equal; peak device "
+            f"memory {peak:.2f} GB (training state "
+            f"{state_bytes / 1e9:.2f} GB resident)")
         del frozen, serve
         torch.cuda.empty_cache()
     # Frozen f32 against the trained model; int8 layouts against each
@@ -3632,7 +3039,6 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
     if any(t.untyped_storage().data_ptr() in own for t in copy.buffers()):
         fail("dlrm serve: serving_copy shares storage with the model")
     large = [f"cat_{i}" for i in model.large_idx]
-    copy_ms = {}
     with torch.no_grad():
         # Full-width ids take the construction-order forward, Ragged rows
         # narrower than every valence the sorted one.
@@ -3642,34 +3048,24 @@ def phase_dlrm_serve(model, cfg, seed: int, profile: bool) -> None:
             if narrow:
                 rs = [ragged_requests(r, rng, model.large_idx, narrow=True)
                       for r in rs]
-            ms = []
             for r in rs:
                 pre = copy.preprocess({k: r[k] for k in large})
                 if ("fwd_slots" in pre["sharded"][copy.stacks[0].name]) != (
                         not narrow):
                     fail(f"dlrm serve: serving_copy took the wrong forward "
                          f"({form})")
-                batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
-                         for k, v in r.items() if k not in large
-                         and k != "label"}
                 a, b = copy(pre), emb(pre)
                 rel = max(float((a[k] - b[k]).abs().max())
                           / max(float(b[k].abs().max()), 1e-30) for k in a)
                 if rel > 1e-5 or (not narrow and rel != 0.0):
                     fail(f"dlrm serve: serving_copy differs from the model "
                          f"by {rel!r} relative ({form})")
-                ms.append(cuda_time_ms(
-                    lambda: model({**batch, "large_acts": copy(pre)}),
-                    SERVE_REPS))
-            copy_ms[form] = ms
-    log(f"[dlrm serve copy] ({card}) serving_copy state {copy_bytes} B "
+    log(f"[dlrm serve copy] serving_copy state {copy_bytes} B "
         f"({copy_bytes / 1e9:.2f} GB) vs packed training state "
-        f"{state_bytes} B ({state_bytes / 1e9:.2f} GB); ms per batch of "
-        f"{cfg.global_batch_size} after host COO: construction-order "
-        f"forward {copy_ms['construction']}, sorted forward "
-        f"{copy_ms['sorted']}; peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; equal to the "
-        "trained layer")
+        f"{state_bytes} B ({state_bytes / 1e9:.2f} GB); batches of "
+        f"{cfg.global_batch_size} through the construction-order and the "
+        f"sorted forward equal to the trained layer; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del copy
     torch.cuda.empty_cache()
     if launch_counts() != before:
@@ -3686,8 +3082,6 @@ def phase_capacity_serve(model, cfg, seed: int) -> None:
     import gc
 
     import torch
-
-    from keras_rs_tpu_torch.utils.timing import card_line
 
     dev = torch.device("cuda", 0)
     emb = model.embedding_layer
@@ -3708,16 +3102,13 @@ def phase_capacity_serve(model, cfg, seed: int) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
     frozen = emb.freeze(quantize="int8")
-    torch.cuda.synchronize()
-    freeze_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     if peak >= total:
         fail(f"capacity serve: freeze peak {peak} B over the card's {total}")
-    log(f"[capacity serve] ({card_line()}) freeze(quantize='int8') of "
-        f"{sum(er.input_dim for er in frozen.table_reducers)} rows in "
-        f"{freeze_s:.2f} s: {module_bytes(frozen)} B "
+    log(f"[capacity serve] freeze(quantize='int8') of "
+        f"{sum(er.input_dim for er in frozen.table_reducers)} rows: "
+        f"{module_bytes(frozen)} B "
         f"({module_bytes(frozen) / 1e9:.2f} GB) of int8 tables and scales; peak device memory {peak / 1e9:.2f} "
         f"GB of {total / 1e9:.2f} GB, the bf16 training state resident")
     bound = [int8_bound(frozen, ids, w) for _, ids, w in reqs]
@@ -3737,10 +3128,8 @@ def phase_capacity_serve(model, cfg, seed: int) -> None:
                 for a, b, bd in zip(acts, want_acts, bound))
     gap = max(float((a - b).abs().max())
               for a, b in zip(logits, want_logits))
-    ms = time_requests(serve, reqs)
     log(f"[capacity serve] training state freed; {SCORE_BATCHES} batches of "
-        f"{cfg.global_batch_size}: ms per batch {ms} (median "
-        f"{statistics.median(ms)!r}); serving peak device memory "
+        f"{cfg.global_batch_size}: serving peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; int8 activations "
         f"within {ratio:.4f} of their bound (absmax/254 per id) of the bf16 "
         f"model's; logits vs the bf16 model's max |diff| {gap!r}")
@@ -3776,9 +3165,7 @@ def phase_export(seed: int) -> None:
                           multi_hot_sizes=cfg.multi_hot_sizes, seed=seed),
         np.random.default_rng(seed), model.large_idx), dev)
     serve = frozen_scorer(model, frozen)
-    t = time.perf_counter()
     blob = serving.export_fn(serve, *req)
-    export_s = time.perf_counter() - t
     with torch.no_grad():
         want = serve(*req)
     if not torch.equal(serving.import_fn(blob)(*req), want):
@@ -3788,22 +3175,17 @@ def phase_export(seed: int) -> None:
     service = serving.make_retrieval_service(
         tower, BruteForceRetrieval(cands, k=SERVE_K))
     q = torch.randn((SERVE_BATCH, 64), generator=g, device=dev)
-    t = time.perf_counter()
     rblob = serving.export_fn(service, q)
-    rexport_s = time.perf_counter() - t
     imported = serving.import_fn(rblob)
     with torch.no_grad():
         ws, wi = service(q)
     gs, gi = imported(q)
     if not (torch.equal(gi, wi) and torch.equal(gs, ws)):
         fail("export: the imported retrieval service differs")
-    eager_ms = time_requests(service, [(q,)])
-    imported_ms = time_requests(imported, [(q,)])
-    log(f"[export] int8 small DLRM: {len(blob)} B artifact in {export_s:.2f} "
-        f"s, equal on the card; retrieval service (MLP 64-256-128, top-"
-        f"{SERVE_K} over {EXPORT_CANDIDATES} x 128): {len(rblob)} B in "
-        f"{rexport_s:.2f} s, equal; batch of {SERVE_BATCH}: eager "
-        f"{eager_ms} ms, imported {imported_ms} ms")
+    log(f"[export] int8 small DLRM: {len(blob)} B artifact, equal on the "
+        f"card; retrieval service (MLP 64-256-128, top-{SERVE_K} over "
+        f"{EXPORT_CANDIDATES} x 128, batch of {SERVE_BATCH}): {len(rblob)} "
+        "B, equal")
 
 
 # --- Phases 26-29: GRU4Rec on the full Trainer, layers, checkpoints ----------
@@ -3844,13 +3226,6 @@ SMOKE_DIR = ROOT / "build" / "chip_smoke"
 #: Phase 29's ml_perf runs: to step 6 with checkpoints, then resumed to 8.
 RESUME_AT = 6
 RESUME_TO = 8
-GRU4REC_PROFILE_PARTS = [
-    ("forward", "forward", "total"),
-    ("backward", "backward", "total"),
-    ("dense Adam", "optimizer", "total"),
-    ("matmuls", "aten::mm", "self"),
-    ("embedding backward", "EmbeddingBackward0", "total"),
-]
 
 
 @contextlib.contextmanager
@@ -4002,7 +3377,7 @@ def phase_gru4rec_small(dev, seed: int) -> None:
         fail("gru4rec small: the holed-mask GRU differs card vs CPU")
 
 
-def phase_gru4rec(dev, seed: int, profile: bool) -> None:
+def phase_gru4rec(dev, seed: int) -> None:
     """Phase 27: GRU4Rec(3706, 128) trained through Trainer.fit (prefetch
     2, validation 1 - recall@10 on held-out sessions, checkpoints,
     metrics log), then resumed from `last` into a fresh model against
@@ -4015,7 +3390,6 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
 
     import torch
 
-    from keras_rs_tpu_torch.layers.recurrent import GRU
     from keras_rs_tpu_torch.metrics.ranking_metrics import NDCG, RecallAtK
     from keras_rs_tpu_torch.models.gru4rec import GRU4Rec, gru4rec_loss
     from keras_rs_tpu_torch.training import checkpoint
@@ -4028,15 +3402,13 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
     n_train = GRU_BATCH * GRU_STEPS_PER_EPOCH
     n_held = GRU_SERVE_BATCH * GRU_HELD_BATCHES
     n_resume = GRU_BATCH * GRU_RESUME_STEPS
-    t = time.perf_counter()
     # One draw: the seed also fixes the Markov graph, which the held-out
     # and resume sessions must share with the training ones.
     every = gru_sessions(seed, n_train + n_resume + n_held)
     train, rest = split_sessions(every, n_train)
     resume, held = split_sessions(rest, n_resume)
     resume = gru_batches(resume, GRU_BATCH)
-    log(f"[gru4rec data] {n_train + n_resume + n_held} "
-        f"sessions in {time.perf_counter() - t:.2f} s; "
+    log(f"[gru4rec data] {n_train + n_resume + n_held} sessions; "
         f"{int((train['item_history'] == 0).any(1).sum())} of {n_train} "
         "training histories left-padded")
 
@@ -4062,16 +3434,14 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
             yield {"item_history": train["item_history"][j],
                    "target_item": train["target_item"][j]}
 
-    t = time.perf_counter()
     hist = trainer.fit(epochs, epochs=GRU_EPOCHS, log_every=0, prefetch=2,
                        validation_fn=validation,
                        checkpoint_dir=str(work / "ck"),
                        metrics_log=str(work / "metrics.jsonl"))
-    fit_s = time.perf_counter() - t
     records = [json.loads(x) for x in
                (work / "metrics.jsonl").read_text().splitlines()]
     log(f"[gru4rec train] fit: {GRU_EPOCHS} epochs of {GRU_STEPS_PER_EPOCH} "
-        f"steps in {fit_s:.2f} s; epoch losses {hist['loss']}; 1 - "
+        f"steps; epoch losses {hist['loss']}; 1 - "
         f"recall@10 {hist['val']}; metrics log {records}")
     check_falls("gru4rec train", hist["loss"])
     if len(records) != GRU_EPOCHS or sorted(os.listdir(work / "ck")) != [
@@ -4080,64 +3450,27 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
 
     # Resume: the in-memory run goes on; a fresh model restored from
     # `last` takes the same batches.
-    losses, ms = timed_steps(trainer, resume)
+    losses = step_losses(trainer, resume)
     fresh = GRU4Rec(GRU_ITEMS, GRU_DIM, device=dev,
                     generator=torch.Generator(dev).manual_seed(seed + 1))
     resumed = Trainer(fresh, DenseAdam(fresh.parameters(), GRU_LR),
                       gru4rec_loss)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     checkpoint.restore_checkpoint(str(work / "ck" / "last"), resumed.state)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t
-    r_losses, _ = timed_steps(resumed, resume)
+    r_losses = step_losses(resumed, resume)
     gap = relative_gap(r_losses, losses)
-    t = time.perf_counter()
-    checkpoint.save_checkpoint(str(work / "save_timed"), trainer.state)
-    save_s = time.perf_counter() - t
     ck_bytes = os.path.getsize(work / "ck" / "last")
     log(f"[gru4rec resume] in memory {losses}; restored from last "
         f"{r_losses}; relative gap {gap!r} (bound {GRU_RESUME_TOL}); "
-        f"checkpoint {ck_bytes} bytes, save {save_s:.3f} s, restore "
-        f"{restore_s:.3f} s")
+        f"checkpoint {ck_bytes} bytes")
     if not gap <= GRU_RESUME_TOL or resumed.optimizer.count != (
             trainer.optimizer.count):
         fail("gru4rec resume: the restored run does not continue the "
              "in-memory one")
     del resumed, fresh
-    log(f"[gru4rec train] step ms (CUDA events, batch {GRU_BATCH}) {ms}; "
-        f"median {statistics.median(ms)!r} ms "
-        f"({GRU_BATCH / statistics.median(ms) * 1e3:.0f} sequences/s)")
 
     batch = batch_to_device(resume[0], dev)
     sites = sync_sites(lambda: trainer.step(batch))
-    n_syncs = len(sites)
-    _, wall_ms, kernel_ms = profile_steps(trainer.step, batch)
-    log(f"[gru4rec train] one step: {n_syncs} host syncs (at {sites}); "
-        f"{kernel_ms!r} ms of kernels in {wall_ms!r} ms of wall time: "
-        f"device idle {1 - kernel_ms / wall_ms:.1%}")
-    if profile:
-        phase_profile("gru4rec train step", labelled_step(
-            model, gru4rec_loss, trainer.optimizer), batch,
-            GRU4REC_PROFILE_PARTS)
-
-    # Yardstick: the port's GRU against cuDNN's torch.nn.GRU (gate order
-    # (r, z, n), no mask), forward + backward on the same [4096, 10, 128].
-    x = model.query_embedding(batch["item_history"]).detach().requires_grad_()
-    cudnn = torch.nn.GRU(GRU_DIM, GRU_DIM, batch_first=True, device=dev)
-    ours = GRU(GRU_DIM, GRU_DIM, device=dev)
-
-    def port_gru():
-        ours(x).sum().backward()
-
-    def cudnn_gru():
-        cudnn(x)[1].sum().backward()
-
-    for fn in (port_gru, cudnn_gru):
-        fn()
-    log(f"[gru4rec yardstick] GRU forward + backward at [{GRU_BATCH}, "
-        f"{GRU_T}, {GRU_DIM}]: port {cuda_time_ms(port_gru, 10)!r} ms, "
-        f"torch.nn.GRU (cuDNN) {cuda_time_ms(cudnn_gru, 10)!r} ms")
+    log(f"[gru4rec train] one step: {len(sites)} host syncs (at {sites})")
 
     # Recall@10 on held-out sessions against popularity.
     dst = train["sessions"][:, 1:].reshape(-1)
@@ -4159,13 +3492,11 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
         return labels, scores
 
     held_batches = gru_batches(held, GRU_SERVE_BATCH)
-    t = time.perf_counter()
     res = trainer.evaluate(held_batches, {
         "recall@10": RecallAtK(10, shuffle_ties=False, device=dev),
         "ndcg@10": NDCG(10, shuffle_ties=False, device=dev)}, eval_fn)
-    eval_s = time.perf_counter() - t
     log(f"[gru4rec evaluate] {len(held_batches)} batches of "
-        f"{GRU_SERVE_BATCH}: {res} in {eval_s:.3f} s")
+        f"{GRU_SERVE_BATCH}: {res}")
     if not (0.0 <= res["recall@10"] <= 1.0 and 0.0 <= res["ndcg@10"] <= 1.0
             and math.isfinite(res["loss"])):
         fail(f"gru4rec evaluate: metrics {res}")
@@ -4174,21 +3505,15 @@ def phase_gru4rec(dev, seed: int, profile: bool) -> None:
              f"{recall} from make_retrieval")
 
     retrieval = model.make_retrieval(k=10)
-    serve_ms = []
     with torch.no_grad():
         for b in held_batches:
             h = torch.from_numpy(b["item_history"]).to(dev)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
             top = retrieval(model.query_tower(h))
-            ev[1].record()
-            torch.cuda.synchronize()
-            serve_ms.append(ev[0].elapsed_time(ev[1]))
             if tuple(top.shape) != (GRU_SERVE_BATCH, 10) or not bool(
                     ((top >= 0) & (top <= GRU_ITEMS)).all()):
                 fail("gru4rec serve: top-10 ids out of range")
     log(f"[gru4rec serve] make_retrieval(k=10) over {GRU_ITEMS + 1} rows: "
-        f"ms per batch of {GRU_SERVE_BATCH} {serve_ms}")
+        f"{len(held_batches)} batches of {GRU_SERVE_BATCH}, ids in range")
     del trainer, model
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4245,19 +3570,11 @@ def phase_layers(dev, seed: int) -> object:
         errs += [close_to(f"FeatureCross {label} gradient", gd, gc,
                           LAYER_TOL)
                  for gd, gc in zip(grads[dev], grads["cpu"])]
-        big = torch.randn(BATCH, CROSS_DIM, device=dev, requires_grad=True)
-        layer = layers[dev]
-
-        def cross_step():
-            layer(big).sum().backward()
-
-        cross_step()
         log(f"[layers] FeatureCross {label} {CROSS_DIM} (diag 0.5, relu, L2 "
-            f"on {sorted(layer._regularizers)}): card vs CPU at "
+            f"on {sorted(layers[dev]._regularizers)}): card vs CPU at "
             f"{LAYER_CPU_ROWS} rows within {max(errs)!r} of the largest "
-            f"value; forward + backward at {BATCH} rows "
-            f"{cuda_time_ms(cross_step, 10)!r} ms")
-        del layers, big, outs, grads
+            "value")
+        del layers, outs, grads
     for self_interaction in (False, True):
         for skip_gather in (False, True):
             layer = DotInteraction(self_interaction, skip_gather)
@@ -4271,18 +3588,11 @@ def phase_layers(dev, seed: int) -> object:
                 res[d] = [out] + [t.grad for t in f]
             errs = [close_to("DotInteraction", a, b, LAYER_TOL)
                     for a, b in zip(res[dev], res["cpu"])]
-            f = [t.to(dev, copy=True).requires_grad_() for t in feats]
-
-            def dot_step():
-                layer(f).sum().backward()
-
-            dot_step()
             log(f"[layers] DotInteraction self_interaction="
                 f"{self_interaction} skip_gather={skip_gather}: "
                 f"[{BATCH}, {layer.output_dim(DOT_FEATURES)}], card vs CPU "
-                f"within {max(errs)!r}; forward + backward "
-                f"{cuda_time_ms(dot_step, 10)!r} ms")
-            del res, f
+                f"within {max(errs)!r}")
+            del res
     if any(launch_counts().values()):
         fail(f"layers launched kernels: {launch_counts()}")
 
@@ -4332,18 +3642,15 @@ def phase_layers(dev, seed: int) -> object:
     trainer_log = logging.getLogger("keras_rs_tpu_torch")
     level = trainer_log.level
     trainer_log.setLevel(logging.WARNING)
-    t = time.perf_counter()
     res = dcn.main(DCN_RUNS, dev)
     log(f"[layers] examples/dcn.py on the card ({DCN_RUNS} runs per "
-        f"architecture) in {time.perf_counter() - t:.1f} s: {res}")
+        f"architecture): {res}")
     if not all(math.isfinite(res[k][0]) for k in
                ("cross_full", "cross_lowrank", "deep_only")):
         fail(f"dcn example: {res}")
-    t = time.perf_counter()
     res = sequential_retrieval.main(dev)
     trainer_log.setLevel(level)
-    log(f"[layers] examples/sequential_retrieval.py on the card in "
-        f"{time.perf_counter() - t:.1f} s: {res}")
+    log(f"[layers] examples/sequential_retrieval.py on the card: {res}")
     if not res["recall"] > res["popularity"]:
         fail(f"sequential_retrieval example: {res}")
     return model, step
@@ -4356,8 +3663,8 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
     same 8 batches), then with --profile (a non-empty trace of steps
     10-20); then the
     packed 4M-cap state of phase 28's model through save_checkpoint /
-    restore_checkpoint, where the disk holds it: bytes, seconds, the
-    restore's added device memory, and the state back bit for bit after
+    restore_checkpoint, where the disk holds it: bytes, the restore's
+    added device memory, and the state back bit for bit after
     one more step changed it."""
     import os
     import shutil
@@ -4470,10 +3777,7 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
     sums = [state_checksum(emb.stack_state(i))
             for i in range(len(emb.stacks))]
     path = str(work / "packed")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     checkpoint.save_checkpoint(path, model)
-    save_s = time.perf_counter() - t
     nbytes = os.path.getsize(path)
     step(model.preprocess(dlrm_batch(slice_config(), seed + 50)))
     if [state_checksum(emb.stack_state(i))
@@ -4482,17 +3786,12 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
     checkpoint.restore_checkpoint(path, model)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t
     added_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     back = [state_checksum(emb.stack_state(i))
             for i in range(len(emb.stacks))]
     log(f"[checkpoint] packed 4M-cap state: {nbytes} bytes on disk "
-        f"({state_bytes / 1e9:.2f} GB of tensors), save {save_s:.1f} s "
-        f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.1f} s "
-        f"({nbytes / restore_s / 1e9:.2f} GB/s); restore added "
+        f"({state_bytes / 1e9:.2f} GB of tensors); restore added "
         f"{added_gb:.3f} GB of device memory; state checksums back "
         f"{back == sums}")
     shutil.rmtree(work, ignore_errors=True)
@@ -4503,7 +3802,7 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
              "device")
 
 
-def run_a13(dev, seed: int, profile: bool) -> None:
+def run_a13(dev, seed: int) -> None:
     """Phases 26-29. No kernel launches in 26-27; in 28 B1 once per step
     and stack of the schedule's DLRM (and none for the layers); in 29 one
     row kernel per ml_perf step and stack."""
@@ -4511,7 +3810,7 @@ def run_a13(dev, seed: int, profile: bool) -> None:
 
     reset_launch_counts()
     phase_gru4rec_small(dev, seed)
-    phase_gru4rec(dev, seed, profile)
+    phase_gru4rec(dev, seed)
     if any(launch_counts().values()):
         fail(f"gru4rec phases launched kernels: {launch_counts()}")
     model, step = phase_layers(dev, seed)
@@ -4542,88 +3841,6 @@ COMPARE_CHUNK = 1 << 26
 SPLIT_FIXED_STEPS = 8
 SPLIT_FRESH_STEPS = 3
 EXAMPLE_RESUME = (6, 9, 3)  # steps, rerun to, checkpoint_every
-
-
-def profile_streams(label: str, step, batch, steps: int = 3) -> dict:
-    """torch.profiler over `steps` calls of step(batch) after one warm
-    call, read from its Chrome trace: per step, the wall ms, the device
-    time summed over every kernel and copy, the busy time (their union on
-    the timeline: concurrent kernels once), each stream's kernel ms, and
-    the ms of the other streams' kernels that run while a kernel of the
-    main stream (the one with the most kernel time) runs."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
-    path = SMOKE_DIR / f"trace-{label.replace(' ', '_')}.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    spans = []
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
-            stream = e.get("args", {}).get("stream", e.get("tid"))
-            spans.append((stream, float(e["ts"]),
-                          float(e["ts"]) + float(e["dur"])))
-    if not spans:
-        fail(f"{label}: the profiler recorded no device activity")
-    per_stream: dict = {}
-    for stream, a, b in spans:
-        per_stream[stream] = per_stream.get(stream, 0.0) + (b - a)
-    main = max(per_stream, key=per_stream.get)
-
-    def union(intervals):
-        merged = []
-        for a, b in sorted(intervals):
-            if merged and a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
-        return merged
-
-    main_spans = union([(a, b) for s, a, b in spans if s == main])
-    overlap = 0.0
-    for s, a, b in spans:
-        if s == main:
-            continue
-        for ma, mb in main_spans:
-            if mb <= a:
-                continue
-            if ma >= b:
-                break
-            overlap += min(b, mb) - max(a, ma)
-    busy = sum(b - a for a, b in union([(a, b) for _, a, b in spans]))
-    return {
-        "wall_ms": wall_ms,
-        "device_ms": sum(per_stream.values()) / 1e3 / steps,
-        "busy_ms": busy / 1e3 / steps,
-        "streams_ms": {str(k): v / 1e3 / steps
-                       for k, v in per_stream.items()},
-        "main_stream": str(main),
-        "overlap_ms": overlap / 1e3 / steps,
-    }
-
-
-def log_streams(label: str, prof: dict) -> None:
-    side = {k: v for k, v in prof["streams_ms"].items()
-            if k != prof["main_stream"]}
-    log(f"[{label} streams] per step: wall {prof['wall_ms']!r} ms; kernels "
-        f"and copies {prof['device_ms']!r} ms, busy {prof['busy_ms']!r} ms "
-        f"on the timeline (device idle {1 - prof['busy_ms'] / prof['wall_ms']:.1%} "
-        f"of the step alone); main stream {prof['main_stream']} "
-        f"{prof['streams_ms'][prof['main_stream']]!r} ms, other streams "
-        f"{side} ms, of which {prof['overlap_ms']!r} ms overlap kernels of "
-        "the main stream")
 
 
 def bits(t):
@@ -4829,7 +4046,6 @@ def held_to_main_stream(label: str, build, n_steps: int) -> dict:
                       for k, v in state.prefetched.acts.items()})
         return [float(x) for x in losses], found
 
-    t0 = time.perf_counter()
     side_losses, found = run()
     kept = {k: v.detach().to("cpu") for k, v in found.items()}
     del found
@@ -4856,8 +4072,7 @@ def held_to_main_stream(label: str, build, n_steps: int) -> dict:
     log(f"[{label} streams held] {n_steps} steps, side stream against the "
         f"main stream, deterministic algorithms: losses {side_losses} "
         f"against {main_losses}; final state {elements} elements compared "
-        f"bit for bit, differing {differ or 0}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"bit for bit, differing {differ or 0}")
     if side_losses != main_losses or differ:
         fail(f"{label}: the side-stream run differs from the main-stream "
              f"run: losses {side_losses} against {main_losses}, state "
@@ -4878,22 +4093,19 @@ def race_checked_step(pstep, state, batch, nxt, embed_fn, checks: list):
     return state, loss
 
 
-def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
+def run_pipelined(dev, seed: int) -> None:
     """Phase 30: pipelined embedding in the ml_perf entry point at full
     width, device preprocessing (packed f32 + Adagrad at the 4M cap,
     batch 16,384). `main(..., pipeline_embedding=True)` for MLPERF_STEPS
-    steps and the chained device step, held to phase 16's figures of
-    this call; then, from the same weights over the same PIPE_STEPS
-    batches, the unpipelined and the pipelined step: step 0's losses
-    equal, every loss within PIPE_LOSS_BOUND, the first PIPE_RACE_STEPS
-    prefetches equal to a main-stream gather bit for bit with each B1
-    call held to its plain version, B1 once per step and stack and no
-    other launch, no host sync in a step (sync-debug "error"); the
-    device's idle share of main's loop and the ms of prefetch kernels
-    that overlap the main stream's (profiler trace), for the whole step
-    from the raw host batch and for the chained step; last, the same
-    PIPE_STEPS steps under deterministic algorithms held bit for bit
-    to the prefetch on the main stream (held_to_main_stream)."""
+    steps and main's chained-step window (honest_timing); then, from the
+    same weights over the same PIPE_STEPS batches, the unpipelined and
+    the pipelined step: step 0's losses equal, every loss within
+    PIPE_LOSS_BOUND, the first PIPE_RACE_STEPS prefetches equal to a
+    main-stream gather bit for bit with each B1 call held to its plain
+    version, B1 once per step and stack and no other launch, no host
+    sync in a step (sync-debug "error"); last, the same PIPE_STEPS steps
+    under deterministic algorithms held bit for bit to the prefetch on
+    the main stream (held_to_main_stream)."""
     import torch
 
     from keras_rs_tpu_torch.data.criteo import CriteoDataset
@@ -4910,11 +4122,9 @@ def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t = time.perf_counter()
     r = mlperf.main("full_criteo", device=dev, num_steps=MLPERF_STEPS,
                     vocab_sizes=capped, device_preprocessing=True,
                     pipeline_embedding=True, honest_timing=True)
-    wall = time.perf_counter() - t
     counts = launch_counts()
     want_b1 = MLPERF_STEPS + MLPERF_TIMING_STEPS
     want = {k: want_b1 if k == "apply_scatter_row_blocks" else 0
@@ -4922,17 +4132,10 @@ def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
     log(f"[launches] phase 30 pipelined main: {counts}")
     if counts != want:
         fail(f"pipelined mlperf: launches {counts}, expected {want}")
-    if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+    if not main_results_ok(r, timed=True):
         fail(f"pipelined mlperf: results {r}")
-    step_ms = BATCH / r["throughput"] * 1e3
-    log(f"[pipelined mlperf] results {r}; {wall:.1f} s in main; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"[pipelined mlperf] end to end {r['throughput']:.0f} examples/s "
-        f"({step_ms!r} ms per step) against {unpipelined['throughput']:.0f} "
-        f"unpipelined (phase 16, this call); chained device step "
-        f"{r['device_step_ms']!r} ms against "
-        f"{unpipelined['device_step_ms']!r} ms unpipelined; final loss "
-        f"{r['loss']!r} against {unpipelined['loss']!r}")
+    log(f"[pipelined mlperf] results {r}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     torch.cuda.empty_cache()
 
     cfg = configs.full_criteo(vocab_sizes=capped)
@@ -5015,41 +4218,19 @@ def run_pipelined(dev, seed: int, profile: bool, unpipelined: dict) -> None:
             else 0 for k in counts}
     if counts != want:
         fail(f"pipelined steps: launches {counts}, expected {want}")
-
-    def whole_step(raw):
-        on_card = model.to_device(raw)
-        return pstep(state, on_card, get_pre(on_card))[1]
-
-    prof = profile_streams("pipelined mlperf", whole_step, raws[0])
-    log_streams("pipelined", prof)
-    # The chained form (--honest_timing's): the batch already on the
-    # card, the host ahead of the device.
-    log_streams("pipelined chained", profile_streams(
-        "pipelined chained", lambda b: pstep(state, b, get_pre(b))[1],
-        batches[0]))
-    log(f"[pipelined mlperf] device idle {1 - prof['busy_ms'] / step_ms:.1%}"
-        f" of main's loop: {prof['busy_ms']!r} ms busy per whole step "
-        f"(profiler, 3 steps from the raw batch) against {step_ms!r} ms of "
-        f"wall time per step (unpipelined, phase 16: "
-        f"{1 - unpipelined['busy_ms'] / unpipelined['step_ms']:.1%})")
-    if profile:
-        phase_profile("pipelined mlperf", whole_step, raws[0],
-                      MLPERF_PROFILE_PARTS)
-    del model, state, pstep, batches, whole_step
+    del model, state, pstep, batches
     torch.cuda.empty_cache()
     held_to_main_stream("pipelined", build, PIPE_STEPS)
 
 
-def run_pipelined_split(dev, seed: int, profile: bool) -> None:
+def run_pipelined_split(dev, seed: int) -> None:
     """Phase 31: the pipelined step in the split layout, bf16 tables with
     row-wise Adagrad at the 4M cap, device preprocessing: 8 steps on one
     batch (loss falls), 3 fresh; the first PIPE_RACE_STEPS race-checked,
     every row scatter and every split kernel call held to its plain
     version; B3 and the split kernel once per step and stack, no other
     launch; the host syncs of one step (none expected: the rounding's
-    bits come from the step counter on the device) and the overlap that
-    is left; last, the
-    same steps under deterministic algorithms held bit for bit to the
+    bits come from the step counter on the device); last, the same steps under deterministic algorithms held bit for bit to the
     prefetch on the main stream (held_to_main_stream)."""
     import torch
 
@@ -5081,7 +4262,7 @@ def run_pipelined_split(dev, seed: int, profile: bool) -> None:
     (stack,) = model.embedding_layer.stacks
     if stack.packed_state or stack.dtype != "bfloat16":
         fail("pipelined split: the stack is not a bf16 split stack")
-    fixed, fresh = order[0], order[SPLIT_FIXED_STEPS:]
+    fresh = order[SPLIT_FIXED_STEPS:]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, races = [], []
@@ -5124,13 +4305,7 @@ def run_pipelined_split(dev, seed: int, profile: bool) -> None:
         fail(f"pipelined split: launches {counts}, expected {want}")
     sites = sync_sites(lambda: pstep(state, fresh[-1], get_pre(fresh[-1])))
     log(f"[pipelined split] host syncs of one step: {len(sites)} {sites}")
-    log_streams("pipelined split chained", profile_streams(
-        "pipelined split", lambda b: pstep(state, b, get_pre(b))[1], fixed))
-    if profile:
-        phase_profile("pipelined split", lambda b: pstep(state, b,
-                                                         get_pre(b))[1],
-                      fixed, CAPACITY_PROFILE_PARTS)
-    del model, state, pstep, fixed, fresh, order
+    del model, state, pstep, fresh, order
     torch.cuda.empty_cache()
     held_to_main_stream("pipelined split", build,
                         SPLIT_FIXED_STEPS + SPLIT_FRESH_STEPS)
@@ -5177,14 +4352,11 @@ def run_walkthroughs(dev) -> None:
     for name, expect, gate, what in WALKTHROUGHS:
         module = importlib.import_module(f"keras_rs_tpu_torch.examples.{name}")
         out = io.StringIO()
-        t = time.perf_counter()
         with contextlib.redirect_stdout(out):
             headline = module.main(dev)
-        seconds = time.perf_counter() - t
         for line in out.getvalue().splitlines():
             log(f"[example {name}] {line}")
-        log(f"[example {name}] headline {headline!r} in {seconds:.1f} s; "
-            f"gate: {what}")
+        log(f"[example {name}] headline {headline!r}; gate: {what}")
         if expect not in out.getvalue():
             fail(f"example {name}: no '{expect}' line")
         if not (math.isfinite(headline) and gate(headline)):
@@ -5263,7 +4435,7 @@ BENCH_CAPACITY_ENV = {"BENCH_TABLE_DTYPE": "bfloat16",
                       "BENCH_SKIP_NAIVE": "1", "BENCH_FLAGSHIP": "0"}
 
 
-def bench_line(label: str, env: dict, keys, expect: dict) -> dict:
+def bench_line(label: str, env: dict, keys, expect: dict) -> None:
     """keras_rs_tpu_torch.bench.main() in this process under `env`, its
     launch counts zeroed just before and read just after (they must
     equal `expect`); its stdout kept, its last line parsed and checked.
@@ -5275,16 +4447,14 @@ def bench_line(label: str, env: dict, keys, expect: dict) -> dict:
 
     out = io.StringIO()
     reset_launch_counts()
-    t = time.perf_counter()
     with mock.patch.dict(os.environ, env), contextlib.redirect_stdout(out):
         bench.main()
-    seconds = time.perf_counter() - t
     counts = launch_counts()
     lines = out.getvalue().strip().splitlines()
     for line in lines[:-1]:
         log(f"[bench {label}] {line}")
     result = json.loads(lines[-1])
-    log(f"[bench {label}] {json.dumps(result)} ({seconds:.1f} s)")
+    log(f"[bench {label}] {json.dumps(result)}")
     log(f"[launches] phase 32b bench, {label}: {counts}")
     if counts != expect:
         fail(f"bench {label}: launches {counts}, expected {expect}")
@@ -5309,7 +4479,6 @@ def bench_line(label: str, env: dict, keys, expect: dict) -> dict:
         fail(f"bench {label}: the flagship's floor "
              f"{result['flagship_embedding_floor_ms']} ms is not below its "
              f"step {result['flagship_step_ms']} ms")
-    return result
 
 
 def run_bench(dev) -> None:
@@ -5325,7 +4494,6 @@ def run_bench(dev) -> None:
     import torch
 
     from keras_rs_tpu_torch import bench
-    from keras_rs_tpu_torch.utils.timing import card_line
 
     iters = int(os.environ.get("BENCH_ITERS", 20))
     blocks = int(os.environ.get("BENCH_BLOCKS", 5))
@@ -5381,27 +4549,19 @@ def run_bench(dev) -> None:
         return (f"{b3_check(scatters)}; {len(differing)} split kernel "
                 f"call, elements differing {differing}")
 
-    t0 = time.perf_counter()
     for label, make in (("packed f32 + Adagrad", make_ours),
                         ("pipelined", make_pipelined),
                         ("flagship", make_flagship)):
         held_step(label, {}, make, b1_held_to_plain, b1_check)
-    piped = bench_line(
+    bench_line(
         "packed f32 + Adagrad", {"BENCH_PIPELINE": "1"},
         BENCH_KEYS + BENCH_PIPELINED_KEYS + BENCH_FLAGSHIP_KEYS,
         dict(expect, apply_scatter_row_blocks=(
             ours + iters * (blocks + 1) + iters * (max(3, blocks - 2) + 1))))
     held_step("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV, make_ours,
               scatter_and_split_held_to_plain, b3_split_check)
-    capacity = bench_line("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV,
-                          BENCH_KEYS, dict(expect, scatter_rows=ours,
-                                           apply_split_rows=ours))
-    log(f"[bench] ({card_line()}) ours {piped['value']} examples/s "
-        f"({piped['step_ms']} ms), naive x{piped['vs_baseline']}, "
-        f"pipelined {piped['pipelined_step_ms']} ms, flagship "
-        f"{piped['flagship_step_ms']} ms; bf16 + row-wise "
-        f"{capacity['step_ms']} ms; phase 32b took "
-        f"{time.perf_counter() - t0:.1f} s")
+    bench_line("bf16 + row-wise Adagrad", BENCH_CAPACITY_ENV, BENCH_KEYS,
+               dict(expect, scatter_rows=ours, apply_split_rows=ours))
 
 
 # --- phases 33-36: the sharded embedding over two ranks on one card ------
@@ -5519,7 +4679,6 @@ class Ranks:
             self.procs.append(p)
 
     def run(self, name: str, **kwargs) -> list:
-        t = time.perf_counter()
         for conn in self.conns:
             conn.send((name, kwargs))
         out, errors = [], []
@@ -5536,7 +4695,6 @@ class Ranks:
         if errors:
             self.close()
             fail(f"{name}:\n" + "\n".join(errors))
-        log(f"[sharded] {name}: {time.perf_counter() - t:.1f} s")
         return out
 
     def close(self) -> None:
@@ -5862,7 +5020,6 @@ def rank_compare(rank: int, world: int, seed: int) -> dict:
                  f"closed form {want}")
     out = {"ids": n_ids, "errs": errs, "cotangent": cotangent,
            "moved": moved, "losses": losses, "bf16": bf16,
-           "dense_params": dense_params, "S_l": S_l, "C": C,
            "bytes": {"f32": dict(step_bytes), "bf16": dict(bf16_bytes)}}
     rlog(rank, f"[compare] D = {world} against D = 1 at cap "
          f"{SHARD_COMPARE_CAP}, lr {SHARD_COMPARE_LR}: COO bit-exact "
@@ -5881,11 +5038,10 @@ def rank_mlperf(rank: int, world: int, seed: int,
                 pipeline_embedding: bool = False) -> dict:
     """Phase 34, second part (and phase 37 with `pipeline_embedding`):
     the ml_perf entry point on this rank, main("full_criteo") at the 4M
-    cap with device preprocessing and the chained device timing
-    (SHARD_TIMING); launches counted from 0, every B1 call of the
-    SHARD_MLPERF_STEPS training steps held to the plain version (the
-    timing blocks run the kernel alone: the check would distort their
-    time), peak memory. The end-to-end examples/s include the check."""
+    cap with device preprocessing and main's chained-step window
+    (honest_timing, cut to SHARD_TIMING); launches counted from 0, every
+    B1 call of the SHARD_MLPERF_STEPS training steps held to the plain
+    version (the window's blocks run the kernel alone), peak memory."""
     import torch
 
     from keras_rs_tpu_torch.examples.ml_perf import main as mlperf
@@ -5908,7 +5064,6 @@ def rank_mlperf(rank: int, world: int, seed: int,
     timing.measure_step_time = unheld_timing
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t = time.perf_counter()
     try:
         with b1_held_to_plain() as calls:
             r = mlperf.main("full_criteo", device=dev,
@@ -5918,7 +5073,6 @@ def rank_mlperf(rank: int, world: int, seed: int,
                             pipeline_embedding=pipeline_embedding)
     finally:
         timing.measure_step_time = measure
-    wall = time.perf_counter() - t
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     steps = SHARD_MLPERF_STEPS + SHARD_TIMING["iters"] * (
@@ -5933,64 +5087,16 @@ def rank_mlperf(rank: int, world: int, seed: int,
         fail(f"rank {rank}: B1 against its plain version: "
              f"{[(float(c['err']), bool(c['bad'])) for c in calls]}")
     held = [float(c["err"]) for c in calls]
-    if not (math.isfinite(r["loss"]) and 0.0 <= r["auc"] <= 1.0):
+    if not main_results_ok(r, timed=True):
         fail(f"rank {rank}: results {r}")
     label = "pipelined mlperf" if pipeline_embedding else "mlperf"
-    rlog(rank, f"[{label} D = {world}] results {r}; {wall:.1f} s in main; "
-         f"device step {r['device_step_ms']!r} ms (CUDA events, chained); "
-         f"peak device memory {peak:.2f} GB; B1 launches "
+    rlog(rank, f"[{label} D = {world}] results {r}; peak device memory {peak:.2f} GB; B1 launches "
          f"{counts['apply_scatter_row_blocks']}, the {len(held)} of the "
          f"training steps held to the plain version: max_abs_err "
          f"{held}")
     torch.cuda.empty_cache()
     return {"results": r, "counts": counts, "peak_gb": peak,
-            "held_err": held, "wall_s": wall}
-
-
-def rank_collectives(rank: int, world: int, S_l: int, C: int,
-                     dense_params: int) -> dict:
-    """Phase 34, third part: the ms of each exchange of one step of the
-    4M-cap sharded step at its shapes (host clock around each call
-    between two synchronizes; median of 5 after 2), under gloo on one
-    card: the COO all_to_all ([D, 3, C] int32), the forward's
-    reduce-scatter ([D * S_l, 128]) and the backward's all-gather
-    ([S_l, 128]) in f32 and bf16, and the dense gradients' all_reduce."""
-    import torch
-
-    from keras_rs_tpu_torch.parallel import collectives
-
-    dev = torch.device("cuda", 0)
-    group = torch.distributed.group.WORLD
-    cases = {
-        "all_to_all coo": (collectives.all_to_all, torch.zeros(
-            (world, 3, C), dtype=torch.int32, device=dev)),
-        "reduce_scatter f32": (collectives.reduce_scatter, torch.ones(
-            (world * S_l, 128), device=dev)),
-        "all_gather f32": (collectives.all_gather, torch.ones(
-            (S_l, 128), device=dev)),
-        "reduce_scatter bf16": (collectives.reduce_scatter, torch.ones(
-            (world * S_l, 128), dtype=torch.bfloat16, device=dev)),
-        "all_gather bf16": (collectives.all_gather, torch.ones(
-            (S_l, 128), dtype=torch.bfloat16, device=dev)),
-        "all_reduce dense grads": (collectives.all_reduce, torch.ones(
-            (dense_params,), device=dev)),
-    }
-    ms, nbytes = {}, {}
-    for name, (fn, x) in cases.items():
-        times = []
-        for i in range(7):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn(x, group)
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t) * 1e3)
-        ms[name] = statistics.median(times)
-        nbytes[name] = x.numel() * x.element_size()
-    f32_step = sum(v for k, v in ms.items() if "bf16" not in k)
-    rlog(rank, f"[collectives, gloo on one card] ms {ms}; bytes {nbytes}; "
-         f"one f32 step's exchanges {f32_step!r} ms")
-    return {"ms": ms, "bytes": nbytes, "f32_step_ms": f32_step}
+            "held_err": held}
 
 
 def rank_split(rank: int, world: int, seed: int) -> dict:
@@ -6400,22 +5506,15 @@ def rank_checkpoint(rank: int, world: int, seed: int, path: str) -> dict:
                        for r in raws]
             step(batches[0])
             saved = model_digest(model, opt)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             checkpoint.save_checkpoint(target, {"model": model,
                                                 "optimizer": opt})
-            save_s = time.perf_counter() - t
             loss_a = float(step(batches[1]))
             after_a = model_digest(model, opt)
             del model, opt, step
             torch.cuda.empty_cache()
             model, opt, step = fresh(True)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             checkpoint.restore_checkpoint(target, {"model": model,
                                                    "optimizer": opt})
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t
             restored = model_digest(model, opt)
             loss_b = float(step(batches[1]))
             after_b = model_digest(model, opt)
@@ -6434,12 +5533,9 @@ def rank_checkpoint(rank: int, world: int, seed: int, path: str) -> dict:
     gb = nbytes / 1e9
     rlog(rank, f"[checkpoint D = {world}] cap {cap:,} rows ({free / 1e9:.1f}"
          f" GB free under the directory, {need / 1e9:.1f} GB needed for "
-         f"4M); files {files}; this rank's file {gb:.3f} GB saved in "
-         f"{save_s:.2f} s ({gb / save_s:.3f} GB/s), restored in "
-         f"{restore_s:.2f} s ({gb / restore_s:.3f} GB/s); restored digest "
-         f"equal; the next step's loss {loss_b!r} and state equal")
-    return {"cap": cap, "gb": gb, "save_s": save_s,
-            "restore_s": restore_s}
+         f"4M); files {files}; this rank's file {gb:.3f} GB; restored "
+         f"digest equal; the next step's loss {loss_b!r} and state equal")
+    return {"cap": cap, "gb": gb}
 
 
 def rank_freeze(rank: int, world: int, seed: int) -> dict:
@@ -6449,7 +5545,7 @@ def rank_freeze(rank: int, world: int, seed: int) -> dict:
     tensor and on a serving batch, the freeze of a D = 1 model built in
     this rank from the same seed (the same logical tables); the serving
     copy answers a batch as the training layer does, holds no slot and
-    copies its own shard. Reports the freeze's s and bytes."""
+    copies its own shard. Reports the freeze's bytes."""
     import torch
 
     from keras_rs_tpu_torch.models.dlrm import DLRMDCNv2
@@ -6478,11 +5574,7 @@ def rank_freeze(rank: int, world: int, seed: int) -> dict:
     try:
         with torch.no_grad():
             for q in (None, "int8"):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
                 frozen = layer.freeze(quantize=q)
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t
                 want = layer1.freeze(quantize=q)
                 a, b = frozen.state_dict(), want.state_dict()
                 same = sorted(a) == sorted(b) and all(
@@ -6493,7 +5585,7 @@ def rank_freeze(rank: int, world: int, seed: int) -> dict:
                     fail(f"rank {rank}: freeze({q!r}) at D = {world} differs "
                          f"from D = 1 (tensors {same}, activations "
                          f"{same_acts})")
-                out[str(q)] = {"s": seconds, "bytes": module_bytes(frozen)}
+                out[str(q)] = module_bytes(frozen)
                 del frozen, want, a, b, ga, gb
                 torch.cuda.empty_cache()
             del one, layer1
@@ -6514,8 +5606,7 @@ def rank_freeze(rank: int, world: int, seed: int) -> dict:
              f"shared storage {len(shared)}")
     copy_bytes, train_bytes = module_bytes(copy), module_bytes(layer)
     rlog(rank, f"[freeze D = {world}] cap {SHARD_FREEZE_CAP:,}: f32 freeze "
-         f"{out['None']['bytes']} B in {out['None']['s']:.3f} s, int8 "
-         f"{out['int8']['bytes']} B in {out['int8']['s']:.3f} s, each equal "
+         f"{out['None']} B, int8 {out['int8']} B, each equal "
          f"to the D = 1 freeze (tensors and a batch of "
          f"{len(raw['label'])}); serving_copy {copy_bytes} B of this "
          f"rank's shard (training layer {train_bytes} B), no slot, no "
@@ -6525,13 +5616,12 @@ def rank_freeze(rank: int, world: int, seed: int) -> dict:
     return {"freeze": out, "copy_bytes": copy_bytes}
 
 
-def rank_retrieval(rank: int, world: int, seed: int) -> dict:
+def rank_retrieval(rank: int, world: int, seed: int) -> None:
     """Phase 41: ShardedBruteForceRetrieval over SHARDED_RETRIEVAL's
     candidates (f32 gaussians drawn on the card from `seed`, every rank
     the same, each keeping its half) against the port's one-device
     BruteForceRetrieval in this rank: the ids equal, the scores within
-    1e-5 relative; ms of each (host clock around a call between two
-    synchronizes, median of 5 after 1)."""
+    1e-5 relative."""
     import torch
 
     from keras_rs_tpu_torch.layers.retrieval.retrieval import (
@@ -6550,31 +5640,18 @@ def rank_retrieval(rank: int, world: int, seed: int) -> dict:
     queries = torch.randn((b, dim), generator=g, device=dev)
     sharded = ShardedBruteForceRetrieval(cands, k=k, mesh=mesh)
     one = BruteForceRetrieval(cands, k=k)
-
-    def timed(fn):
-        times, out = [], None
-        for i in range(6):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(queries)
-            torch.cuda.synchronize()
-            if i:
-                times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times), out
-
     with torch.no_grad():
-        ms, (s, top) = timed(sharded)
-        one_ms, (s1, top1) = timed(one)
+        s, top = sharded(queries)
+        s1, top1 = one(queries)
     if not (torch.equal(top, top1)
             and torch.allclose(s, s1, rtol=1e-5, atol=0)):
         fail(f"rank {rank}: sharded retrieval differs from one device: "
              f"{int((top != top1).sum())} ids")
     rlog(rank, f"[sharded retrieval D = {world}] {n:,} x {dim} f32, {b} "
-         f"queries, k = {k}: {ms!r} ms (one device {one_ms!r} ms); ids "
-         "equal to the one-device BruteForceRetrieval")
+         f"queries, k = {k}: ids equal to the one-device "
+         "BruteForceRetrieval")
     del cands, sharded, one
     torch.cuda.empty_cache()
-    return {"ms": ms, "one_ms": one_ms}
 
 
 def rank_examples(rank: int, world: int) -> dict:
@@ -6587,30 +5664,23 @@ def rank_examples(rank: int, world: int) -> dict:
     from keras_rs_tpu_torch.parallel.dryrun import dryrun_multichip
 
     dev = torch.device("cuda", 0)
-    t = time.perf_counter()
     dp = data_parallel_retrieval.main(device=dev)
-    dp_s = time.perf_counter() - t
     if not (all(map(math.isfinite, dp["loss"]))
             and dp["loss"][-1] < dp["loss"][0] and dp["recall"] > 0):
         fail(f"rank {rank}: data_parallel_retrieval {dp}")
-    t = time.perf_counter()
     ann = ann_retrieval.main(device=dev)
-    ann_s = time.perf_counter() - t
     exact = ann["brute force"]["ids"]
     name = f"sharded exact x{world}"
     if not (ann[name]["recall"] == 1.0
             and np.array_equal(ann[name]["ids"], exact)):
         fail(f"rank {rank}: ann_retrieval's sharded engine: "
              f"recall {ann[name]['recall']}")
-    t = time.perf_counter()
     dry = dryrun_multichip(world, dev)
-    dry_s = time.perf_counter() - t
     rlog(rank, f"[examples D = {world}] data_parallel_retrieval losses "
          f"{dp['loss'][0]:.4f} -> {dp['loss'][-1]:.4f}, recall@10 "
-         f"{dp['recall']:.3f} ({dp_s:.1f} s); ann_retrieval ms "
-         f"{ {k: round(v['ms'], 3) for k, v in ann.items()} }, recall "
-         f"{ {k: v['recall'] for k, v in ann.items()} } ({ann_s:.1f} s); "
-         f"dryrun_multichip({world}) {dry} ({dry_s:.1f} s)")
+         f"{dp['recall']:.3f}; ann_retrieval recall "
+         f"{ {k: v['recall'] for k, v in ann.items()} }; "
+         f"dryrun_multichip({world}) {dry}")
     return {"dp_loss": dp["loss"][-1], "dry": dry}
 
 
@@ -6620,10 +5690,7 @@ def run_sharded(seed: int) -> dict[str, int]:
     and 38), summed over the ranks."""
     import torch
 
-    from keras_rs_tpu_torch.utils.timing import card_line
-
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     ranks = Ranks(SHARD_RANKS)
     try:
         probe = ranks.run("rank_probe")
@@ -6637,12 +5704,8 @@ def run_sharded(seed: int) -> dict[str, int]:
                  f"{probe}")
         cmp = ranks.run("rank_compare", seed=seed)
         ml = ranks.run("rank_mlperf", seed=seed)
-        coll = ranks.run("rank_collectives", S_l=ml_shapes(cmp)[0],
-                         C=ml_shapes(cmp)[1],
-                         dense_params=cmp[0]["dense_params"])
         split = ranks.run("rank_split", seed=seed)
         grow = ranks.run("rank_autogrow", seed=seed)
-        t1 = time.perf_counter()
         step0 = ranks.run("rank_pipelined_step0", seed=seed)
         piped = ranks.run("rank_mlperf", seed=seed, pipeline_embedding=True)
         piped_split = ranks.run("rank_pipelined_split", seed=seed)
@@ -6652,7 +5715,7 @@ def run_sharded(seed: int) -> dict[str, int]:
         finally:
             shutil.rmtree(ck_dir, ignore_errors=True)
         frz = ranks.run("rank_freeze", seed=seed)
-        ret = ranks.run("rank_retrieval", seed=seed)
+        ranks.run("rank_retrieval", seed=seed)
         ex = ranks.run("rank_examples")
     finally:
         ranks.close()
@@ -6672,31 +5735,16 @@ def run_sharded(seed: int) -> dict[str, int]:
                          [[r["dp_loss"]] for r in ex])):
         if len({tuple(r) for r in runs}) != 1:
             fail(f"ranks disagree on the {label} losses: {runs}")
-    step_ms = [r["results"]["device_step_ms"] for r in ml]
-    card = card_line()
     for label in ("f32", "bf16"):
-        log(f"[sharded] ({card}) collective bytes per rank of one "
-            f"full-width training step at D = {SHARD_RANKS}, {label} "
-            f"exchange (parallel/collectives.count_bytes): "
+        log(f"[sharded] collective bytes per rank of one full-width "
+            f"training step at D = {SHARD_RANKS}, {label} exchange "
+            f"(parallel/collectives.count_bytes): "
             f"{[c['bytes'][label] for c in cmp]}")
-    log(f"[sharded] D = {SHARD_RANKS} on one card, gloo: device step ms "
-        f"{step_ms}; end to end examples/s "
-        f"{[r['results']['throughput'] for r in ml]}; ms in the exchanges "
-        f"of one f32 step {[c['f32_step_ms'] for c in coll]}; peak GB "
-        f"{[r['peak_gb'] for r in ml]}; phases 33-36 took "
-        f"{t1 - t0:.1f} s")
-    log(f"[sharded] ({card}) pipelined D = {SHARD_RANKS}: device step ms "
-        f"{[r['results']['device_step_ms'] for r in piped]}, end to end "
-        f"examples/s {[r['results']['throughput'] for r in piped]}, peak GB "
+    log(f"[sharded] D = {SHARD_RANKS} on one card, gloo: peak GB "
+        f"{[r['peak_gb'] for r in ml]}; pipelined peak GB "
         f"{[r['peak_gb'] for r in piped]}; checkpoint per rank GB "
-        f"{[c['gb'] for c in ck]} at cap {ck[0]['cap']:,}, save s "
-        f"{[c['save_s'] for c in ck]}, restore s "
-        f"{[c['restore_s'] for c in ck]}; freeze s "
-        f"{[f['freeze']['None']['s'] for f in frz]} (f32), "
-        f"{[f['freeze']['int8']['s'] for f in frz]} (int8) at cap "
-        f"{SHARD_FREEZE_CAP:,}; sharded retrieval ms {[r['ms'] for r in ret]}"
-        f" (one device {[r['one_ms'] for r in ret]}); phases 37-42 took "
-        f"{time.perf_counter() - t1:.1f} s")
+        f"{[c['gb'] for c in ck]} at cap {ck[0]['cap']:,}; freeze bytes "
+        f"{[f['freeze'] for f in frz]} at cap {SHARD_FREEZE_CAP:,}")
     return {
         "apply_scatter_row_blocks": sum(
             r["counts"]["apply_scatter_row_blocks"] for r in ml + piped),
@@ -6707,23 +5755,10 @@ def run_sharded(seed: int) -> dict[str, int]:
     }
 
 
-def ml_shapes(cmp: list) -> tuple[int, int]:
-    """(S_l, C) of the 4M-cap entry point's stack at D = SHARD_RANKS:
-    the same widths and batch as phase 34's comparison (its capacities
-    depend on the multi-hot sizes and the batch, not the vocabularies)."""
-    return cmp[0]["S_l"], cmp[0]["C"]
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights and the batches")
-    parser.add_argument("--profile", action="store_true",
-                        help="also profile 3 training steps of each model")
-    parser.add_argument("--time_coo_combiners", action="store_true",
-                        help="only time phase 15's mean / sum / sqrtn "
-                        "device transform of the package beside this "
-                        "script (no check, no result line)")
     args = parser.parse_args()
 
     if not (ROOT / "keras_rs_tpu_torch" / "csrc").is_dir():
@@ -6743,31 +5778,26 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.cuda.set_device(torch.device("cuda", 0))
-    if args.time_coo_combiners:
-        log(f"[coo] {ROOT}: mean / sum / sqrtn stack: "
-            f"{combiner_timing(args.seed, card)}")
-        return 0
     t0 = time.perf_counter()
     phase_build()
 
-    b1, slots_4m, sink_4m = run_dlrm(args.seed, args.profile)
+    b1, slots_4m, sink_4m = run_dlrm(args.seed)
     log(f"[time] packed DLRM phases done at {time.perf_counter() - t0:.1f} s")
-    kernels = [b1] + run_row_scatter(args.seed, args.profile, slots_4m,
-                                     sink_4m)
+    kernels = [b1] + run_row_scatter(args.seed, slots_4m, sink_4m)
     log(f"[time] capacity and row-scatter phases done at "
         f"{time.perf_counter() - t0:.1f} s")
-    kernels += run_sasrec(args.seed, args.profile)
+    kernels += run_sasrec(args.seed)
     log(f"[time] SASRec phases done at {time.perf_counter() - t0:.1f} s")
     phase_coo(args.seed)
-    unpipelined = run_mlperf(args.seed, args.profile)
+    run_mlperf(args.seed)
     phase_auc()
-    run_mlperf_files(args.seed, unpipelined)
+    run_mlperf_files(args.seed)
     log(f"[time] COO, ml_perf, AUC and file phases done at "
         f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     reset_launch_counts()
     phase_retrieval_small(dev, args.seed)
-    run_retrieval(dev, args.seed, args.profile)
+    run_retrieval(dev, args.seed)
     run_ranking(dev, args.seed)
     if any(launch_counts().values()):
         fail(f"retrieval and ranking launched kernels: {launch_counts()}")
@@ -6776,11 +5806,11 @@ def main() -> int:
     phase_serving_small(args.seed)
     phase_export(args.seed)
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
-    run_a13(dev, args.seed, args.profile)
+    run_a13(dev, args.seed)
     log(f"[time] GRU4Rec, layer and checkpoint phases done at "
         f"{time.perf_counter() - t0:.1f} s")
-    run_pipelined(dev, args.seed, args.profile, unpipelined)
-    run_pipelined_split(dev, args.seed, args.profile)
+    run_pipelined(dev, args.seed)
+    run_pipelined_split(dev, args.seed)
     run_walkthroughs(dev)
     log(f"[time] pipelined and walkthrough phases done at "
         f"{time.perf_counter() - t0:.1f} s")
