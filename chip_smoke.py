@@ -93,7 +93,9 @@ Phases (any failure raises, so the exit code is not 0):
                    shapes;
   3. dlrm small    a small f32 DLRM, 3 steps on the card and on the CPU;
   4. dlrm train    8 steps on one fixed batch (loss falls), then 3 fresh
-                   batches; B1 launches once per step per stack;
+                   batches; B1 launches once per step per stack (its
+                   wrapper runs in the first three steps, the later
+                   ones replay the step's CUDA graph);
   5. dlrm score    3 fresh request batches: finite logits, state
                    unchanged, no kernel launch;
   6. scatter       B4 (bf16 + f32 streams) and B2 ([R, 3, 128] f32)
@@ -346,9 +348,10 @@ Phases (any failure raises, so the exit code is not 0):
                    layer of nested feature configs returns its nest and
                    equals its from_config rebuild.
 
-The launch counts in the kernels line are those of the main paths alone:
-every count is set to 0 just before a path's train-and-serve run and read
-just after it (B1 from the packed path and from phase 34's entry point
+The launch counts in the kernels line are those of the main paths alone,
+counted by the kernels' wrappers (a training step replayed as a CUDA
+graph calls none: `wrapper_steps`): every count is set to 0 just before
+a path's train-and-serve run and read just after it (B1 from the packed path and from phase 34's entry point
 on both ranks, B2 from f32 + Adam, B3 from capacity mode and from phase
 35 on both ranks, B4 from bf16 + Adagrad, B5-B7 from SASRec; the parts
 are printed on `[launches]` lines). The ml_perf path's counts (phases 16
@@ -951,13 +954,35 @@ ROW_KERNELS = ("apply_scatter_row_blocks", "scatter_row_blocks",
 
 
 def reset_launch_counts() -> None:
+    """Sets every kernel's launch count to 0, and StepGraph's totals."""
     from keras_rs_tpu_torch.ops import flash_attention as fa
     from keras_rs_tpu_torch.ops import row_ops
+    from keras_rs_tpu_torch.training.train_state import StepGraph
 
     for name in ROW_KERNELS:
         getattr(row_ops, name).launches = 0
     for name in FLASH_KERNELS:
         getattr(fa, name).launches = 0
+    StepGraph.totals.clear()
+
+
+def replays() -> int:
+    """Training steps replayed as a CUDA graph since reset_launch_counts()
+    (training/train_state.StepGraph), the capturing calls' included."""
+    from keras_rs_tpu_torch.training.train_state import StepGraph
+
+    return StepGraph.totals["replays"]
+
+
+def wrapper_steps(steps: int) -> int:
+    """Of `steps` training-step calls since reset_launch_counts(), those
+    that ran the step's Python, and with it each kernel's wrapper, which
+    counts its launches: all but the replays of a captured graph, whose
+    kernels the graph launches. A capturing call runs both."""
+    from keras_rs_tpu_torch.training.train_state import StepGraph
+
+    totals = StepGraph.totals
+    return steps - (totals["replays"] - totals["captures"])
 
 
 def launch_counts() -> dict[str, int]:
@@ -1017,8 +1042,13 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
     `fresh_steps` on fresh batches, then `score_batches` scoring batches
     under no_grad (finite logits, state unchanged, no kernel launch).
     Every launch count is set to 0 just before and read just after: each
-    kernel in `expect` must launch that many times per step and stack,
-    every other kernel never. Returns the counts and the peak memory."""
+    kernel in `expect` must launch that many times per step and stack
+    through its wrapper (in the calls that ran the step's Python: the
+    first, the warm-up and the capturing call of the step's CUDA graph),
+    every other kernel never; every later step must replay the graph, and
+    the stacks' step counters, which the update kernels' steps advance on
+    the card, must count every step. Returns the counts, the replays and
+    the peak memory."""
     import torch
 
     from keras_rs_tpu_torch.models.dlrm import bce_loss
@@ -1051,19 +1081,25 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
         fail(f"{label}: non-finite loss on fresh batches")
     n_steps = fixed_steps + fresh_steps
     trained = launch_counts()
-    want = {name: expect.get(name, 0) * n_steps * n_stacks
+    ran = wrapper_steps(n_steps)
+    want = {name: expect.get(name, 0) * ran * n_stacks
             for name in trained}
     if trained != want:
-        fail(f"{label}: launches {trained} in {n_steps} steps of {n_stacks} "
-             f"stack(s), expected {want}")
+        fail(f"{label}: launches {trained} in the {ran} of {n_steps} steps "
+             f"that ran their wrappers, {n_stacks} stack(s), expected "
+             f"{want}")
+    replayed = replays()
+    if replayed != max(n_steps - 2, 0):
+        fail(f"{label}: {replayed} of {n_steps} steps replayed the step's "
+             f"graph, expected all but the first two")
     steps_done = [float(emb.stack_state(i)["step"]) for i in range(n_stacks)]
     if steps_done != [float(n_steps)] * n_stacks:
         fail(f"{label}: stack step counters {steps_done}, expected "
              f"{n_steps}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[{label} train] peak device memory {peak_gb:.2f} GB; launches "
-        f"{ {k: v for k, v in trained.items() if v} }; step counters "
-        f"{steps_done}")
+        f"{ {k: v for k, v in trained.items() if v} } in {ran} steps and "
+        f"{replayed} graph replays; step counters {steps_done}")
 
     sums = [state_checksum(emb.stack_state(i)) for i in range(n_stacks)]
     with torch.no_grad():
@@ -1081,7 +1117,7 @@ def drive_dlrm(label: str, model, cfg, seed: int, fixed, expect: dict,
     log(f"[{label} score] {score_batches} batches of {B}: finite logits; "
         "state checksums (table and slots) unchanged")
     del opt, step
-    return {"launches": trained, "peak_gb": peak_gb}
+    return {"launches": trained, "replays": replayed, "peak_gb": peak_gb}
 
 
 def run_dlrm(seed: int) -> tuple[dict, object, int]:
@@ -1871,26 +1907,34 @@ def run_mlperf(seed: int) -> None:
     capped = [min(v, VOCAB_CAP) for v in CRITEO_VOCAB_SIZES]
     dev = torch.device("cuda", 0)
 
-    def drive(label, steps, expect_b1, **overrides):
+    def drive(label, steps, calls, **overrides):
+        """main for `steps` steps, `calls` calls of its step in all; B1
+        once per call that ran the step's Python, no other kernel."""
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         r = mlperf.main("full_criteo", device=dev, num_steps=steps,
                         vocab_sizes=capped, **overrides)
         counts = launch_counts()
+        expect_b1 = wrapper_steps(calls)
         want = {k: expect_b1 if k == "apply_scatter_row_blocks" else 0
                 for k in counts}
         if counts != want:
-            fail(f"mlperf {label}: launches {counts}, expected {want}")
+            fail(f"mlperf {label}: launches {counts}, expected {want} "
+                 f"({calls} steps, {replays()} graph replays)")
         peak = torch.cuda.max_memory_allocated() / 1e9
         if not main_results_ok(r, overrides.get("honest_timing", False)):
             fail(f"mlperf {label}: results {r}")
         log(f"[mlperf {label}] results {r}; peak device memory "
-            f"{peak:.2f} GB; B1 launches {expect_b1}")
+            f"{peak:.2f} GB; B1 launches {expect_b1} in {calls} steps, "
+            f"{replays()} graph replays")
         torch.cuda.empty_cache()
         return r
 
     drive("device", MLPERF_STEPS, MLPERF_STEPS + MLPERF_TIMING_STEPS,
           device_preprocessing=True, honest_timing=True)
+    if not replays() > MLPERF_TIMING_STEPS:
+        fail(f"mlperf device: {replays()} steps replayed the step's graph "
+             f"in {MLPERF_STEPS + MLPERF_TIMING_STEPS}")
     cfg = configs.full_criteo(vocab_sizes=capped)
     rh = drive("host", MLPERF_HOST_STEPS, MLPERF_HOST_STEPS,
                num_loader_threads=4)
@@ -2173,8 +2217,10 @@ def run_mlperf_files(seed: int) -> None:
                     device_preprocessing=True, file_pattern=train,
                     val_file_pattern=val, file_batch_size=FILE_BATCH)
             counts = launch_counts()
-            log(f"[launches] phase 17b mlperf from files, {label}: {counts}")
-            want = {k: steps if k == "apply_scatter_row_blocks" else 0
+            log(f"[launches] phase 17b mlperf from files, {label}: {counts} "
+                f"in {steps} steps, {replays()} graph replays")
+            want = {k: wrapper_steps(steps)
+                    if k == "apply_scatter_row_blocks" else 0
                     for k in counts}
             if counts != want:
                 fail(f"mlperf files {label}: launches {counts}, expected "
@@ -3742,8 +3788,8 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
     counts = launch_counts()
     row = sum(counts[k] for k in ROW_KERNELS)
     # main's runs (8 steps to the resumed end, then 24) and the
-    # reference's 8.
-    want_row = (RESUME_TO + 24 + RESUME_TO) * n_stacks
+    # reference's 8, but for the replays of their graphs.
+    want_row = wrapper_steps(RESUME_TO + 24 + RESUME_TO) * n_stacks
     log(f"[checkpoint] ml_perf smoke_test: {RESUME_AT} steps with "
         f"checkpoints, then a rerun to {RESUME_TO} that logged 'resumed "
         f"from checkpoint step {RESUME_AT}' and left "
@@ -3753,7 +3799,8 @@ def phase_checkpoint(dev, model, step, seed: int) -> None:
         f"step-{RESUME_TO} state's step counters {counters}, largest gap "
         f"to that process's state {gaps[worst]!r} ({worst}); --profile "
         f"over 24 steps wrote {traces} of {sizes} bytes (loss "
-        f"{prof['loss']!r}); launches {counts}")
+        f"{prof['loss']!r}); launches {counts}, {replays()} graph "
+        f"replays")
     if (not math.isfinite(runs[1]["loss"])
             or abs(runs[1]["loss"] - ref_losses[-1]) > MODE_LOSS_BOUND
             or counters != [float(RESUME_TO)] * n_stacks):
@@ -4437,25 +4484,45 @@ BENCH_CAPACITY_ENV = {"BENCH_TABLE_DTYPE": "bfloat16",
 
 def bench_line(label: str, env: dict, keys, expect: dict) -> None:
     """keras_rs_tpu_torch.bench.main() in this process under `env`, its
-    launch counts zeroed just before and read just after (they must
-    equal `expect`); its stdout kept, its last line parsed and checked.
-    bench.py reads its knobs from os.environ."""
+    launch counts zeroed just before and read just after; its stdout
+    kept, its last line parsed and checked. bench.py reads its knobs from
+    os.environ. `expect` holds the launches of its steps run eagerly, one
+    per step of a kernel's models: the steps that replayed a graph of a
+    model with stacked tables (training/train_state.StepGraph) launched
+    none through their wrappers, and there must be some."""
     import io
     from unittest import mock
 
     from keras_rs_tpu_torch import bench
 
+    graphs = []  # the StepGraph counts of bench's stacked models
+
+    def make_train_step(model, *args, **kwargs):
+        step = real_make_train_step(model, *args, **kwargs)
+        layer = getattr(model, "embedding_layer", None)
+        if layer is not None and layer.has_sharded_tables():
+            graphs.append(step.graphs.counts)
+        return step
+
+    real_make_train_step = bench.make_train_step
     out = io.StringIO()
     reset_launch_counts()
-    with mock.patch.dict(os.environ, env), contextlib.redirect_stdout(out):
+    with (mock.patch.dict(os.environ, env),
+          mock.patch.object(bench, "make_train_step", make_train_step),
+          contextlib.redirect_stdout(out)):
         bench.main()
     counts = launch_counts()
+    replayed = sum(c["replays"] - c["captures"] for c in graphs)
+    if not replayed > 0:
+        fail(f"bench {label}: no step replayed a graph ({graphs})")
+    expect = {k: n - replayed if n else 0 for k, n in expect.items()}
     lines = out.getvalue().strip().splitlines()
     for line in lines[:-1]:
         log(f"[bench {label}] {line}")
     result = json.loads(lines[-1])
     log(f"[bench {label}] {json.dumps(result)}")
-    log(f"[launches] phase 32b bench, {label}: {counts}")
+    log(f"[launches] phase 32b bench, {label}: {counts}; {replayed} "
+        f"steps only replayed a graph")
     if counts != expect:
         fail(f"bench {label}: launches {counts}, expected {expect}")
     missing = [k for k in keys if k not in result]

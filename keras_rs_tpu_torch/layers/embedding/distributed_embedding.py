@@ -747,6 +747,13 @@ class DistributedEmbedding(nn.Module):
         self.stacks = tuple(new_stacks)
         return changed
 
+    def graph_key(self) -> tuple[TableStack, ...]:
+        """The plain state that shapes a training step's CUDA graph
+        (training/train_state.StepGraph): the stacks, whose capacities
+        size the device COO. A rebuild replaces them, and the next steps
+        capture anew."""
+        return self.stacks
+
     def has_sharded_tables(self) -> bool:
         """Whether any table resolved to the stacked (sharded) engine:
         with "auto" placement, true once the mesh has more than one

@@ -40,29 +40,26 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from keras_rs_tpu_torch.utils import cuda_graph
+
 #: Runs of `fn` on a side stream before the capture (lazy allocations,
 #: library handles and workspaces must exist before capture).
 WARMUP_RUNS = 2
 
-_SCALARS = (bool, int, float, str, type(None))
 
-
-def _signature(leaf: Any) -> Any:
-    if isinstance(leaf, torch.Tensor):
-        return ("tensor", tuple(leaf.shape), leaf.dtype, leaf.device)
-    if isinstance(leaf, _SCALARS):
-        return ("value", leaf)
-    if hasattr(leaf, "__array__"):
+def _signature(leaf: Any) -> tuple:
+    if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "__array__"):
         raise ValueError(
             f"aot_compile takes tensors, not {type(leaf).__name__}: "
             "densify Ragged ids (to_padded(max_length=...)) and move "
             "arrays to tensors first."
         )
-    return ("object", id(leaf))
+    return cuda_graph.leaf_signature(leaf)
 
 
 class CompiledFn:
-    """The callable `aot_compile` returns."""
+    """The callable `aot_compile` returns (utils/cuda_graph.py's Graph on
+    CUDA tensors)."""
 
     def __init__(self, fn: Callable, example_args: tuple) -> None:
         leaves, self._spec = pytree.tree_flatten(example_args)
@@ -72,25 +69,18 @@ class CompiledFn:
         on_cuda = {t.is_cuda for t in tensors}
         if len(on_cuda) > 1:
             raise ValueError("aot_compile: example tensors on CUDA and CPU.")
-        self.graph: torch.cuda.CUDAGraph | None = None
+        self.graph: cuda_graph.Graph | None = None
         if on_cuda == {True}:
-            self._capture(leaves)
-
-    def _capture(self, leaves: list) -> None:
-        self._static = [
-            x.clone() if isinstance(x, torch.Tensor) else x for x in leaves
-        ]
-        args = pytree.tree_unflatten(self._static, self._spec)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), torch.no_grad():
+            side = torch.cuda.Stream()
+            args = pytree.tree_unflatten(leaves, self._spec)
             for _ in range(WARMUP_RUNS):
-                self._fn(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            self._out = self._fn(*args)
-        self.graph = graph
+                cuda_graph.run_on(side, self._call, args)
+            self.graph = cuda_graph.Graph(self._call, leaves, self._spec,
+                                          side)
+
+    def _call(self, args: tuple) -> Any:
+        with torch.no_grad():
+            return self._fn(*args)
 
     def __call__(self, *args: Any) -> Any:
         leaves, spec = pytree.tree_flatten(args)
@@ -107,16 +97,8 @@ class CompiledFn:
                     f"for {want[1:]}."
                 )
         if self.graph is None:
-            with torch.no_grad():
-                return self._fn(*args)
-        for static, leaf in zip(self._static, leaves):
-            if isinstance(leaf, torch.Tensor):
-                static.copy_(leaf)
-        self.graph.replay()
-        return pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-            self._out,
-        )
+            return self._call(args)
+        return self.graph(leaves)
 
 
 def aot_compile(fn: Callable, *example_args: Any) -> CompiledFn:

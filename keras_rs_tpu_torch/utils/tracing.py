@@ -27,11 +27,25 @@ on the host, a one-element integer tensor adds on its device into an
 int64 accumulator with no host read. `counters()` reads them all, with
 one synchronisation per device.
 
+A step replayed as a CUDA graph (train_state.py) runs none of its Python,
+so its inner spans are not recorded: it has the spans `step` and
+`step.replay`. Its host-int counters add what the capture counted, its
+device counters add on the device as captured, and a `reset()` makes
+the next steps capture anew into the new counters.
+
 The spans and counters of the port:
 
     step                       the training step (train_state.py)
     step.forward / .backward / .optimizer
                                the loss, its backward, the dense optimizer
+                               (eager and capturing calls)
+    step.replay                the copy of the batch into the graph's
+                               inputs and the graph's launch
+    step.graph_captures        counter: captures of the step's graph
+    step.graph_replays         counter: steps run as a replay, the
+                               capturing call's own included
+    step.graph_eager           counter: steps on a CUDA device at D = 1
+                               that ran eagerly
     embedding.coo              the device COO transform, per stack and
                                around the whole batch (distributed_embedding)
     embedding.lookup           a stack's lookup forward (lookup.py)
@@ -97,6 +111,7 @@ _step_stack: list | None = None
 _lock = threading.Lock()
 _host_counts: dict[str, int] = {}
 _device_counts: dict[str, torch.Tensor] = {}
+_generation = 0
 
 
 class _Open:
@@ -192,6 +207,20 @@ def counters() -> dict[str, int]:
     return out
 
 
+def host_counts() -> dict[str, int]:
+    """The counters that add on the host (host ints), as they stand: no
+    device read."""
+    with _lock:
+        return dict(_host_counts)
+
+
+def generation() -> int:
+    """How many times `reset()` has run: a CUDA graph of the step
+    (train_state.py) replays only into the counters it was captured
+    with."""
+    return _generation
+
+
 def enable() -> None:
     global _on
     _on = True
@@ -213,9 +242,10 @@ def spans() -> list[Span]:
 
 def reset() -> None:
     """Drops the recorded spans and counters and restarts the step ids."""
-    global _steps
+    global _steps, _generation
     with _lock:
         _records.clear()
         _host_counts.clear()
         _device_counts.clear()
         _steps = itertools.count()
+        _generation += 1
